@@ -1,0 +1,171 @@
+"""Float-float exp and log (counterpart of ``repro.core.ffmath``; this slice
+carries ``exp22`` and ``log22`` with their helpers, which the FF attention
+tiers and ``token_logprob_ff`` need).
+
+Same constants, same op order as the reference (Cody–Waite ``ln2``
+reduction with exact 16-bit-piece products, FF Horner over an f32 tail,
+frexp to [sqrt2/2, sqrt2) + an atanh series for log), so the results are
+the reference's bits on arguments whose limbs stay normal.  ``torch.round``
+rounds half to even like ``jnp.round``; exact powers of two are built from
+exponent bits, never with ``exp2``.  Constants are Python floats; torch
+rounds a scalar operand to f32 before the op, as ``jnp.float32(c)`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import ff as core_ff
+from repro_torch.core import transforms as T
+from repro_torch.core.ff import FF
+
+Tensor = torch.Tensor
+Limb = Tuple[Tensor, Tensor]
+
+# Cody–Waite split of ln2 (16-bit pieces: k*L1, k*L2 exact for |k| <= 2^8)
+_EXP_L1 = 0.693145751953125          # 45426 * 2^-16
+_EXP_L2 = 1.4286197256296873e-06     # 49087 * 2^-35
+_EXP_L3 = -1.290532e-11
+_INV_LN2 = 1.4426950408889634
+
+# ln2 as an FF constant (for the log reconstruction e*ln2)
+_LN2_H, _LN2_L = 0.6931471824645996, -1.9046542121259336e-09
+
+# exp kernel: exp(r) = 1 + r + r^2 W(r); FF coefficients j = 0..5, f32 tail
+_EXP_W_FF = (
+    (0.5, 0.0),
+    (0.16666667, -4.967054e-09),
+    (0.041666668, -1.2417635e-09),
+    (0.008333334, -4.346172e-10),
+    (0.0013888889, -3.3631094e-11),
+    (0.0001984127, -2.7255969e-12),
+)
+_EXP_W_F32 = (2.4801588e-05, 2.7557319e-06, 2.755732e-07,
+              2.5052108e-08, 2.0876756e-09, 1.6059044e-10)
+
+# atanh kernel: log(m) = 2 s S(s^2); FF for n = 0..3, f32 tail n = 4..9
+_LOG_S_FF = (
+    (1.0, 0.0),
+    (0.33333334, -9.934108e-09),
+    (0.2, -2.9802323e-09),
+    (0.14285715, -6.386212e-09),
+)
+_LOG_S_F32 = (0.11111111, 0.09090909, 0.07692308,
+              0.06666667, 0.05882353, 0.05263158)
+
+_EXP_CLIP_LO, _EXP_CLIP_HI = -105.0, 89.0   # beyond: saturated anyway
+_SQRT2_F32 = 1.4142135
+
+
+def _exp2i(k: Tensor) -> Tensor:
+    """Exact 2^k for int32 k in [-126, 127], built from exponent bits."""
+    return ((k + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def _scale2k(h: Tensor, l: Tensor, k: Tensor) -> Limb:
+    """(h, l) * 2^k for int32 k in [-252, 254], exact via two half-steps."""
+    k1 = k >> 1
+    k2 = k - k1
+    s1, s2 = _exp2i(k1), _exp2i(k2)
+    return (h * s1) * s2, (l * s1) * s2
+
+
+def _exp_reduce(xh: Tensor, xl: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Cody–Waite reduction x = k*ln2 + r, r an FF pair, |r| <= ln2/2."""
+    xc = torch.clamp(xh, _EXP_CLIP_LO, _EXP_CLIP_HI)
+    kf = torch.round(xc * _INV_LN2)
+    h1 = xc - kf * _EXP_L1                        # exact
+    sh, sl = T.two_sum(h1, -(kf * _EXP_L2))       # k*L2 exact; TwoSum exact
+    v = xl - kf * _EXP_L3                         # both ~2^-28: one rounding
+    r = core_ff.add212(FF(sh, sl), v)
+    return r.hi, r.lo, kf.to(torch.int32)
+
+
+def _exp_poly(rh: Tensor, rl: Tensor) -> FF:
+    """expm1(r) = r + r^2 W(r) on |r| <= ln2/2 as an FF pair."""
+    t = _EXP_W_F32[-1]
+    for c in _EXP_W_F32[-2::-1]:
+        t = t * rh + c
+    w = FF(t, torch.zeros_like(t))
+    r = FF(rh, rl)
+    for ch, cl in _EXP_W_FF[::-1]:
+        w = core_ff.mul22(w, r)
+        w = core_ff.add22(w, FF(torch.full_like(rh, ch),
+                                torch.full_like(rh, cl)))
+    z = core_ff.mul22(r, r)                       # r^2
+    q = core_ff.mul22(z, w)                       # r^2 W
+    return core_ff.add22(r, q)                    # r + r^2 W
+
+
+def exp22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF exp of an FF input (raw limbs).  Saturates to inf above ~88.72
+    and to 0 below ~-103, as the reference does."""
+    rh, rl, k = _exp_reduce(xh, xl)
+    s = _exp_poly(rh, rl)
+    p = core_ff.add212(s, 1.0)                    # 1 + expm1(r)
+    eh, el = _scale2k(p.hi, p.lo, k)
+    inf = float("inf")
+    big = xh > _EXP_CLIP_HI
+    tiny = xh < _EXP_CLIP_LO
+    eh = torch.where(big, inf, torch.where(tiny, 0.0, eh))
+    # natural hi-limb overflow: zero the lo limb so the saturated FF is a
+    # clean (inf, 0)
+    el = torch.where(big | tiny | (eh == inf), 0.0, el)
+    nan = xh != xh
+    return torch.where(nan, xh, eh), torch.where(nan, xh, el)
+
+
+def _atanh_poly(s: FF) -> FF:
+    """S(z) = sum z^n/(2n+1) at z = s^2 <= 0.0295."""
+    z = core_ff.mul22(s, s)
+    t = _LOG_S_F32[-1]
+    for c in _LOG_S_F32[-2::-1]:
+        t = t * z.hi + c
+    a = FF(t, torch.zeros_like(t))
+    for ch, cl in _LOG_S_FF[::-1]:
+        a = core_ff.mul22(a, z)
+        a = core_ff.add22(a, FF(torch.full_like(s.hi, ch),
+                                torch.full_like(s.hi, cl)))
+    return a
+
+
+def _log_core(mh: Tensor, ml: Tensor, ef: Tensor) -> FF:
+    """log(2^e * m) = e*ln2 + 2 s S(s^2), s = (m-1)/(m+1)."""
+    m = FF(mh, ml)
+    n = core_ff.add212(m, -1.0)
+    d = core_ff.add212(m, 1.0)
+    s = core_ff.div22(n, d)
+    p = _atanh_poly(s)
+    l = core_ff.mul22(s, p)
+    l = FF(2.0 * l.hi, 2.0 * l.lo)               # exact
+    t = core_ff.mul212(FF(torch.full_like(ef, _LN2_H),
+                          torch.full_like(ef, _LN2_L)), ef)
+    return core_ff.add22(t, l)
+
+
+def _frexp_sqrt2(xh: Tensor, xl: Tensor):
+    """x = 2^e * m with m in [1/sqrt2, sqrt2), by exponent-bit surgery."""
+    bits = xh.contiguous().view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    mh = ((bits & 0x007FFFFF) | 0x3F800000).to(torch.int32).view(
+        torch.float32)
+    big = mh > _SQRT2_F32
+    mh = torch.where(big, mh * 0.5, mh)
+    e = e + big.to(torch.int32)
+    ml, _zero = _scale2k(xl, torch.zeros_like(xl), -e)
+    return mh, ml, e
+
+
+def log22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF natural log of an FF input: nan for x < 0, -inf at x == 0."""
+    mh, ml, e = _frexp_sqrt2(xh, xl)
+    r = _log_core(mh, ml, e.to(torch.float32))
+    rh, rl = r.hi, r.lo
+    bad = (xh < 0) | (xh != xh)
+    rh = torch.where(xh == 0, float("-inf"),
+                     torch.where(bad, float("nan"), rh))
+    rh = torch.where(xh == float("inf"), float("inf"), rh)
+    rl = torch.where((xh == 0) | bad | (xh == float("inf")), 0.0, rl)
+    return rh, rl

@@ -1,0 +1,131 @@
+"""Paged KV cache: fixed-size pages, one block table for every plane
+(counterpart of ``repro.serve.paged_kv``; kv_modes "bf16" and "f32" —
+"ff_bf16" limb planes are not ported yet).
+
+KV lives in ``(L, num_pages, page_size, KV, hd)`` device tensors
+("planes"), updated in place; the block table, lengths and free list are
+host-side numpy, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+Tensor = torch.Tensor
+
+#: plane names per kv_mode (all planes share the block table)
+_MODE_PLANES = {"bf16": ("k", "v"), "f32": ("k", "v")}
+_MODE_DTYPE = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def ff_split(x: Tensor, dtype=torch.bfloat16):
+    """Split an f32 tensor into (hi, lo) storage limbs: ``hi = round(x)``,
+    ``lo = round(x - hi)``."""
+    xf = x.to(torch.float32)
+    hi = xf.to(dtype)
+    lo = (xf - hi.to(torch.float32)).to(dtype)
+    return hi, lo
+
+
+def ff_merge(hi: Tensor, lo: Tensor) -> Tensor:
+    """Rebuild the f32 value from storage limbs (exact sum in f32)."""
+    return hi.to(torch.float32) + lo.to(torch.float32)
+
+
+class PagedKVCache:
+    """Fixed-pool paged KV store for ``max_seqs`` concurrent sequences.
+
+    The block table is numpy ``(max_seqs, max_pages)`` int32 with ``-1``
+    marking unallocated entries."""
+
+    def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int, *,
+                 num_pages: int, page_size: int = 16, max_seqs: int = 8,
+                 max_ctx: int = 512, kv_mode: str = "bf16", device=None):
+        if kv_mode not in _MODE_PLANES:
+            raise ValueError(f"unknown kv_mode {kv_mode!r}; choose from "
+                             f"{tuple(_MODE_PLANES)}")
+        self.num_layers = num_layers
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_seqs = max_seqs
+        self.max_pages = -(-max_ctx // page_size)   # pages per sequence row
+        self.kv_mode = kv_mode
+        self.device = resolve_device(device)
+        shape = (num_layers, num_pages, page_size, num_kv_heads, head_dim)
+        self.planes: Dict[str, Tensor] = {
+            name: torch.zeros(shape, dtype=_MODE_DTYPE[kv_mode],
+                              device=self.device)
+            for name in _MODE_PLANES[kv_mode]}
+        self.block_table = np.full((max_seqs, self.max_pages), -1, np.int32)
+        self.seq_lens = np.zeros((max_seqs,), np.int32)
+        self.free_pages: List[int] = list(range(num_pages - 1, -1, -1))
+
+    # -- allocation --------------------------------------------------------
+
+    def pages_for(self, length: int) -> int:
+        return -(-length // self.page_size)
+
+    def can_alloc(self, length: int) -> bool:
+        return len(self.free_pages) >= self.pages_for(length)
+
+    def alloc(self, slot: int, length: int) -> List[int]:
+        """Allocate pages for ``length`` tokens in ``slot``; returns the
+        page ids (also recorded in the block table)."""
+        need = self.pages_for(length)
+        if need > self.max_pages:
+            raise ValueError(f"length {length} exceeds max_ctx "
+                             f"({self.max_pages * self.page_size})")
+        if need > len(self.free_pages):
+            raise RuntimeError("paged KV pool exhausted")
+        if self.seq_lens[slot] or (self.block_table[slot] >= 0).any():
+            raise RuntimeError(f"slot {slot} already holds a sequence")
+        ids = [self.free_pages.pop() for _ in range(need)]
+        self.block_table[slot, :need] = ids
+        self.seq_lens[slot] = length
+        return ids
+
+    def free_slot(self, slot: int) -> None:
+        """Evict a sequence: return its pages to the free list (contents
+        stay; masked reads never see them)."""
+        for pid in self.block_table[slot]:
+            if pid >= 0:
+                self.free_pages.append(int(pid))
+        self.block_table[slot] = -1
+        self.seq_lens[slot] = 0
+
+    # -- data movement -----------------------------------------------------
+
+    def write_prefill(self, slot: int, tensors: Dict[str, Tensor]) -> None:
+        """Write per-layer contiguous K/V (``{"k": (L, S, KV, hd), "v":
+        ...}``) into this slot's pages."""
+        S = int(tensors["k"].shape[1])
+        if S != int(self.seq_lens[slot]):
+            raise ValueError("prefill length != allocated length")
+        npg = self.pages_for(S)
+        ids = torch.as_tensor(self.block_table[slot, :npg], dtype=torch.long,
+                              device=self.device)
+        pad = npg * self.page_size - S
+        for base in ("k", "v"):
+            x = torch.nn.functional.pad(tensors[base],
+                                        (0, 0, 0, 0, 0, pad))
+            paged = x.reshape(x.shape[0], npg, self.page_size,
+                              self.num_kv_heads, self.head_dim)
+            self.planes[base][:, ids] = paged.to(self.planes[base].dtype)
+
+    def gather(self, slot: int) -> Dict[str, Tensor]:
+        """Contiguous read-back of a slot ({"k": (L, S, KV, hd), ...})."""
+        S = int(self.seq_lens[slot])
+        npg = self.pages_for(S)
+        ids = torch.as_tensor(self.block_table[slot, :npg], dtype=torch.long,
+                              device=self.device)
+        return {base: self.planes[base][:, ids].reshape(
+                    self.num_layers, npg * self.page_size,
+                    self.num_kv_heads, self.head_dim)[:, :S]
+                for base in ("k", "v")}

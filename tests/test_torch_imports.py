@@ -1,0 +1,122 @@
+"""The port stands alone and never falls back silently.
+
+  * importing every ``repro_torch`` module loads neither JAX nor ``repro``;
+  * entry points default to the CUDA card and raise without one;
+  * kernel wrappers take their plain version only for CPU tensors, and the
+    dispatch picks the kernel impl by default for CUDA tensors;
+  * ``chip_smoke.py`` exits non-zero with no result off the card and
+    outside a checkout.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.ff import dispatch
+from repro_torch.kernels import build, ff_attention, ff_fused
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_import_every_module_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20 and bad == "[]", out.stdout
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(name="t", num_layers=1, d_model=64, num_heads=2,
+                      num_kv_heads=1, d_ff=64, vocab_size=32)
+    params = {"final_norm": torch.ones(64)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.resolve_device(None)
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(rng.standard_normal((3, 300)).astype(np.float32))
+    n0 = ff_fused.mean_sq.launches
+    assert torch.equal(ff_fused.mean_sq(x), ff_fused.mean_sq_plain(x))
+    q = torch.from_numpy(rng.standard_normal((1, 5, 2, 8))
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 5, 1, 8))
+                         .astype(np.float32))
+    got = ff_attention.flash_attention_pallas(q, k, k, return_ff=True)
+    want = ff_attention.flash_attention_ff(q, k, k, return_ff=True)
+    assert torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)
+    assert ff_fused.mean_sq.launches == n0        # nothing was launched
+    meta = torch.empty((2, 8), device="meta")     # neither CPU nor CUDA
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ff_fused.mean_sq(meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ff_attention.flash_attention_pallas(
+            torch.empty((1, 2, 2, 8), device="meta"),
+            torch.empty((1, 2, 1, 8), device="meta"),
+            torch.empty((1, 2, 1, 8), device="meta"))
+
+
+def test_dispatch_defaults_and_resolution_order():
+    assert dispatch.resolve_name("mean_sq", device="cuda") == "fused"
+    assert dispatch.resolve_name("mean_sq", device="cpu") == "jnp"
+    assert dispatch.resolve_name("attention", device="cuda") == "fast"
+    with repro_torch.ff.use(mean_sq="jnp"):
+        assert dispatch.resolve_name("mean_sq", device="cuda") == "jnp"
+        assert dispatch.resolve_name("mean_sq", "fused", "cuda") == "fused"
+    with pytest.raises(KeyError, match="available"):
+        dispatch.resolve_name("attention", "f64")
+    with repro_torch.ff.policy("ff_reduce", attention="pallas") as p:
+        assert p.ff_reductions and p.attention == "pallas"
+        assert repro_torch.ff.resolve_policy(None) is p
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build raises (no silent fallback) and writes
+    nothing into the checkout."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "ROOT", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_card_or_checkout(where, tmp_path):
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = tmp_path / "chip_smoke.py"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")   # hide any card
+    out = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
