@@ -1,18 +1,25 @@
 """``repro_torch.ff``: the port's public FF namespace (counterpart of
-``repro.ff``, with the ops of the serving path).
+``repro.ff``, with the ops of the serving and training paths).
 
     import repro_torch.ff as ff
     with ff.policy("ff_reduce", attention="pallas"):
         ...                                  # models read the scope
     ff.mean_sq(x)                            # fused CUDA kernel on the card
+    s = ff.sum(x)                            # compensated sum -> FF
+    ff.adamw_update(g, m, v, w, wlo, lr, b1, b2, bc1, bc2, eps=1e-8,
+                    wd=0.1)                  # one kernel, in place
+
+``sum``, ``logsumexp``, ``mean_sq`` and ``attention`` carry their
+reference gradients (:mod:`repro_torch.ff.autodiff`).
 """
 
 from repro_torch.core.ff import FF
 from repro_torch.core.policy import PrecisionPolicy
-from repro_torch.ff.dispatch import (attention, impls, logsumexp, mean_sq,
-                                     ops, resolve_name)
+from repro_torch.ff.dispatch import (adamw_update, add, attention, impls,
+                                     logsumexp, mean_sq, ops, resolve_name,
+                                     sum)
 from repro_torch.ff.scope import current_policy, policy, resolve_policy, use
 
-__all__ = ["FF", "PrecisionPolicy", "attention", "current_policy", "impls",
-           "logsumexp", "mean_sq", "ops", "policy", "resolve_name",
-           "resolve_policy", "use"]
+__all__ = ["FF", "PrecisionPolicy", "adamw_update", "add", "attention",
+           "current_policy", "impls", "logsumexp", "mean_sq", "ops",
+           "policy", "resolve_name", "resolve_policy", "sum", "use"]

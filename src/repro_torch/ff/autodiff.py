@@ -1,0 +1,117 @@
+"""Gradients of the FF ops on the training path: one
+``torch.autograd.Function`` per op (counterpart of the ``custom_vjp``
+rules of ``repro.ff.autodiff``).
+
+Each backward is the reference's closed form.  Autograd never traces
+through the EFT code inside: the error terms of TwoSum/Add22 chains have
+zero derivative almost everywhere, so differentiating them op by op gives
+a wrong gradient for the low limbs and thousands of backward ops.
+
+The Functions take the already resolved implementation ``fn`` (the
+public calls in ``repro_torch.ff.dispatch`` resolve it against the
+registry and the scopes), so the forward runs exactly what a call
+without gradients runs: on the card, the CUDA kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ff_attention import flash_attention_fast
+
+Tensor = torch.Tensor
+
+# the options of the attention call that the fast recurrence shares
+_ATTN_FAST_KEYS = ("causal", "block_q", "block_kv", "q_offset", "scale")
+
+
+def _norm_axes(axis, ndim: int) -> Tuple[int, ...]:
+    """``axis`` (None, an int or a sequence) as sorted non-negative axes."""
+    if axis is None:
+        return tuple(range(ndim))
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return tuple(sorted(a % ndim for a in axes))
+
+
+class Sum(torch.autograd.Function):
+    """``ff.sum`` -> FF limbs (hi, lo).  Backward: the normalised FF
+    cotangent's hi limb, broadcast over the summed axes
+    (``repro/ff/autodiff.py:402-417``)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, fn: Callable, axis) -> Tuple[Tensor, Tensor]:
+        ctx.axes = _norm_axes(axis, x.ndim)
+        ctx.shape = x.shape
+        r = fn(x, axis=axis)
+        return r.hi, r.lo
+
+    @staticmethod
+    def backward(ctx, g_hi: Tensor, g_lo: Tensor):
+        g = g_hi + g_lo                  # hi limb of the normalised pair
+        for ax in ctx.axes:
+            g = g.unsqueeze(ax)
+        return g.expand(ctx.shape), None, None
+
+
+class LogSumExp(torch.autograd.Function):
+    """``ff.logsumexp`` -> f32.  Backward: ``g * exp(x - out)``, the
+    softmax (``repro/ff/autodiff.py:461-477``)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, fn: Callable, axis: int) -> Tensor:
+        out = fn(x, axis=axis)
+        ctx.axis = axis
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        x, out = ctx.saved_tensors
+        ax = ctx.axis
+        return g.unsqueeze(ax) * torch.exp(x - out.unsqueeze(ax)), None, None
+
+
+class MeanSq(torch.autograd.Function):
+    """``ff.mean_sq`` (the RMSNorm statistic) -> f32.  Backward:
+    ``x * (2g / n)`` (``repro/ff/autodiff.py:657-685``)."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, fn: Callable) -> Tensor:
+        ctx.save_for_backward(x)
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        (x,) = ctx.saved_tensors
+        return x * (2.0 * g[..., None] / x.shape[-1]), None
+
+
+class Attention(torch.autograd.Function):
+    """``ff.attention`` on an accurate tier, without ``kv_len``.  Backward:
+    the gradient of the fast f32 recurrence at the same inputs, recomputed
+    (``repro/ff/autodiff.py:567-594``): the FF value is 2^-44-class, its
+    gradients stay at flash-attention training precision, as in the
+    reference."""
+
+    @staticmethod
+    def forward(ctx, q: Tensor, k: Tensor, v: Tensor, fn: Callable,
+                opts: dict) -> Tensor:
+        ctx.opts = {n: o for n, o in opts.items() if n in _ATTN_FAST_KEYS}
+        ctx.save_for_backward(q, k, v)
+        return fn(q, k, v, **opts)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y = flash_attention_fast(*qkv, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(y, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def needs_grad(*xs: Optional[Tensor]) -> bool:
+    """Whether a call on ``xs`` has to record its gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, Tensor) and x.requires_grad for x in xs)

@@ -1,5 +1,5 @@
 """Dispatch registry for ``repro_torch.ff`` (counterpart of
-``repro.ff.dispatch``, with the ops this slice needs).
+``repro.ff.dispatch``, with the ops of the serving and training paths).
 
 Each op name maps to named implementations; a call resolves one:
 
@@ -9,18 +9,25 @@ Each op name maps to named implementations; a call resolves one:
 Tuned, mesh and guard resolution are not ported yet.  Implementation names
 are the reference's, so one policy string means the same in both packages:
 for ``attention``, ``"pallas"`` names the one-kernel tier, which in the port
-is a CUDA kernel.
+is a CUDA kernel, and for ``adamw_update``, ``"fused"`` names the one-kernel
+update, the CUDA default as ``"tpu"`` is the reference's.
+
+The public calls route through the ``torch.autograd.Function``s of
+:mod:`repro_torch.ff.autodiff` when an input requires a gradient.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import compensated
-from repro_torch.ff import scope
+from repro_torch.core import ff as core_ff
+from repro_torch.core.ff import FF
+from repro_torch.ff import autodiff, scope
 from repro_torch.kernels import ff_attention, ff_fused
 
 Tensor = torch.Tensor
@@ -75,6 +82,36 @@ def _fallback_warn(impl: str, op: str, why: str) -> None:
                   f"jnp formulation", stacklevel=3)
 
 
+# -- add: FF addition with the FF/f32 promotions -----------------------------
+
+def _as_ff(x) -> FF:
+    if isinstance(x, FF):
+        return x
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return FF(x, torch.zeros_like(x))
+
+
+def _add_jnp(a, b, **_kw) -> FF:
+    """Add212 where one operand is f32, Add22 where both are FF."""
+    if isinstance(a, FF) and not isinstance(b, FF):
+        return core_ff.add212(a, torch.as_tensor(b, dtype=torch.float32))
+    if isinstance(b, FF) and not isinstance(a, FF):
+        return core_ff.add212(b, torch.as_tensor(a, dtype=torch.float32))
+    return core_ff.add22(_as_ff(a), _as_ff(b))
+
+
+register("add", "jnp", _add_jnp, default_for=("*",))
+
+
+# -- sum: the compensated sum -------------------------------------------------
+
+def _sum_blocked(x: Tensor, axis=None, *, block: int = 128, **_kw) -> FF:
+    return compensated.ff_sum_blocked(x, axis=axis, block=block)
+
+
+register("sum", "blocked", _sum_blocked, default_for=("*",))
+
+
 # -- mean_sq: the RMSNorm statistic ------------------------------------------
 
 register("mean_sq", "jnp", ff_fused.mean_sq_plain, default_for=("*",))
@@ -93,6 +130,14 @@ def _logsumexp_jnp(x: Tensor, axis: int = -1, *, block: int = 256, **_kw):
 
 
 register("logsumexp", "jnp", _logsumexp_jnp, default_for=("*",))
+
+
+# -- adamw_update: the FF-master-weight AdamW leaf update ---------------------
+
+register("adamw_update", "jnp", ff_fused.adamw_update_plain,
+         default_for=("*",))
+register("adamw_update", "fused", ff_fused.adamw_update,
+         default_for=("cuda",))
 
 
 # -- attention ----------------------------------------------------------------
@@ -115,20 +160,62 @@ register("attention", "pallas", _attention_pallas)
 
 # -- the public calls (the reference's ``repro.ff`` entry points) -----------
 
+def _resolved(op: str, impl: Optional[str], device, opts: dict):
+    """The implementation of ``op`` a call on ``device`` runs, with the
+    call's options bound."""
+    return functools.partial(lookup(op, resolve_name(op, impl, device)),
+                             **opts)
+
+
+def add(a, b, *, impl: Optional[str] = None, **opts) -> FF:
+    """FF addition (paper Add22; Add212 where one operand is f32).
+    Accepts FF or f32 operands."""
+    dev = (a.hi if isinstance(a, FF) else torch.as_tensor(a)).device
+    return _resolved("add", impl, dev, opts)(a, b)
+
+
+def sum(x: Tensor, axis=None, *, impl: Optional[str] = None,
+        **opts) -> FF:
+    """Compensated sum of an f32 tensor -> FF (~44-bit accurate)."""
+    x = x.to(torch.float32)
+    fn = _resolved("sum", impl, x.device, opts)
+    if autodiff.needs_grad(x):
+        return FF(*autodiff.Sum.apply(x, fn, axis))
+    return fn(x, axis=axis)
+
+
 def mean_sq(x: Tensor, *, impl: Optional[str] = None, **opts) -> Tensor:
     """Compensated mean of squares over the last axis -> f32 (the RMSNorm
     statistic)."""
     x = x.to(torch.float32)
-    return lookup("mean_sq", resolve_name("mean_sq", impl, x.device))(
-        x, **opts)
+    fn = _resolved("mean_sq", impl, x.device, opts)
+    if autodiff.needs_grad(x):
+        return autodiff.MeanSq.apply(x, fn)
+    return fn(x)
 
 
 def logsumexp(x: Tensor, axis: int = -1, *, impl: Optional[str] = None,
               **opts) -> Tensor:
-    """Compensated log-sum-exp -> f32."""
+    """Compensated log-sum-exp -> f32 (gradient: the softmax)."""
     x = x.to(torch.float32)
-    return lookup("logsumexp", resolve_name("logsumexp", impl, x.device))(
-        x, axis=axis, **opts)
+    fn = _resolved("logsumexp", impl, x.device, opts)
+    axis = axis % x.ndim
+    if autodiff.needs_grad(x):
+        return autodiff.LogSumExp.apply(x, fn, axis)
+    return fn(x, axis=axis)
+
+
+def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
+                 lr, b1, b2, bc1, bc2, *, eps: float, wd: float,
+                 impl: Optional[str] = None, **opts):
+    """The AdamW leaf update as one dispatched chain: the moments, bias
+    correction, decoupled weight decay and the FF master-weight Add212 —
+    one kernel launch on the card.  In place: ``(w, wlo)`` become the new
+    master weight, ``m`` and ``v`` the new moments (the reference returns
+    them).  Runs outside autograd (an optimizer step)."""
+    g = g.to(torch.float32)
+    _resolved("adamw_update", impl, g.device, opts)(
+        g, m, v, w, wlo, lr, b1, b2, bc1, bc2, eps=eps, wd=wd)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -141,7 +228,13 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     ``kv_len``: optional (B,) per-row valid-key counts (ragged serving
     batches).  ``return_ff=True`` returns the FF limb pair."""
     name = resolve_name("attention", impl, q.device)
-    return lookup("attention", name)(
-        q, k, v, causal=bool(causal), q_offset=int(q_offset), kv_len=kv_len,
-        scale=None if scale is None else float(scale), return_ff=return_ff,
-        **opts)
+    fn = lookup("attention", name)
+    call = dict(causal=bool(causal), q_offset=int(q_offset),
+                scale=None if scale is None else float(scale), **opts)
+    if name == "fast" or return_ff or not autodiff.needs_grad(q, k, v):
+        # the fast tier's gradient is plain autograd, as in the reference
+        return fn(q, k, v, kv_len=kv_len, return_ff=return_ff, **call)
+    if kv_len is not None:
+        raise NotImplementedError("the gradient of attention with a per-row "
+                                  "kv_len is not ported yet")
+    return autodiff.Attention.apply(q, k, v, fn, call)

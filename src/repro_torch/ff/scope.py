@@ -9,9 +9,10 @@ scopes are read at trace time).  Scopes are thread-local.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import Dict, Optional, Union
+from typing import Callable, ContextManager, Dict, Optional, Union
 
 from repro_torch.core.policy import BASELINE, PrecisionPolicy
 
@@ -95,3 +96,23 @@ def current_impl(op: str) -> Optional[str]:
         if op in m:
             return m[op]
     return None
+
+
+def captured() -> Callable[[], ContextManager[None]]:
+    """The calling thread's active scopes, as a context manager that
+    installs them again.  Autograd runs the backward of CUDA tensors on a
+    thread of its own, so work that a checkpoint recomputes there must
+    re-enter the scopes its forward ran under to resolve the same
+    implementations."""
+    policies, impls = list(_STATE.policies), list(_STATE.impls)
+
+    @contextlib.contextmanager
+    def installed():
+        saved = _STATE.policies, _STATE.impls
+        _STATE.policies, _STATE.impls = list(policies), list(impls)
+        try:
+            yield
+        finally:
+            _STATE.policies, _STATE.impls = saved
+
+    return installed

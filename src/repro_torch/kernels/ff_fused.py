@@ -1,22 +1,32 @@
-"""The FF RMSNorm statistic ``mean_sq`` as one CUDA kernel, and its plain
-version.
+"""Two programs of the reference's fused executor as CUDA kernels, each
+with its plain version.
 
-Counterpart of ``repro.kernels.ff_fused.run_pallas`` on the ``mean_sq``
-program ``(x*x).sum()`` (the TPU default for ``mean_sq``); the general
-Program executor is not ported yet.  The kernel (``csrc/ff_mean_sq.cu``)
-keeps the TPU kernel's 128 lanes and their fold order; the plain version
-is the reference's CPU formulation ``ff_sum_blocked(x*x, block=128)``.
-The two agree to <= 1 ulp of the f32 result (the reference's own bound
-for the two orders), in practice to the bit.
+Counterparts of ``repro.kernels.ff_fused.run_pallas`` on the two programs
+the TPU runs by default on the model paths; the general Program executor
+is not ported yet.
+
+  * ``mean_sq``, the FF RMSNorm statistic ``(x*x).sum() / C``
+    (``csrc/ff_mean_sq.cu``).  The kernel keeps the TPU kernel's 128
+    lanes and their fold order; the plain version is the reference's CPU
+    formulation ``ff_sum_blocked(x*x, block=128)``.  The two agree to
+    <= 1 ulp of the f32 result (the reference's own bound for the two
+    orders), in practice to the bit.
+  * ``adamw_update``, the AdamW leaf update with an FF master weight
+    (``csrc/ff_adamw.cu``).  Purely elementwise and correctly rounded op
+    by op, so the kernel and the plain version (``_adamw_chain`` of
+    ``repro.ff.dispatch``, same op order) agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from repro_torch.core import compensated
+from repro_torch.core import ff as core_ff
+from repro_torch.core.ff import FF
 from repro_torch.kernels import build
 
 Tensor = torch.Tensor
@@ -66,3 +76,96 @@ def mean_sq(x: Tensor) -> Tensor:
 
 
 mean_sq.launches = 0   # kernel launches since the last reset
+
+
+# -- adamw_update: the FF-master-weight AdamW leaf update ---------------------
+
+# ff_adamw_f32(g, m, v, w, wlo, scal, eps, wd, n, stream)
+_ADAMW_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+def f32_scalar(x: float) -> float:
+    """``x`` rounded to the nearest f32, as JAX rounds a weak-typed Python
+    float in an f32 expression."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _scalar(x, device) -> Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device).reshape(())
+
+
+def sqrt_rn(x: Tensor) -> Tensor:
+    """The correctly rounded f32 square root.  PyTorch's vectorised CPU
+    ``sqrt`` is not (it is within ~0.5001 ulp); the f64 root of an f32
+    rounds back to the correctly rounded f32 (53 >= 2*24 + 2 bits)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def adamw_chain(g: Tensor, m: Tensor, v: Tensor, w: Tensor, lr, b1, b2,
+                bc1, bc2, eps: float, wd: float
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The moments and the f32 weight step ``(delta, m2, v2)`` of one AdamW
+    leaf, in the reference's op order (``_adamw_chain``: the op order is
+    bitwise-load-bearing, and ``(1.0 - b2) * g * g`` associates left),
+    every op correctly rounded.  The scalars are 0-d f32 tensors on
+    ``g``'s device; ``eps`` and ``wd`` are Python floats, rounded to f32."""
+    m2 = b1 * m + (1.0 - b1) * g
+    v2 = b2 * v + (1.0 - b2) * g * g
+    upd = (m2 / bc1) / (sqrt_rn(v2 / bc2) + f32_scalar(eps))
+    upd = upd + f32_scalar(wd) * w
+    return -lr * upd, m2, v2
+
+
+def adamw_update_plain(g: Tensor, m: Tensor, v: Tensor, w: Tensor,
+                       wlo: Tensor, lr, b1, b2, bc1, bc2, *, eps: float,
+                       wd: float) -> None:
+    """The AdamW leaf update with an FF master weight ``(w, wlo)``, in
+    place: ``(w, wlo)`` become the master weight plus the step (Add212),
+    ``m`` and ``v`` the new moments."""
+    dev = g.device
+    lr, b1, b2, bc1, bc2 = (_scalar(s, dev) for s in (lr, b1, b2, bc1, bc2))
+    delta, m2, v2 = adamw_chain(g, m, v, w, lr, b1, b2, bc1, bc2, eps, wd)
+    new = core_ff.add212(FF(w, wlo), delta)
+    for dst, src in zip((w, wlo, m, v), (new.hi, new.lo, m2, v2)):
+        dst.copy_(src)
+
+
+def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
+                 lr, b1, b2, bc1, bc2, *, eps: float, wd: float) -> None:
+    """The AdamW leaf update with an FF master weight, in place, as
+    :func:`adamw_update_plain` (same arguments, same bits).
+
+    On CUDA tensors: one launch of the CUDA kernel, which raises if it
+    cannot launch (five distinct contiguous f32 leaves of one shape on
+    one device; the scalars are read on the device, with no host sync).
+    On CPU tensors: the plain version."""
+    if g.device.type == "cpu":
+        return adamw_update_plain(g, m, v, w, wlo, lr, b1, b2, bc1, bc2,
+                                  eps=eps, wd=wd)
+    if g.device.type != "cuda":
+        raise RuntimeError(f"adamw_update: no kernel for device {g.device}")
+    for t in (g, m, v, w, wlo):
+        if t.dtype != torch.float32:
+            raise TypeError(f"adamw_update kernel takes float32, got "
+                            f"{t.dtype}")
+        if t.shape != g.shape or t.device != g.device:
+            raise ValueError(f"adamw_update leaves disagree: "
+                             f"{tuple(t.shape)} on {t.device} against "
+                             f"{tuple(g.shape)} on {g.device}")
+        if not t.is_contiguous():
+            raise ValueError("adamw_update kernel takes contiguous leaves")
+    scal = torch.stack([_scalar(s, g.device)
+                        for s in (lr, b1, b2, bc1, bc2)])
+    with torch.cuda.device(g.device):
+        err = build.entry("ff_adamw", "ff_adamw_f32", _ADAMW_ARGTYPES)(
+            *(t.data_ptr() for t in (g, m, v, w, wlo, scal)),
+            f32_scalar(eps), f32_scalar(wd), g.numel(),
+            torch.cuda.current_stream(g.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ff_adamw kernel launch failed: CUDA error "
+                           f"{err}")
+    adamw_update.launches += 1
+
+
+adamw_update.launches = 0   # kernel launches since the last reset

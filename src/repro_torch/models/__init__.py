@@ -1,8 +1,10 @@
 """The dense decoder family in eager PyTorch."""
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (decode_step, init_cache, init_params,
-                                      prefill)
+from repro_torch.models.model import (chunked_cross_entropy, cross_entropy,
+                                      decode_step, init_cache, init_params,
+                                      prefill, train_forward)
 
-__all__ = ["ModelConfig", "decode_step", "init_cache", "init_params",
-           "prefill"]
+__all__ = ["ModelConfig", "chunked_cross_entropy", "cross_entropy",
+           "decode_step", "init_cache", "init_params", "prefill",
+           "train_forward"]

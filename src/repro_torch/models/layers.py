@@ -121,6 +121,19 @@ def _qkv(p: Params, x: Tensor, cfg: ModelConfig, S: int):
     return q, k, v
 
 
+def attn_apply(p: Params, x: Tensor, cfg: ModelConfig, *,
+               positions: Tensor, causal: bool = True,
+               attn_impl: str = "fast") -> Tensor:
+    """Full-sequence attention (training)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, S)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal, block_q=cfg.attn_block_q,
+                        block_kv=cfg.attn_block_kv, impl=attn_impl)
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
 def attn_prefill(p: Params, x: Tensor, cfg: ModelConfig, *,
                  positions: Tensor, cache: Params,
                  attn_impl: str = "fast") -> Tuple[Tensor, Params]:

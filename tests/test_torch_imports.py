@@ -120,3 +120,40 @@ def test_chip_smoke_fails_without_card_or_checkout(where, tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_training_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The launcher, the device self-check and the optimizer-state
+    hand-over default to the card and raise without one."""
+    from repro_torch.core import selfcheck
+    from repro_torch.interop import opt_state_from_numpy
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "granite-3-2b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        selfcheck.check_eft_safe()
+    state = (np.int32(0), {"w": np.zeros(3, np.float32)},
+             {"w": np.zeros(3, np.float32)}, {"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        opt_state_from_numpy(state)
+    assert int(opt_state_from_numpy(state, device="cpu").count) == 0
+
+
+def test_training_dispatch_defaults():
+    """The training path's ops resolve to the reference's defaults, with
+    the AdamW kernel the default on the card."""
+    assert dispatch.resolve_name("sum", device="cuda") == "blocked"
+    assert dispatch.resolve_name("add", device="cuda") == "jnp"
+    assert dispatch.resolve_name("adamw_update", device="cuda") == "fused"
+    assert dispatch.resolve_name("adamw_update", device="cpu") == "jnp"
+    with repro_torch.ff.use(adamw_update="jnp"):
+        assert dispatch.resolve_name("adamw_update", device="cuda") == "jnp"
+
+
+def test_get_config_names_the_ported_architectures():
+    from repro_torch.configs import get_config
+    assert get_config("granite-3-2b") is get_config("granite_3_2b")
+    for name in ("llama3-405b", "no-such-model"):
+        with pytest.raises(NotImplementedError, match="granite_3_2b"):
+            get_config(name)
