@@ -14,13 +14,23 @@ Phases (any failed check raises, so the script exits non-zero):
      version) to <= 2^-40 of a float64 oracle on the card, the AdamW
      update, in place as the optimizer runs it on whole leaves (``tok``,
      ``w_gate``), to 0 ulp on all four outputs;
-  3. serving: a reduced granite-3-2b engine on the card against the same
+  3. the FF matmul path: the hybrid, Ozaki and Dot2 kernels against their
+     plain versions (Ozaki and Dot2 bit for bit, hybrid within 2 bk u S
+     and bit for bit on integer operands, hybrid and Dot2 bit for bit on
+     transposed views) and within each one's bound of a float64 GEMM on
+     the card, at the CPU tests' shapes and granite-3-2b's (512 tokens
+     through w_gate, w_down and the unembedding); then
+     ``repro_torch.ff.matmul`` at those three shapes through every impl,
+     the ``policy(matmul=...)`` route, an FF operand and a forward and
+     backward per kernel impl, with the launch counts read around that
+     run; each kernel timed there; the ``table_ffmatmul`` matrix;
+  4. serving: a reduced granite-3-2b engine on the card against the same
      engine on the CPU (plain versions), then granite-3-2b at full width
      (random weights from a seed) serving 8 requests under
      ``policy("ff_reduce", attention="pallas")``, with the kernels' launch
      counts read around that run; then one more decode step with every
      row full under ``torch.profiler``, for the device-busy share;
-  4. training: a reduced granite-3-2b trained 2 steps on the card against
+  5. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
      the sequence-chunked loss; then, with the serving engine freed,
      granite-3-2b at full width (random weights from a seed) trained 4
@@ -29,7 +39,7 @@ Phases (any failed check raises, so the script exits non-zero):
      FF-master-weight AdamW under ``policy("ff_reduce",
      attention="pallas")``, with the kernels' launch counts read around
      those steps; then one more step under ``torch.profiler``;
-  5. timing: each kernel, its plain version and a PyTorch yardstick with
+  6. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -52,13 +62,16 @@ FULL_REQUESTS, MAX_NEW = 8, 16
 PROMPT_LENS = (16, 64)
 
 # f32 instruction counts of the kernels' device functions (csrc/ff_eft.cuh;
-# each add, subtract, multiply, divide, min/max, convert or select is one)
-TWO_SUM, FAST_TWO_SUM, SPLIT, TWO_PROD = 6, 3, 3, 17
+# each add, subtract, multiply, FMA, divide, min/max, convert or select is
+# one).  An exact product with its error is two on this card, a multiply
+# and an FMA (two_prod_fma), whichever TwoProd a kernel runs: a bound counts
+# what the function needs.
+TWO_SUM, FAST_TWO_SUM, TWO_PROD = 6, 3, 2
 ADD212 = TWO_SUM + 1 + FAST_TWO_SUM                      # 10
-MUL212 = TWO_PROD + 2 + FAST_TWO_SUM                     # 22
+MUL212 = TWO_PROD + 2 + FAST_TWO_SUM                     # 7
 ADD22 = TWO_SUM + 2 + FAST_TWO_SUM                       # 11
-MUL22 = TWO_PROD + 4 + FAST_TWO_SUM                      # 24
-DIV22 = 1 + TWO_PROD + 5 + 1 + FAST_TWO_SUM              # 27
+MUL22 = TWO_PROD + 4 + FAST_TWO_SUM                      # 9
+DIV22 = 1 + TWO_PROD + 5 + 1 + FAST_TWO_SUM              # 12
 CASCADE = 2 * TWO_SUM + 1                                # 13, (s, c, cc) += x
 LANE_FOLD = TWO_SUM + 3 + FAST_TWO_SUM                   # 12
 FF_FOLD = TWO_SUM + 1 + FAST_TWO_SUM                     # 10, (s, c, cc) -> FF
@@ -81,6 +94,13 @@ ADAMW_SLICE = 2048 * 8192                # one layer of w_gate
 # at the same tolerance
 SMALL_TRAIN_RTOL = 1e-5
 
+# the FF matmul path at granite-3-2b's widths, 512 tokens (4 x 128): w_gate /
+# w_up, w_down (K > 1024: several K-blocks), the unembedding (N ragged)
+MM_GRANITE = ((512, 2048, 8192), (512, 8192, 2048), (512, 2048, 49155))
+MM_SMALL = ((8, 16, 8), (100, 300, 50), (257, 513, 129), (1, 2048, 1),
+            (64, 1100, 8), (17, 100, 5))    # the CPU tests' shapes
+U32 = 2.0 ** -24
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak memory rate
 F32_LANES = 132 * 128            # SMs x f32 lanes; one instruction / cycle
 
@@ -90,10 +110,9 @@ def attention_ops(B, Sq, Skv, H, hd, causal, bf16, scale) -> int:
     reference's op sequence over the unmasked pairs only, with every op
     whose result the operands' type fixes left out.  A bf16 x bf16 product
     is exact in f32 (16 significant bits), so a score term is 1 multiply
-    with no low part; a bf16 v splits into (v, 0), so TwoProd(p, v) keeps
-    5 of its 17 instructions; a power-of-two scale is exact, so Mul212 by
-    it is 2 multiplies.  Splits of loop-invariant operands are counted
-    once, and the running max is taken first, so no tile is rescaled."""
+    with no low part; every other exact product is TWO_PROD; a power-of-two
+    scale is exact, so Mul212 by it is 2 multiplies.  The running max is
+    taken first, so no tile is rescaled."""
     if causal:
         pairs = sum(min(Skv, i + 1) for i in range(Sq))
     else:
@@ -101,21 +120,17 @@ def attention_ops(B, Sq, Skv, H, hd, causal, bf16, scale) -> int:
     pairs *= B * H
     if bf16:
         score_d = 1 + CASCADE                            # exact product
-        pv_d = 5 + 2 + CASCADE + 1                       # split(v) = (v, 0)
-        hoisted = 0
     else:
-        score_d = TWO_PROD - 2 * SPLIT + CASCADE + 1     # q, k splits hoisted
-        pv_d = TWO_PROD - 2 * SPLIT + 2 + CASCADE + 1    # v split hoisted
-        hoisted = SPLIT * hd * (B * Sq * H + B * Skv * H)
+        score_d = TWO_PROD + CASCADE + 1
+    pv_d = TWO_PROD + 2 + CASCADE + 1                    # Mul212(p, v)
     exact_scale = math.frexp(scale)[0] == 0.5
-    per_pair = (hd * score_d + FF_FOLD + (2 if exact_scale else MUL212 - SPLIT)
+    per_pair = (hd * score_d + FF_FOLD + (2 if exact_scale else MUL212)
                 + 1 + ADD212 + EXP22          # max, shift, weight
                 + 2 * CASCADE                 # denominator over both limbs
-                + SPLIT + hd * pv_d)          # split(p.hi) once for all d
+                + hd * pv_d)
     per_cell = FF_FOLD + DIV22                # numerator fold, Div22
     per_row = LANE_FOLD                       # denominator fold
-    return (pairs * per_pair + B * Sq * H * (hd * per_cell + per_row)
-            + hoisted)
+    return pairs * per_pair + B * Sq * H * (hd * per_cell + per_row)
 
 
 def log(msg=""):
@@ -319,6 +334,383 @@ def phase_kernel_checks(torch):
         worst_abs = max(worst_abs, adamw_check(torch, g, shape, scal))
     checks["adamw_update"] = worst_abs
     return checks
+
+
+# ---------------------------------------------------------------------------
+# the FF matmul path
+# ---------------------------------------------------------------------------
+
+def mm_operands(torch, g, mkn, integers=None):
+    """(A, B) on the card: standard normal, or integers in the closed range
+    ``integers``."""
+    M, K, N = mkn
+    if integers:
+        lo, hi = integers
+        return tuple(torch.randint(lo, hi + 1, s, generator=g, device="cuda")
+                     .float() for s in ((M, K), (K, N)))
+    return (torch.randn((M, K), generator=g, device="cuda"),
+            torch.randn((K, N), generator=g, device="cuda"))
+
+
+def same_bits(x, y) -> bool:
+    """Equal values in both limbs (-0 == +0), no NaN."""
+    import torch
+    return all(torch.equal(a, b) and not torch.isnan(a).any()
+               for a, b in zip(x, y))
+
+
+def mm_bound_ok(name, got, exact, scale, K, rounded=False) -> float:
+    """Each kernel's bound against float64 (the CPU tests' contracts):
+    hybrid 2 K u S, Ozaki 2^-42 S, Dot2 u |E| + 2 K^2 u^2 S.  ``rounded``:
+    ``got`` is an FF result rounded to f32 (a gradient), so u |E| for that
+    rounding plus the impl's S term.  Returns the worst log2 |err| / S."""
+    v = got[0].double() + got[1].double()
+    err = (v - exact).abs()
+    s_term = {"hybrid": 2 * K * U32, "ozaki": 2.0 ** -42,
+              "dot2": 2 * K * K * U32 * U32}[name] * scale
+    lim = s_term + (U32 * exact.abs() if rounded or name == "dot2" else 0)
+    if not bool((err <= lim + 1e-30).all()):
+        raise AssertionError(f"{name} kernel outside its float64 bound")
+    return math.log2(max(float((err / scale).max()), 2.0 ** -80))
+
+
+def ozaki_error_split(torch, A, B, exact, scale):
+    """Where the Ozaki result's error against float64 comes from, each
+    part's worst |part| / S as log2: the FF fold of the kept pair blocks
+    (against their float64 sum), the dropped pairs (i + j > max_order), the
+    f32 residual GEMM (against the same GEMM in float64), the final fold."""
+    from repro_torch.core import ffmatmul
+    from repro_torch.kernels import ff_matmul as km
+    n, beta, bk, max_order = ffmatmul.ozaki_params(A.shape[1], block_k=512)
+    pa, ra = ffmatmul.extract_slices(A, 1, n, beta)
+    pb, rb = ffmatmul.extract_slices(B, 0, n, beta)
+    pairs = km.ozaki_pairs(n, max_order)
+    oh, ol = km.ozaki_accumulate(torch.stack(pa), torch.stack(pb), pairs, bk)
+    kept = sum(pa[i].double() @ sum(pb[j].double() for i2, j in pairs
+                                    if i2 == i)
+               for i in sorted({i for i, _ in pairs}))
+    every = (A - ra).double() @ (B - rb).double()
+    ra_a, b_rb = torch.cat([ra, A - ra], 1), torch.cat([B, rb], 0)
+    res = torch.matmul(ra_a, b_rb)
+    res64 = ra_a.double() @ b_rb.double()
+    fh, fl = km.ff_matmul_ozaki(A, B)
+    acc = oh.double() + ol.double()
+    parts = {"total": fh.double() + fl.double() - exact,
+             "fold": acc - kept, "dropped": every - kept,
+             "residual_gemm": res.double() - res64,
+             "final_fold": fh.double() + fl.double() - acc - res.double()}
+    return {k: math.log2(max(float((v.abs() / scale).max()), 2.0 ** -80))
+            for k, v in parts.items()}
+
+
+def phase_matmul_checks(torch):
+    """The three FF matmul kernels against their plain versions on the
+    card, at the CPU tests' shapes and granite-3-2b's: Dot2 and Ozaki bit
+    for bit (Ozaki's pair accumulation is exact, and the residual GEMM is
+    the same call), hybrid within 2 bk u S (f32 block products of two GEMM
+    orders) and bit for bit on integer operands, as Ozaki; hybrid and Dot2
+    on transposed views bit for bit as on contiguous operands; each kernel
+    within its bound of a float64 GEMM on the card; Ozaki's error split
+    into its parts at the granite shapes; hybrid bit for bit and exact on
+    non-negative integers whose sum needs lo.  Returns the largest
+    kernel-vs-plain difference per kernel and the plain versions' times at
+    the granite shapes."""
+    from repro_torch.kernels import ff_matmul as km
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    kernels = {"hybrid": (km.ff_matmul, km.ff_matmul_plain),
+               "ozaki": (km.ff_matmul_ozaki, km.ff_matmul_ozaki_plain),
+               "dot2": (km.ff_matmul_dot2, km.ff_matmul_dot2_plain)}
+    worst = {k: 0.0 for k in kernels}
+    plain_ms = {k: {} for k in kernels}
+    for mkn in MM_SMALL + MM_GRANITE:
+        M, K, N = mkn
+        A, B = mm_operands(torch, g, mkn)
+        exact = A.double() @ B.double()
+        scale = A.double().abs() @ B.double().abs()
+        line = []
+        for name, (kern, plain) in kernels.items():
+            got, want = kern(A, B), plain(A, B)
+            if mkn in MM_GRANITE:
+                plain_ms[name][str(list(mkn))] = cuda_ms(
+                    lambda: plain(A, B), 1)
+            diff = (got[0].double() + got[1].double() - want[0].double()
+                    - want[1].double()).abs()
+            worst[name] = max(worst[name], float(diff.max()))
+            if name == "hybrid":
+                if not bool((diff <= 2 * min(512, K) * U32 * scale
+                             + 1e-30).all()):
+                    raise AssertionError(f"hybrid kernel vs plain at {mkn}")
+            elif not same_bits(got, want):
+                raise AssertionError(f"{name} kernel != plain at {mkn}")
+            e = mm_bound_ok(name, got, exact, scale, K)
+            line.append(f"{name} 2^{e:.1f}")
+        if mkn in MM_SMALL or mkn == MM_GRANITE[0]:
+            # transposed views, as the backward pass hands them over: the
+            # kernels read through the strides, same bits as contiguous
+            At, Bt = A.T.contiguous().T, B.T.contiguous().T
+            for name in ("hybrid", "dot2"):
+                if not same_bits(kernels[name][0](At, Bt),
+                                 kernels[name][0](A, B)):
+                    raise AssertionError(f"{name} on strided views at {mkn}")
+            del At, Bt
+        if mkn in MM_GRANITE:
+            split = ozaki_error_split(torch, A, B, exact, scale)
+            line.append("ozaki error parts " + ", ".join(
+                f"{k} 2^{v:.1f}" for k, v in split.items()))
+        Ai, Bi = mm_operands(torch, g, mkn, integers=(-8, 8))
+        for name in ("hybrid", "ozaki"):
+            kern, plain = kernels[name]
+            got, want = kern(Ai, Bi), plain(Ai, Bi)
+            if not (same_bits(got, want) and torch.equal(
+                    got[0].double() + got[1].double(),
+                    Ai.double() @ Bi.double())):
+                raise AssertionError(f"{name} on integers at {mkn}")
+        del A, B, exact, scale, Ai, Bi
+        log(f"matmul {mkn}: vs float64 {', '.join(line)}; kernel vs plain: "
+            f"ozaki, dot2 bitwise, hybrid within 2 bk u S; integers bitwise"
+            + ("; strided views bitwise" if mkn in MM_SMALL
+               or mkn == MM_GRANITE[0] else ""))
+    # non-negative integers at w_down's shape: every 512-long block product
+    # is exact (below 2^24), their sum is not, so hybrid's FF fold must
+    # carry it in lo
+    mkn = MM_GRANITE[1]
+    Ai, Bi = mm_operands(torch, g, mkn, integers=(0, 127))
+    got, want = km.ff_matmul(Ai, Bi), km.ff_matmul_plain(Ai, Bi)
+    carried = int((got[1] != 0).sum())
+    if not (same_bits(got, want) and carried and torch.equal(
+            got[0].double() + got[1].double(), Ai.double() @ Bi.double())):
+        raise AssertionError(f"hybrid on integers in [0, 127] at {mkn}")
+    log(f"matmul {mkn}, integers in [0, 127]: hybrid kernel == plain == "
+        f"float64 bit for bit; lo non-zero in {carried} of "
+        f"{got[1].numel()} outputs")
+    del Ai, Bi, got, want
+    torch.cuda.synchronize()
+    return worst, plain_ms
+
+
+def matmul_launch_counts():
+    from repro_torch.kernels import ff_matmul as km
+    return {"hybrid": km.ff_matmul.launches,
+            "ozaki": km.ff_matmul_ozaki.launches,
+            "dot2": km.ff_matmul_dot2.launches}
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import ff_attention, ff_fused
+    from repro_torch.kernels import ff_matmul as km
+    for fn in (ff_fused.mean_sq, ff_fused.adamw_update,
+               ff_attention.flash_attention_pallas, km.ff_matmul,
+               km.ff_matmul_ozaki, km.ff_matmul_dot2):
+        fn.launches = 0
+
+
+def phase_matmul_path(torch):
+    """``repro_torch.ff.matmul`` at granite-3-2b's widths: the default and
+    every kernel impl at the three shapes (one launch of the expected
+    kernel per call, none for f64), the policy route, one FF-operand call,
+    and one forward and backward per kernel impl at (512, 2048) @ (2048,
+    8192) (three launches: the forward and the two backward products).
+    Every result is finite, of its shape, and within its impl's bound of a
+    float64 GEMM on the card."""
+    import repro_torch.ff as ff
+    from repro_torch.core.ff import FF
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    kernel_of = {"hybrid": "hybrid", "pallas_hybrid": "hybrid",
+                 "dot2": "dot2", "pallas_dot2": "dot2", "ozaki": "ozaki",
+                 "pallas_ozaki": "ozaki", "f64": None}
+    bound_class = {"hybrid": "hybrid", "dot2": "dot2", "ozaki": "ozaki",
+                   None: "ozaki"}
+
+    def call(what, fn, kernel, exact, scale, K, shape):
+        before = matmul_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = matmul_launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        want = {k: int(k == kernel) for k in after}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got} != {want}")
+        if tuple(out.hi.shape) != shape or not (
+                torch.isfinite(out.hi).all() and torch.isfinite(out.lo).all()):
+            raise AssertionError(f"{what}: bad result")
+        e = mm_bound_ok(bound_class[kernel], (out.hi, out.lo), exact, scale,
+                        K)
+        return f"{what} {ms:.1f} ms 2^{e:.1f}"
+
+    reset_launch_counts()
+    for mkn in MM_GRANITE:
+        M, K, N = mkn
+        A, B = mm_operands(torch, g, mkn)
+        exact = A.double() @ B.double()
+        scale = A.double().abs() @ B.double().abs()
+        if ff.resolve_name("matmul", device=A.device) != "hybrid":
+            raise AssertionError("the matmul default is not hybrid")
+        rec = [call("default", lambda: ff.matmul(A, B), "hybrid", exact,
+                    scale, K, (M, N))]
+        for impl, kern in kernel_of.items():
+            rec.append(call(impl, lambda impl=impl: ff.matmul(A, B, impl=impl),
+                            kern, exact, scale, K, (M, N)))
+        with ff.policy("ff_full", matmul="dot2"):
+            rec.append(call("policy dot2", lambda: ff.matmul(A, B), "dot2",
+                            exact, scale, K, (M, N)))
+        if mkn == MM_GRANITE[0]:
+            # an FF left operand: (A, A * 2^-30) as hi and lo
+            lo = A * 2.0 ** -30
+            ex = exact + (lo.double() @ B.double())
+            rec.append(call("FF operand", lambda: ff.matmul(FF(A, lo), B),
+                            "hybrid", ex, scale, K, (M, N)))
+            del lo, ex
+        log(f"ff.matmul {mkn}: " + "; ".join(rec))
+        del A, B, exact, scale
+    mkn = MM_GRANITE[0]
+    for impl in ("hybrid", "dot2", "ozaki"):
+        A, B = mm_operands(torch, g, mkn)
+        A.requires_grad_()
+        B.requires_grad_()
+        before = matmul_launch_counts()
+        out = ff.matmul(A, B, impl=impl)
+        w = torch.randn(out.hi.shape, generator=g, device="cuda")
+        (out.hi * w).sum().backward()
+        torch.cuda.synchronize()
+        after = matmul_launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if got[impl] != 3 or sum(got.values()) != 3:
+            raise AssertionError(f"backward {impl}: launches {got}")
+        # the gradient against float64: dA = w @ B^T, dB = A^T @ w, each
+        # the impl's FF product rounded to f32
+        A64, B64, w64 = (t.detach().double() for t in (A, B, w))
+        errs = []
+        for grad, ex, sc, k in (
+                (A.grad, w64 @ B64.T, w64.abs() @ B64.abs().T, mkn[2]),
+                (B.grad, A64.T @ w64, A64.abs().T @ w64.abs(), mkn[0])):
+            if not torch.isfinite(grad).all():
+                raise AssertionError(f"backward {impl}: non-finite gradient")
+            errs.append(mm_bound_ok(impl, (grad, torch.zeros_like(grad)), ex,
+                                    sc, k, rounded=True))
+        del A64, B64, w64
+        log(f"ff.matmul {mkn} forward + backward ({impl}): launches {got}; "
+            f"dA, dB vs float64 2^{errs[0]:.1f}, 2^{errs[1]:.1f} (bound "
+            f"u |E| + the impl's S term)")
+        del A, B, out, w
+    launches = matmul_launch_counts()
+    log(f"matmul path launches: {launches}")
+    return launches
+
+
+def matmul_ops(name, M, K, N, npairs=0, nk=0, vec=8) -> int:
+    """f32 instructions the kernel's function needs on these inputs (FMA
+    counted once): hybrid M N K FMAs and one fold (Add212) per output and
+    K-block; Ozaki the same per kept pair; Dot2 per slab of vec products
+    each product's TwoProd and the add of its error, the tree's vec - 1
+    TwoSums, the adds of their errors and of each level's sum, the cascade
+    (two TwoSums, two adds), and per output the final Fast2Sum and add."""
+    if name == "hybrid":
+        return M * N * K + M * N * nk * ADD212
+    if name == "ozaki":
+        return npairs * (M * N * K + M * N * nk * ADD212)
+    levels = (vec - 1).bit_length()                  # ceil(log2 vec)
+    slab = (vec * (TWO_PROD + 1) + (vec - 1) * (TWO_SUM + 1) + levels
+            + CASCADE + 1)
+    return M * N * (-(-K // vec) * slab + 1 + FAST_TWO_SUM)
+
+
+def phase_matmul_timing(torch, launches, worst, plain_ms, clock_hz):
+    """Each matmul kernel at the three granite shapes: kernel ms from
+    CUDA-graph replay, call ms of the wrapper from Python, the plain
+    version's ms (phase_matmul_checks), the bound, and the PyTorch
+    yardstick: an f32 torch.matmul (TF32 off) for hybrid, an f64
+    torch.matmul on f64 copies (the same function at FF quality, before
+    its rounding to FF) for Ozaki and Dot2."""
+    from repro_torch.core import ffmatmul
+    from repro_torch.kernels import ff_matmul as km
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    peak_ops = F32_LANES * clock_hz
+    rows = {k: [] for k in ("hybrid", "ozaki", "dot2")}
+    for mkn in MM_GRANITE:
+        M, K, N = mkn
+        A, B = mm_operands(torch, g, mkn)
+        A64, B64 = A.double(), B.double()
+        nk = -(-K // 512)
+        n, beta, bk, max_order = ffmatmul.ozaki_params(K, block_k=512)
+        pairs = km.ozaki_pairs(n, max_order)
+        pa, _ = ffmatmul.extract_slices(A, 1, n, beta)
+        pb, _ = ffmatmul.extract_slices(B, 0, n, beta)
+        As, Bs = torch.stack(pa), torch.stack(pb)
+        del pa, pb
+        io = (M * K + K * N) * 4 + 2 * M * N * 4
+        spec = {
+            "hybrid": (lambda: km.ff_matmul(A, B),
+                       lambda: km.ff_matmul(A, B), io,
+                       matmul_ops("hybrid", M, K, N, nk=nk),
+                       lambda: torch.matmul(A, B)),
+            "ozaki": (lambda: km.ozaki_accumulate(As, Bs, pairs, bk),
+                      lambda: km.ff_matmul_ozaki(A, B),
+                      n * (M * K + K * N) * 4 + 2 * M * N * 4,
+                      matmul_ops("ozaki", M, K, N, npairs=len(pairs),
+                                 nk=-(-K // bk)),
+                      lambda: torch.matmul(A64, B64)),
+            "dot2": (lambda: km.ff_matmul_dot2(A, B),
+                     lambda: km.ff_matmul_dot2(A, B), io,
+                     matmul_ops("dot2", M, K, N), lambda: torch.matmul(
+                         A64, B64))}
+        for name, (kern, call, byts, ops, lib) in spec.items():
+            t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak_ops
+            rows[name].append(dict(
+                shape=list(mkn), ms=graph_ms(kern, 3),
+                call_ms=cuda_ms(call, 3),
+                plain_ms=plain_ms[name][str(list(mkn))],
+                bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=cuda_ms(lib, 5)))
+        del A, B, A64, B64, As, Bs
+        torch.cuda.empty_cache()
+    src = {"hybrid": ("ff_matmul_hybrid", "ff_matmul.cu", 89),
+           "ozaki": ("ff_matmul_ozaki", "ff_matmul.cu", 163),
+           "dot2": ("ff_matmul_dot2", "ff_matmul_dot2.cu", 287)}
+    out = []
+    for name, (label, cu, line) in src.items():
+        first = rows[name][0]
+        out.append(dict(
+            name=label, route="cuda", source=f"src/repro_torch/csrc/{cu}",
+            replaces=f"src/repro/kernels/ff_matmul.py:{line}",
+            launches=launches[name], launches_by_path={"matmul":
+                                                       launches[name]},
+            max_abs_err=worst[name], **{k: first[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")}, by_shape=rows[name]))
+        for r in rows[name]:
+            log(f"{label} {r['shape']}: kernel {r['ms']:.4f} ms (call "
+                f"{r['call_ms']:.4f}), plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                f"{r['library_ms']:.4f} ms")
+    return out
+
+
+def phase_matmul_table(torch):
+    """The port's benchmark table at M = N = 128, K = 512 and 4096."""
+    from repro_torch.benchmarks import table_ffmatmul
+    rows = table_ffmatmul.run((512, 4096), M=128, N=128, device="cuda")
+    log(table_ffmatmul.render(rows))
+    log(f"table_ffmatmul: {json.dumps(rows)}")
+    for r in rows:
+        if r["path"] != "naive" and r["resolved_impl"] in (
+                "dot2", "ozaki", "f64") and not r["log2_err"] <= -44:
+            raise AssertionError(f"table_ffmatmul {r['path']} K={r['K']}: "
+                                 f"2^{r['log2_err']:.1f} > 2^-44")
+
+
+def phase_matmul(torch, clock_hz):
+    worst, plain_ms = phase_matmul_checks(torch)
+    launches = phase_matmul_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = phase_matmul_timing(torch, launches, worst, plain_ms, clock_hz)
+    phase_matmul_table(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
 
 
 def serve_requests(rng, vocab: int):
@@ -870,6 +1262,7 @@ def main() -> int:
     log(f"card: {card}; max SM clock {clock_mhz:.0f} MHz")
     phase_build(torch)
     errs = phase_kernel_checks(torch)
+    matmul_launches, matmul_kernels = phase_matmul(torch, clock_mhz * 1e6)
     phase_small_engine(torch)
     serve_launches, cfg, eng = phase_serve(torch, card)
     phase_decode_profile(torch, eng, cfg)
@@ -883,8 +1276,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels = phase_timing(torch, cfg, {"serve": serve_launches,
-                                        "train": train_launches},
-                           errs, clock_mhz * 1e6)
+                                        "train": train_launches,
+                                        "matmul": {}},
+                           errs, clock_mhz * 1e6) + matmul_kernels
     torch.cuda.synchronize()
     print(card)
     print(json.dumps({"kernels": kernels}))

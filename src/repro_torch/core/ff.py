@@ -9,6 +9,9 @@ f64 never appears here; it is an oracle for tests only.
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.core import transforms as T
@@ -25,6 +28,26 @@ class FF:
         self.hi = hi
         self.lo = lo
 
+    @classmethod
+    def from_f32(cls, x: Tensor) -> "FF":
+        x = torch.as_tensor(x, dtype=torch.float32)
+        return cls(x, torch.zeros_like(x))
+
+    @classmethod
+    def from_f64(cls, x, device=None) -> "FF":
+        """FF nearest a numpy float64 value: hi = fl32(x), lo =
+        fl32(x - hi) (test and oracle convenience, on the host)."""
+        x64 = np.asarray(x, np.float64)
+        hi = x64.astype(np.float32)
+        lo = (x64 - hi.astype(np.float64)).astype(np.float32)
+        return cls(torch.from_numpy(hi).to(device),
+                   torch.from_numpy(lo).to(device))
+
+    @classmethod
+    def zeros(cls, shape, device=None) -> "FF":
+        z = torch.zeros(shape, dtype=torch.float32, device=device)
+        return cls(z, torch.zeros_like(z))
+
     @property
     def shape(self):
         return self.hi.shape
@@ -33,8 +56,22 @@ class FF:
         """Round to nearest f32 (hi is already the correctly rounded value)."""
         return self.hi
 
+    def to_f64(self) -> np.ndarray:
+        """The exact value as numpy float64 (host-side verification only)."""
+        return (self.hi.detach().cpu().numpy().astype(np.float64)
+                + self.lo.detach().cpu().numpy().astype(np.float64))
+
+    def astuple(self) -> Tuple[Tensor, Tensor]:
+        return self.hi, self.lo
+
     def __repr__(self):
         return f"FF(hi={self.hi!r}, lo={self.lo!r})"
+
+
+def add12(a: Tensor, b: Tensor) -> FF:
+    """Paper Theorem 2 (Knuth Add12): exact a+b as an FF."""
+    s, r = T.two_sum(a, b)
+    return FF(s, r)
 
 
 def add22(a: FF, b: FF) -> FF:

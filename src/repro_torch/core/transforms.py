@@ -8,6 +8,7 @@ same bits.
   * ``split``         — Dekker splitting at s=12 for p=24 (f32).
   * ``two_prod``      — Mul12 / Dekker product via ``split`` (no FMA).
   * ``two_diff``      — TwoSum of a and -b.
+  * ``pairwise_sum_compensated`` — a two_sum tree over one axis.
 
 Contraction note: the reference pins rounded products with an
 optimization barrier because XLA:CPU may contract ``s + a*b`` into an
@@ -26,7 +27,7 @@ operand where the algorithms use an exact constant (e.g. ``1.0``).
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -101,3 +102,39 @@ def two_diff(a: Operand, b: Operand) -> Tuple[Tensor, Tensor]:
     """TwoDiff: (s, r) with s + r == a - b exactly (negation is exact)."""
     a, b = _f32(a), _f32(b)
     return two_sum(a, -b)
+
+
+def sum_in_order(x: Tensor, axis: int) -> Tensor:
+    """Plain f32 sum over ``axis`` as XLA:CPU reduces a small axis: a left
+    fold from +0, ``((0 + x0) + x1) + ...`` (``jnp.sum`` in the
+    reference; torch's own ``sum`` may take another order)."""
+    acc = torch.zeros_like(x.select(axis, 0))
+    for xi in x.unbind(axis):
+        acc = acc + xi
+    return acc
+
+
+def pairwise_sum_compensated(p: Tensor, axis: int, err: Optional[Tensor] = None,
+                             *, two_sum_fn: Optional[Callable] = None
+                             ) -> Tuple[Tensor, Tensor]:
+    """Pairwise two_sum tree reduction over ``axis``: returns (sum, err)
+    with sum + err tracking the exact total to ~2^-48 relative.
+
+    Each level pairs the first half of the axis with the second half
+    (an odd last entry carries over), and the level's two_sum roundings are
+    summed into ``err`` in order (:func:`sum_in_order`), as the
+    reference's ``core.transforms.pairwise_sum_compensated`` does; same
+    inputs, same bits.  ``two_sum_fn`` selects the EFT (this module's
+    ``two_sum`` by default)."""
+    ts = two_sum_fn if two_sum_fn is not None else two_sum
+    if err is None:
+        err = torch.zeros_like(p.select(axis, 0))
+    while p.shape[axis] > 1:
+        width = p.shape[axis]
+        half = width // 2
+        s, e = ts(p.narrow(axis, 0, half), p.narrow(axis, half, half))
+        err = err + sum_in_order(e, axis)
+        if width % 2:
+            s = torch.cat([s, p.narrow(axis, width - 1, 1)], dim=axis)
+        p = s
+    return p.select(axis, 0), err

@@ -57,6 +57,16 @@ __device__ __forceinline__ ff2 two_prod(float a, float b) {
   return {x, sub(mul(as.lo, bs.lo), err3)};
 }
 
+// Mul12 with an explicit fused multiply-add: y = fma(a, b, -x) is a * b - x
+// rounded once, and that error is representable, so x + y == a * b exactly.
+// Wherever two_prod above is exact (no overflow in its splits, no underflow
+// in its partial products) both give the same (x, y): two instructions
+// instead of seventeen.
+__device__ __forceinline__ ff2 two_prod_fma(float a, float b) {
+  float x = mul(a, b);
+  return {x, __fmaf_rn(a, b, -x)};
+}
+
 // Paper Theorem 5 Add22 (branch-free sloppy variant).
 __device__ __forceinline__ ff2 add22(ff2 a, ff2 b) {
   ff2 s = two_sum(a.hi, b.hi);

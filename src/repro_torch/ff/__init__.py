@@ -8,18 +8,22 @@
     s = ff.sum(x)                            # compensated sum -> FF
     ff.adamw_update(g, m, v, w, wlo, lr, b1, b2, bc1, bc2, eps=1e-8,
                     wd=0.1)                  # one kernel, in place
+    C = ff.matmul(A, B)                      # hybrid CUDA kernel -> FF
+    C = ff.matmul(A, B, impl="dot2")         # paper-faithful
+    with ff.policy("ff_full", matmul="ozaki"):
+        C = ff.matmul(A, B)
 
-``sum``, ``logsumexp``, ``mean_sq`` and ``attention`` carry their
-reference gradients (:mod:`repro_torch.ff.autodiff`).
+``sum``, ``logsumexp``, ``mean_sq``, ``matmul`` and ``attention`` carry
+their reference gradients (:mod:`repro_torch.ff.autodiff`).
 """
 
 from repro_torch.core.ff import FF
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.ff.dispatch import (adamw_update, add, attention, impls,
-                                     logsumexp, mean_sq, ops, resolve_name,
-                                     sum)
+                                     logsumexp, matmul, mean_sq, ops,
+                                     resolve_name, sum)
 from repro_torch.ff.scope import current_policy, policy, resolve_policy, use
 
 __all__ = ["FF", "PrecisionPolicy", "adamw_update", "add", "attention",
-           "current_policy", "impls", "logsumexp", "mean_sq", "ops",
+           "current_policy", "impls", "logsumexp", "matmul", "mean_sq", "ops",
            "policy", "resolve_name", "resolve_policy", "sum", "use"]

@@ -15,10 +15,12 @@ without gradients runs: on the card, the CUDA kernels.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.ff import FF, add12, add22
+from repro_torch.core.ffmatmul import _dot_f32
 from repro_torch.kernels.ff_attention import flash_attention_fast
 
 Tensor = torch.Tensor
@@ -109,6 +111,64 @@ class Attention(torch.autograd.Function):
             y = flash_attention_fast(*qkv, **ctx.opts)
             dq, dk, dv = torch.autograd.grad(y, qkv, g)
         return dq, dk, dv, None, None
+
+
+def mm_any(base: Callable, a: Union[FF, Tensor], b: Union[FF, Tensor]) -> FF:
+    """The f32 matmul impl ``base`` extended to FF operands with the two
+    significant cross terms (``a.lo @ b.lo`` is below 2^-48, below FF
+    precision), as the reference's ``_mm_any``."""
+    if not isinstance(a, FF) and not isinstance(b, FF):
+        return base(a, b)
+    ah = a.hi if isinstance(a, FF) else a
+    bh = b.hi if isinstance(b, FF) else b
+    out = base(ah, bh)
+    if isinstance(b, FF):
+        out = add22(out, FF.from_f32(_dot_f32(ah, b.lo)))
+    if isinstance(a, FF):
+        out = add22(out, FF.from_f32(_dot_f32(a.lo, bh)))
+    return out
+
+
+def _operand(hi: Tensor, lo: Optional[Tensor]) -> Union[FF, Tensor]:
+    return hi if lo is None else FF(hi, lo)
+
+
+def _t(x: Union[FF, Tensor]) -> Union[FF, Tensor]:
+    if isinstance(x, FF):
+        return FF(x.hi.transpose(-1, -2), x.lo.transpose(-1, -2))
+    return x.transpose(-1, -2)
+
+
+class Matmul(torch.autograd.Function):
+    """``ff.matmul`` -> FF limbs (hi, lo).  Each operand is an f32 tensor
+    (``lo`` None) or an FF pair.  Backward (``repro/ff/autodiff.py:346-
+    351``): with the normalised FF cotangent ``gv = Add12(g.hi, g.lo)``,
+    ``da = gv @ b^T`` and ``db = a^T @ gv`` through the same impl, so the
+    gradient runs the forward's kernel; an f32 operand gets the hi limb,
+    an FF operand both limbs."""
+
+    @staticmethod
+    def forward(ctx, a_hi: Tensor, a_lo: Optional[Tensor], b_hi: Tensor,
+                b_lo: Optional[Tensor], base: Callable
+                ) -> Tuple[Tensor, Tensor]:
+        ctx.base = base
+        ctx.save_for_backward(a_hi, a_lo, b_hi, b_lo)
+        r = mm_any(base, _operand(a_hi, a_lo), _operand(b_hi, b_lo))
+        return r.hi, r.lo
+
+    @staticmethod
+    def backward(ctx, g_hi: Tensor, g_lo: Tensor):
+        a_hi, a_lo, b_hi, b_lo = ctx.saved_tensors
+        gv = add12(g_hi, g_lo)
+        need = ctx.needs_input_grad
+        grads = [None] * 5
+        if need[0] or need[1]:
+            da = mm_any(ctx.base, gv, _t(_operand(b_hi, b_lo)))
+            grads[0], grads[1] = da.hi, (None if a_lo is None else da.lo)
+        if need[2] or need[3]:
+            db = mm_any(ctx.base, _t(_operand(a_hi, a_lo)), gv)
+            grads[2], grads[3] = db.hi, (None if b_lo is None else db.lo)
+        return tuple(grads)
 
 
 def needs_grad(*xs: Optional[Tensor]) -> bool:

@@ -3,14 +3,21 @@
 
 Each op name maps to named implementations; a call resolves one:
 
-    per-call ``impl=`` > ``use(op=impl)`` scope > per-device default
-    ("cuda" / "cpu", else "*") > first registered implementation
+    per-call ``impl=`` > ``use(op=impl)`` scope
+      > policy (``PrecisionPolicy.matmul_impl``, for ``matmul``)
+      > ``"tuned"`` / ``"tuned_accurate"``
+      > per-device default ("cuda" / "cpu", else "*")
+      > first registered implementation
 
-Tuned, mesh and guard resolution are not ported yet.  Implementation names
-are the reference's, so one policy string means the same in both packages:
-for ``attention``, ``"pallas"`` names the one-kernel tier, which in the port
-is a CUDA kernel, and for ``adamw_update``, ``"fused"`` names the one-kernel
-update, the CUDA default as ``"tpu"`` is the reference's.
+The port has no tuning table yet: ``"tuned"`` resolves to the per-device
+default and ``"tuned_accurate"`` to the first registered name of the op's
+accurate fallback (for matmul: f64, ozaki, dot2), as the reference does for
+a shape its table lacks.  Mesh and guard resolution are not ported yet.
+Implementation names are the reference's, so one policy string means the
+same in both packages: ``"pallas"`` (``"pallas_*"`` for matmul) names the
+one-kernel tier, which in the port is a CUDA kernel, and for
+``adamw_update``, ``"fused"`` names the one-kernel update, the CUDA default
+as ``"tpu"`` is the reference's.
 
 The public calls route through the ``torch.autograd.Function``s of
 :mod:`repro_torch.ff.autodiff` when an input requires a gradient.
@@ -24,16 +31,20 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import compensated
+from repro_torch.core import compensated, ffmatmul
 from repro_torch.core import ff as core_ff
 from repro_torch.core.ff import FF
 from repro_torch.ff import autodiff, scope
-from repro_torch.kernels import ff_attention, ff_fused
+from repro_torch.kernels import ff_attention, ff_fused, ff_matmul
 
 Tensor = torch.Tensor
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _DEFAULTS: Dict[str, Dict[str, str]] = {}     # op -> {device type|"*": impl}
+# what "tuned_accurate" resolves to without a tuning table: per op, the
+# first registered name
+_ACCURATE_FALLBACK: Dict[str, Tuple[str, ...]] = {
+    "matmul": ("f64", "ozaki", "dot2")}
 
 
 def register(op: str, impl: str, fn: Callable, *,
@@ -61,6 +72,15 @@ def resolve_name(op: str, impl: Optional[str] = None,
     if op not in _REGISTRY:
         raise KeyError(f"unknown ff op {op!r}; registered: {ops()}")
     name = impl or scope.current_impl(op)
+    if name is None and op == "matmul":
+        pol = scope.current_policy().matmul_impl
+        if pol and pol != "auto":
+            name = pol
+    if name == "tuned":
+        name = None
+    elif name == "tuned_accurate":
+        name = next((c for c in _ACCURATE_FALLBACK.get(op, ())
+                     if c in _REGISTRY[op]), None)
     if name is None:
         d = _DEFAULTS.get(op, {})
         name = d.get(torch.device(device or "cpu").type, d.get("*"))
@@ -140,6 +160,83 @@ register("adamw_update", "fused", ff_fused.adamw_update,
          default_for=("cuda",))
 
 
+# -- matmul: f32 operands -> FF (FF operands: autodiff.mm_any) ----------------
+#
+# Each follows the reference's compiled (non-interpret) branch with "cuda"
+# where it says "tpu": hybrid, dot2 and ozaki launch their CUDA kernel on a
+# CUDA tensor and take the torch formulation on the CPU; the pallas_* names
+# always name the kernel wrapper (its plain version on the CPU); f64 is one
+# float64 GEMM on both devices.
+
+def _mm_hybrid(a, b, *, block_k: int = 512, bm: int = 256, bn: int = 256,
+               **_kw) -> FF:
+    """Blocked-K f32 GEMMs + Add22, the production path."""
+    if a.device.type == "cuda":
+        return FF(*ff_matmul.ff_matmul(a, b, bm=bm, bn=bn, bk=block_k))
+    return ffmatmul.matmul_compensated(a, b, block_k=block_k)
+
+
+def _mm_pallas_hybrid(a, b, *, bm: int = 256, bn: int = 256, bk: int = 512,
+                      **_kw) -> FF:
+    return FF(*ff_matmul.ff_matmul(a, b, bm=bm, bn=bn, bk=bk))
+
+
+def _mm_dot2(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
+             vec: int = 8, chunk: int = 32, **_kw) -> FF:
+    """Paper-faithful Mul12 + Dot3 cascade (~2^-44)."""
+    if a.device.type == "cuda":
+        return FF(*ff_matmul.ff_matmul_dot2(a, b, bm=bm, bn=bn, bk=bk,
+                                            vec=vec))
+    return ffmatmul.matmul_dot2(a, b, chunk=chunk)
+
+
+def _mm_pallas_dot2(a, b, *, bm: int = 128, bn: int = 128, bk: int = 128,
+                    vec: int = 8, **_kw) -> FF:
+    return FF(*ff_matmul.ff_matmul_dot2(a, b, bm=bm, bn=bn, bk=bk, vec=vec))
+
+
+def _mm_split(a, b, *, block_k: int = 512, **_kw) -> FF:
+    return ffmatmul.matmul_split(a, b, block_k=block_k)
+
+
+def _mm_compensated(a, b, *, block_k: int = 512, **_kw) -> FF:
+    return ffmatmul.matmul_compensated(a, b, block_k=block_k)
+
+
+def _mm_ozaki(a, b, *, slices: int = 0, beta: int = 0, block_k: int = 0,
+              **_kw) -> FF:
+    """Exact-slice Ozaki matmul (~2^-46)."""
+    if a.device.type == "cuda":
+        return FF(*ff_matmul.ff_matmul_ozaki(a, b, slices=slices, beta=beta,
+                                             bk=block_k or 512))
+    return ffmatmul.matmul_ozaki(a, b, slices=slices, beta=beta,
+                                 block_k=block_k)
+
+
+def _mm_pallas_ozaki(a, b, *, slices: int = 0, beta: int = 0, bm: int = 128,
+                     bn: int = 128, bk: int = 512, **_kw) -> FF:
+    return FF(*ff_matmul.ff_matmul_ozaki(a, b, slices=slices, beta=beta,
+                                         bm=bm, bn=bn, bk=bk))
+
+
+def _mm_f64(a, b, **_kw) -> FF:
+    """One float64 GEMM rounded to FF (~2^-48): the H100 and the CPU both
+    have f64 units, so the reference's TPU degrade to Ozaki does not
+    apply."""
+    return ffmatmul.matmul_f64(a, b)
+
+
+register("matmul", "hybrid", _mm_hybrid, default_for=("*",))
+register("matmul", "pallas_hybrid", _mm_pallas_hybrid)
+register("matmul", "compensated", _mm_compensated)
+register("matmul", "split", _mm_split)
+register("matmul", "dot2", _mm_dot2)
+register("matmul", "pallas_dot2", _mm_pallas_dot2)
+register("matmul", "ozaki", _mm_ozaki)
+register("matmul", "pallas_ozaki", _mm_pallas_ozaki)
+register("matmul", "f64", _mm_f64)
+
+
 # -- attention ----------------------------------------------------------------
 
 def _attention_pallas(q, k, v, *, block=128, **kw):
@@ -216,6 +313,35 @@ def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
     g = g.to(torch.float32)
     _resolved("adamw_update", impl, g.device, opts)(
         g, m, v, w, wlo, lr, b1, b2, bc1, bc2, eps=eps, wd=wd)
+
+
+def matmul(a, b, *, impl: Optional[str] = None, **opts) -> FF:
+    """FF matrix product of (M, K) x (K, N) operands, each an f32 tensor
+    or an FF pair.
+
+    The impl is registry-dispatched: ``hybrid`` (blocked-K GEMMs + Add22;
+    its CUDA kernel on the card) by default; ``compensated``, ``split``,
+    ``dot2``, ``ozaki``, ``f64`` and the kernels ``pallas_hybrid``,
+    ``pallas_dot2``, ``pallas_ozaki`` per call, per ``use(matmul=...)``
+    scope or per ``policy(matmul=...)``.  Option precedence: explicit
+    kwargs (``bk`` is read as ``block_k`` for the blocked-K impls) > the
+    ambient policy's ``ff_matmul_block_k`` (hybrid, compensated, split).
+    Differentiable: the gradient runs the same impl."""
+    a = a if isinstance(a, FF) else torch.as_tensor(a).to(torch.float32)
+    b = b if isinstance(b, FF) else torch.as_tensor(b).to(torch.float32)
+    dev = (a.hi if isinstance(a, FF) else a).device
+    name = resolve_name("matmul", impl, dev)
+    opts = dict(opts)
+    if "bk" in opts and name in ("hybrid", "compensated", "split", "ozaki"):
+        opts.setdefault("block_k", opts.pop("bk"))
+    if name in ("hybrid", "compensated", "split"):
+        opts.setdefault("block_k", scope.current_policy().ff_matmul_block_k)
+    base = functools.partial(lookup("matmul", name), **opts)
+    limbs = [a.hi, a.lo] if isinstance(a, FF) else [a, None]
+    limbs += [b.hi, b.lo] if isinstance(b, FF) else [b, None]
+    if autodiff.needs_grad(*limbs):
+        return FF(*autodiff.Matmul.apply(*limbs, base))
+    return autodiff.mm_any(base, a, b)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,

@@ -45,13 +45,18 @@ class policy:
 
     Accepts a level name, an existing :class:`PrecisionPolicy`, or nothing
     (derive from the current scope), plus field overrides, e.g.
-    ``policy("ff_reduce", attention="pallas")``.
+    ``policy("ff_reduce", attention="pallas")``.  ``matmul=`` selects the
+    FF matmul implementation the dispatch registry uses inside the scope
+    (``"hybrid"``, ``"dot2"``, ``"ozaki"``, ...; ``"tuned"`` and
+    ``"tuned_accurate"`` resolve to the static default and the accurate
+    fallback while the port has no tuning table).
     """
 
     def __init__(self,
                  level_or_policy: Union[str, PrecisionPolicy, None] = None,
-                 **overrides):
+                 *, matmul: Optional[str] = None, **overrides):
         self._base = level_or_policy
+        self._matmul = matmul
         self._overrides = overrides
 
     def _build(self) -> PrecisionPolicy:
@@ -63,6 +68,8 @@ class policy:
             p = dataclasses.replace(current_policy(), **self._overrides)
         else:
             p = PrecisionPolicy.make(base, **self._overrides)
+        if self._matmul is not None:
+            p = dataclasses.replace(p, matmul_impl=self._matmul)
         return p
 
     def __enter__(self) -> PrecisionPolicy:

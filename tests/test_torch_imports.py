@@ -35,6 +35,9 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+new = {"repro_torch.core.ffmatmul", "repro_torch.kernels.ff_matmul",
+       "repro_torch.kernels.ref", "repro_torch.benchmarks.table_ffmatmul"}
+assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
 
@@ -95,6 +98,21 @@ def test_dispatch_defaults_and_resolution_order():
     with repro_torch.ff.policy("ff_reduce", attention="pallas") as p:
         assert p.ff_reductions and p.attention == "pallas"
         assert repro_torch.ff.resolve_policy(None) is p
+
+
+def test_matmul_benchmark_needs_cuda_unless_cpu_is_asked(monkeypatch,
+                                                         capsys):
+    from repro_torch.benchmarks import table_ffmatmul
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table_ffmatmul.main(["--mn", "4", "--ks", "16"])
+    rows = table_ffmatmul.main(["--mn", "4", "--ks", "16", "--reps", "1",
+                                "--device", "cpu"])
+    assert [r["path"] for r in rows] == [
+        "naive", *table_ffmatmul.IMPLS, "dispatch_default"]
+    assert rows[-1]["resolved_impl"] == "hybrid"
+    assert all(r["device"] == "cpu" for r in rows)
+    assert "dispatch_default" in capsys.readouterr().out
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
