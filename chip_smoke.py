@@ -24,13 +24,23 @@ Phases (any failed check raises, so the script exits non-zero):
      the ``policy(matmul=...)`` route, an FF operand and a forward and
      backward per kernel impl, with the launch counts read around that
      run; each kernel timed there; the ``table_ffmatmul`` matrix;
-  4. serving: a reduced granite-3-2b engine on the card against the same
+  4. the fused-composite path: ``ff_softmax`` (both modes, both
+     classes), ``ff_norm_stats`` and the ``ff.fusion`` Program kernel
+     against their plain versions on the card (bit for bit; the fast
+     softmax within 1 ulp) and ``ff_softmax`` within its float64 bound,
+     at the reference table's shapes, granite-3-2b's d_model rows, the
+     longest row and a ragged one; the Program kernel against the AdamW
+     (0 ulp) and mean_sq (<= 1 ulp) kernels on their Programs; the
+     routing by shape at granite-3-2b's vocabulary (the jnp formulation,
+     one warning, no launch); ``table_elementwise`` at its three shapes
+     with the kernels' launch counts read around it; each kernel timed;
+  5. serving: a reduced granite-3-2b engine on the card against the same
      engine on the CPU (plain versions), then granite-3-2b at full width
      (random weights from a seed) serving 8 requests under
      ``policy("ff_reduce", attention="pallas")``, with the kernels' launch
      counts read around that run; then one more decode step with every
      row full under ``torch.profiler``, for the device-busy share;
-  5. training: a reduced granite-3-2b trained 2 steps on the card against
+  6. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
      the sequence-chunked loss; then, with the serving engine freed,
      granite-3-2b at full width (random weights from a seed) trained 4
@@ -38,8 +48,9 @@ Phases (any failed check raises, so the script exits non-zero):
      2 x 1024 tokens (longer than ``loss_chunk``: the chunked loss) with
      FF-master-weight AdamW under ``policy("ff_reduce",
      attention="pallas")``, with the kernels' launch counts read around
-     those steps; then one more step under ``torch.profiler``;
-  6. timing: each kernel, its plain version and a PyTorch yardstick with
+     those steps; then one more step under ``torch.profiler``; the serving
+     and training runs launch none of the fused-composite kernels;
+  7. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -488,20 +499,34 @@ def phase_matmul_checks(torch):
     return worst, plain_ms
 
 
-def matmul_launch_counts():
+def launch_fns():
+    """Every kernel's wrapper, by the name the launch counts use."""
+    from repro_torch.kernels import ff_attention, ff_fused
     from repro_torch.kernels import ff_matmul as km
-    return {"hybrid": km.ff_matmul.launches,
-            "ozaki": km.ff_matmul_ozaki.launches,
-            "dot2": km.ff_matmul_dot2.launches}
+    return {"mean_sq": ff_fused.mean_sq,
+            "attention": ff_attention.flash_attention_pallas,
+            "adamw_update": ff_fused.adamw_update, "hybrid": km.ff_matmul,
+            "ozaki": km.ff_matmul_ozaki, "dot2": km.ff_matmul_dot2,
+            "ff_softmax": ff_fused.ff_softmax,
+            "ff_norm_stats": ff_fused.ff_norm_stats,
+            "ff_program": ff_fused.run_program}
+
+
+def launch_counts():
+    """Every kernel's launches since the last reset_launch_counts()."""
+    return {name: fn.launches for name, fn in launch_fns().items()}
 
 
 def reset_launch_counts():
-    from repro_torch.kernels import ff_attention, ff_fused
-    from repro_torch.kernels import ff_matmul as km
-    for fn in (ff_fused.mean_sq, ff_fused.adamw_update,
-               ff_attention.flash_attention_pallas, km.ff_matmul,
-               km.ff_matmul_ozaki, km.ff_matmul_dot2):
+    for fn in launch_fns().values():
         fn.launches = 0
+
+
+def path_counts(launches, name):
+    """``launches``: {path: {kernel: launches}}, every kernel read around
+    each path's run.  Returns ``name``'s total and its count per path."""
+    by_path = {path: c[name] for path, c in launches.items()}
+    return dict(launches=sum(by_path.values()), launches_by_path=by_path)
 
 
 def phase_matmul_path(torch):
@@ -522,12 +547,12 @@ def phase_matmul_path(torch):
                    None: "ozaki"}
 
     def call(what, fn, kernel, exact, scale, K, shape):
-        before = matmul_launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        after = matmul_launch_counts()
+        after = launch_counts()
         got = {k: after[k] - before[k] for k in after}
         want = {k: int(k == kernel) for k in after}
         if got != want:
@@ -569,12 +594,12 @@ def phase_matmul_path(torch):
         A, B = mm_operands(torch, g, mkn)
         A.requires_grad_()
         B.requires_grad_()
-        before = matmul_launch_counts()
+        before = launch_counts()
         out = ff.matmul(A, B, impl=impl)
         w = torch.randn(out.hi.shape, generator=g, device="cuda")
         (out.hi * w).sum().backward()
         torch.cuda.synchronize()
-        after = matmul_launch_counts()
+        after = launch_counts()
         got = {k: after[k] - before[k] for k in after}
         if got[impl] != 3 or sum(got.values()) != 3:
             raise AssertionError(f"backward {impl}: launches {got}")
@@ -594,7 +619,7 @@ def phase_matmul_path(torch):
             f"dA, dB vs float64 2^{errs[0]:.1f}, 2^{errs[1]:.1f} (bound "
             f"u |E| + the impl's S term)")
         del A, B, out, w
-    launches = matmul_launch_counts()
+    launches = launch_counts()
     log(f"matmul path launches: {launches}")
     return launches
 
@@ -616,7 +641,7 @@ def matmul_ops(name, M, K, N, npairs=0, nk=0, vec=8) -> int:
     return M * N * (-(-K // vec) * slab + 1 + FAST_TWO_SUM)
 
 
-def phase_matmul_timing(torch, launches, worst, plain_ms, clock_hz):
+def phase_matmul_timing(torch, plain_ms, clock_hz):
     """Each matmul kernel at the three granite shapes: kernel ms from
     CUDA-graph replay, call ms of the wrapper from Python, the plain
     version's ms (phase_matmul_checks), the bound, and the PyTorch
@@ -666,6 +691,19 @@ def phase_matmul_timing(torch, launches, worst, plain_ms, clock_hz):
                 library_ms=cuda_ms(lib, 5)))
         del A, B, A64, B64, As, Bs
         torch.cuda.empty_cache()
+    for name, recs in rows.items():
+        for r in recs:
+            log(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms (call "
+                f"{r['call_ms']:.4f}), plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                f"{r['library_ms']:.4f} ms")
+    return rows
+
+
+def matmul_kernel_entries(launches, worst, rows):
+    """The kernels-line entries of the three matmul kernels: ``launches``
+    as in :func:`path_counts`; the numbers of the first granite shape,
+    every shape under ``by_shape``."""
     src = {"hybrid": ("ff_matmul_hybrid", "ff_matmul.cu", 89),
            "ozaki": ("ff_matmul_ozaki", "ff_matmul.cu", 163),
            "dot2": ("ff_matmul_dot2", "ff_matmul_dot2.cu", 287)}
@@ -675,16 +713,10 @@ def phase_matmul_timing(torch, launches, worst, plain_ms, clock_hz):
         out.append(dict(
             name=label, route="cuda", source=f"src/repro_torch/csrc/{cu}",
             replaces=f"src/repro/kernels/ff_matmul.py:{line}",
-            launches=launches[name], launches_by_path={"matmul":
-                                                       launches[name]},
-            max_abs_err=worst[name], **{k: first[k] for k in (
+            **path_counts(launches, name), max_abs_err=worst[name],
+            **{k: first[k] for k in (
                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape")}, by_shape=rows[name]))
-        for r in rows[name]:
-            log(f"{label} {r['shape']}: kernel {r['ms']:.4f} ms (call "
-                f"{r['call_ms']:.4f}), plain {r['plain_ms']:.3f} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-                f"{r['library_ms']:.4f} ms")
     return out
 
 
@@ -706,13 +738,393 @@ def phase_matmul(torch, clock_hz):
     launches = phase_matmul_path(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    rows = phase_matmul_timing(torch, launches, worst, plain_ms, clock_hz)
+    rows = phase_matmul_timing(torch, plain_ms, clock_hz)
     phase_matmul_table(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, rows
+    return launches, worst, rows
 
 
+# ---------------------------------------------------------------------------
+# the fused-composite path: ff_softmax, ff_norm_stats, the Program executor
+# ---------------------------------------------------------------------------
+
+# whole-row shapes: the reference table's two, granite-3-2b's d_model rows
+# of a 4 x 128 step, the longest row the kernels take, a ragged one
+ROW_SHAPES = ((4096, 4096), (256, 1024), (512, 2048), (64, 16384),
+              (3, 1000))
+TABLE_SHAPES = ((256, 1024), (4096, 4096), (512, 2048))
+# per element: the 128-lane cascade of one value, TwoSum, the row max,
+# Div22; the f32 builtins expf/logf counted as one instruction each (a
+# floor: they take several)
+SOFTMAX_OPS = {(False, "softmax"): 1 + 1 + 1 + CASCADE + 1,
+               (False, "logsumexp"): 1 + 1 + 1 + CASCADE,
+               (True, "softmax"): 1 + TWO_SUM + EXP22 + 2 * CASCADE + DIV22,
+               (True, "logsumexp"): 1 + TWO_SUM + EXP22 + 2 * CASCADE}
+NORM_STATS_OPS = CASCADE + 2 + CASCADE          # x; (x - mu)^2
+AXPY_OPS = MUL212 + ADD22
+
+
+def softmax_oracle(x, mode):
+    """float64 softmax / log-sum-exp on the card."""
+    x64 = x.double()
+    m = x64.amax(-1, keepdim=True)
+    s = (x64 - m).exp().sum(-1, keepdim=True)
+    if mode == "softmax":
+        return (x64 - m).exp() / s
+    return (m + s.log())[..., 0]
+
+
+def softmax_bound_ok(got, want, x, mode, accurate) -> float:
+    """Each mode's bound against float64, with u = 2^-24: accurate, 2 u of
+    the value (the FF exponentials and sum carry ~2^-44: only the final
+    rounding shows).  Fast: the rounded shift x - m puts |x - m| u into
+    exp and expf adds up to 2 ulp (4 u), so a term e_j is within
+    (d_j + 4) u, the sum within S u with S the e-weighted mean of
+    (d_k + 4); softmax within (d_j + 4 + S + 1) u of the value,
+    logsumexp within (|lse| + 2 |log s| + S) u (logf 1 ulp, the final
+    add).  Returns the worst error in units of u of the value."""
+    err = (got.double() - want).abs()
+    tiny = 2.0 ** -126
+    x64 = x.double()
+    d = (x64 - x64.amax(-1, keepdim=True)).abs()
+    w = (-d).exp()
+    s = w.sum(-1, keepdim=True)
+    S = ((w / s) * (d + 4.0)).sum(-1, keepdim=True)
+    if accurate:
+        lim = 2.0 * U32 * want.abs() + tiny
+    elif mode == "softmax":
+        lim = (d + 5.0 + S) * U32 * want.abs() + tiny
+    else:
+        lim = (want.abs() + 2.0 * s[..., 0].log().abs() + S[..., 0]) * U32
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"ff_softmax {mode} accurate={accurate} "
+                             f"outside its float64 bound")
+    return float((err / (want.abs() * U32 + tiny)).max())
+
+
+def program_cases(torch, g):
+    """(name, fused chain, operands) on the card for the Program checks:
+    axpy at each of the table's shapes; a chain with every op class; row,
+    column and scalar leaves; a ragged rowsum and a column-broadcast
+    rowsum; the mean_sq program."""
+    from repro_torch.core.ff import FF
+    from repro_torch.ff import fusion as m
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def pair(*shape):
+        h = rn(*shape)
+        return FF(h, h * 1e-8 * rn(*shape))
+
+    def every_op(a, x, y, f, p):
+        t = x * y + a
+        u = t / y
+        s = m.sqrt(u * u + 1.0)
+        z = -m.fma(x, y, s) - x
+        f2 = (f * f - f / p) + m.sqrt(p)
+        q = m.pack(f2, -f) * 2.0
+        return (z, s.hi, -f2, q, q.hi + z.lo, m.scale(x, 0.5) - 1.0,
+                m.exp(x * 0.5), m.log(m.pack(p, p * 0.0)), m.tanh(x),
+                m.sigmoid(y), m.tanh(f * 0.3), m.exp(f * 0.5),
+                m.log(p + 1.0), (f2 * f).sum(), f.sum())
+
+    R, C = 512, 2048
+    a = torch.tensor(1.618, device="cuda")
+    return [
+        (f"axpy {shape}", lambda a, x, y: a * x + y,
+         (a, pair(*shape), pair(*shape))) for shape in TABLE_SHAPES] + [
+        ("every op class", every_op,
+         (1.5, pair(R, C), pair(R, C), rn(R, C), rn(R, C).abs() + 0.1)),
+        ("row, column and scalar leaves",
+         lambda x, c, r, s: (x * c + r, (c * r).sum(), c.sum(),
+                             (x.hi * s).sum(), r * s),
+         (pair(R, C), rn(R, 1), rn(C), a)),
+        ("ragged and column-broadcast rowsums",
+         lambda v, w, c: ((v * w).sum(), (c * 2.0).sum(), v + w),
+         (rn(3, 1000), rn(1000), rn(3, 1))),
+        ("mean_sq program", lambda v: (v * v).sum(), (rn(R, C),)),
+    ]
+
+
+def flat_limbs(outs):
+    from repro_torch.core.ff import FF
+    for o in outs:
+        if isinstance(o, FF):
+            yield o.hi
+            yield o.lo
+        else:
+            yield o
+
+
+def phase_fused_checks(torch):
+    """Each new kernel against its plain version on the card: ff_softmax
+    (both modes, both classes) bit for bit when accurate and within 1 ulp
+    with expf, each within its float64 bound; ff_norm_stats bit for bit;
+    the Program kernel bit for bit on every case of ``program_cases``,
+    and against the two dedicated kernels on their Programs: the AdamW
+    kernel at 0 ulp, mean_sq at <= 1 ulp.  Returns the largest
+    kernel-vs-plain differences and the plain versions' times."""
+    import repro_torch.ff as ff
+    from repro_torch.kernels import ff_fused
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst = {"ff_softmax": 0.0, "ff_norm_stats": 0.0, "ff_program": 0.0}
+    plain_ms = {}
+    for shape in ROW_SHAPES:
+        x = torch.randn(shape, generator=g, device="cuda") * 3.0
+        line = []
+        for mode in ("softmax", "logsumexp"):
+            want64 = softmax_oracle(x, mode)
+            for accurate in (False, True):
+                got = ff_fused.ff_softmax(x, mode, accurate)
+                want = ff_fused.ff_softmax_plain(x, mode, accurate)
+                u = ulp_diff(got, want)
+                worst["ff_softmax"] = max(worst["ff_softmax"], float(
+                    (got - want).abs().max()))
+                if u > (0 if accurate else 1):
+                    raise AssertionError(
+                        f"ff_softmax {mode} accurate={accurate} {shape}: "
+                        f"kernel {u} ulp from plain")
+                e = softmax_bound_ok(got, want64, x, mode, accurate)
+                line.append(f"{mode}{' acc' if accurate else ''} {u} ulp "
+                            f"({e:.1f} u vs float64)")
+                if shape == ROW_SHAPES[0]:
+                    plain_ms[(mode, accurate)] = cuda_ms(
+                        lambda: ff_fused.ff_softmax_plain(x, mode,
+                                                          accurate), 1)
+        mu, var = ff_fused.ff_norm_stats(x)
+        pmu, pvar = ff_fused.ff_norm_stats_plain(x)
+        if not (torch.equal(mu, pmu) and torch.equal(var, pvar)):
+            raise AssertionError(f"ff_norm_stats {shape}: kernel != plain "
+                                 f"({ulp_diff(mu, pmu)}, "
+                                 f"{ulp_diff(var, pvar)} ulp)")
+        v64, m64 = torch.var_mean(x.double(), -1, correction=0)
+        if not (bool(((mu.double() - m64).abs() <= 2.0 ** -20
+                      * x.abs().amax(-1)).all())
+                and bool(((var.double() - v64).abs() <= 2.0 ** -20
+                          * v64).all())):
+            raise AssertionError(f"ff_norm_stats {shape} vs float64")
+        if shape == ROW_SHAPES[0]:
+            plain_ms["norm_stats"] = cuda_ms(
+                lambda: ff_fused.ff_norm_stats_plain(x), 1)
+        log(f"fused {shape}: ff_softmax kernel vs plain: {'; '.join(line)}"
+            f"; ff_norm_stats bitwise")
+        del x
+    torch.cuda.synchronize()
+
+    for name, fn, ops in program_cases(torch, g):
+        f = ff.fused(fn)
+        prog = f.program(*ops)
+        n0 = ff_fused.run_program.launches
+        got = f(*ops)
+        got = got if isinstance(got, tuple) else (got,)
+        if ff_fused.run_program.launches != n0 + 1:
+            raise AssertionError(f"ff.fused {name}: not one launch")
+        want = ff_fused.run_program_plain(prog, ops)
+        if name == "axpy (4096, 4096)":
+            plain_ms["axpy"] = cuda_ms(
+                lambda: ff_fused.run_program_plain(prog, ops), 1)
+        bad = [i for i, (a, b) in enumerate(zip(flat_limbs(got),
+                                                flat_limbs(want)))
+               if a.shape != b.shape or ulp_diff(a, b) != 0]
+        for a, b in zip(flat_limbs(got), flat_limbs(want)):
+            worst["ff_program"] = max(worst["ff_program"], float(
+                (a - b).abs().max()))
+        if bad:
+            raise AssertionError(f"ff.fused {name}: kernel != plain in "
+                                 f"output limbs {bad}")
+        log(f"ff.fused {name}: {len(prog.instrs)} instructions, "
+            f"{len(prog.out_ids)} outputs: kernel == plain bit for bit")
+    del ops
+
+    # the general executor against the dedicated kernels
+    scal = [torch.tensor(s, device="cuda") for s in ADAMW_SCALARS]
+    leaves = adamw_leaves(torch, g, (2048, 8192))
+    chain = ff.fused(lambda *a: adamw_chain(*a, ADAMW_EPS, ADAMW_WD))
+    new, m2, v2 = chain(*leaves, *scal)
+    ff_fused.adamw_update(*leaves, *scal, eps=ADAMW_EPS, wd=ADAMW_WD)
+    u = max(ulp_diff(a, b) for a, b in ((new.hi, leaves[3]),
+                                        (new.lo, leaves[4]),
+                                        (m2, leaves[1]), (v2, leaves[2])))
+    if u != 0:
+        raise AssertionError(f"Program AdamW vs the AdamW kernel: {u} ulp")
+    x = torch.randn((512, 2048), generator=g, device="cuda")
+    ms_prog = ff_fused.div_n(ff.fused(lambda v: (v * v).sum())(x).hi,
+                             x.shape[-1])
+    u2 = ulp_diff(ms_prog, ff_fused.mean_sq(x))
+    if u2 > 1:
+        raise AssertionError(f"Program mean_sq vs the mean_sq kernel: "
+                             f"{u2} ulp")
+    log(f"Program executor vs dedicated kernels: AdamW (2048, 8192) {u} "
+        f"ulp on w, wlo, m, v; mean_sq (512, 2048) {u2} ulp")
+    del leaves, new, m2, v2, x
+    torch.cuda.synchronize()
+    return worst, plain_ms
+
+
+def adamw_chain(g, m, v, w, wlo, lr, b1, b2, bc1, bc2, eps, wd):
+    """The reference's ``_adamw_chain`` over ``ff.fusion`` nodes."""
+    from repro_torch.ff import fusion
+    m2 = b1 * m + (1.0 - b1) * g
+    v2 = b2 * v + (1.0 - b2) * g * g
+    upd = (m2 / bc1) / (fusion.sqrt(v2 / bc2) + eps)
+    upd = upd + wd * w
+    delta = -lr * upd
+    return fusion.pack(w, wlo) + delta, m2, v2
+
+
+def phase_fused_routing(torch):
+    """At granite-3-2b's vocabulary (4, 49155) the whole-row kernels do not
+    apply: ff.logsumexp and ff.softmax take the jnp formulation with one
+    warning each and launch no ff_softmax, as the reference does."""
+    import warnings
+    import repro_torch.ff as ff
+    from repro_torch.ff import dispatch
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn((4, 49155), generator=g, device="cuda") * 4.0
+    for op, jnp_fn in (("logsumexp", dispatch._logsumexp_jnp),
+                       ("softmax", dispatch._softmax_jnp)):
+        if ff.resolve_name(op, device=x.device) != "pallas":
+            raise AssertionError(f"{op} does not resolve to pallas")
+        n0 = launch_counts()["ff_softmax"]
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = getattr(ff, op)(x)
+        torch.cuda.synchronize()
+        n = launch_counts()["ff_softmax"] - n0
+        if len(rec) != 1 or n:
+            raise AssertionError(f"{op} (4, 49155): {len(rec)} warnings, "
+                                 f"{n} launches")
+        if not torch.equal(got, jnp_fn(x)):
+            raise AssertionError(f"{op} (4, 49155) != the jnp formulation")
+    log("routing by shape at (4, 49155): logsumexp and softmax take the "
+        "jnp formulation, one warning each, 0 ff_softmax launches")
+
+
+def phase_table(torch):
+    """``repro_torch.benchmarks.table_elementwise`` at its three shapes on
+    the card (its accuracy gate raises on a miss), with every kernel's
+    launches over the run: each of the five kernels of its chains at least
+    once, no other."""
+    from repro_torch.benchmarks import table_elementwise
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = table_elementwise.run(TABLE_SHAPES, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    log(table_elementwise.render(rows))
+    log(f"table_elementwise: {json.dumps(rows)}")
+    log(f"table path: {wall:.1f} s, launches {launches}")
+    used = {k for k, n in launches.items() if n}
+    if used != {"ff_softmax", "ff_norm_stats", "ff_program", "mean_sq",
+                "adamw_update"}:
+        raise AssertionError(f"table path launched {launches}")
+    resolved = {r["chain"]: r["resolved_impl"] for r in rows}
+    if resolved != {"adamw": "fused", "softmax": "pallas",
+                    "logsumexp": "pallas", "rmsnorm_stats": "fused",
+                    "norm_stats": "pallas", "axpy": "fused(cuda)"}:
+        raise AssertionError(f"table resolved {resolved}")
+    return launches
+
+
+def time_kernel(kern, call, plain, lib, byts, ops, peak_ops, iters):
+    """Kernel ms (CUDA-graph replay), call ms, the bound and the library
+    call's ms of one kernel at one shape."""
+    t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak_ops
+    return dict(ms=graph_ms(kern, iters), call_ms=cuda_ms(call, iters),
+                plain_ms=plain, bound_ms=1e3 * max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=None if lib is None else graph_ms(lib, iters))
+
+
+def phase_fused_timing(torch, plain_ms, clock_hz):
+    """Each new kernel at the table's (4096, 4096) and at (512, 2048):
+    kernel ms by CUDA-graph replay, the call's ms, the plain version's ms
+    (phase_fused_checks), the bound, and the library call's ms."""
+    import repro_torch.ff as ff
+    from repro_torch.core.ff import FF
+    from repro_torch.kernels import ff_fused
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    peak_ops = F32_LANES * clock_hz
+    rows = {"ff_softmax": [], "ff_norm_stats": [], "ff_program": []}
+    for R, C in ((4096, 4096), (512, 2048)):
+        x = torch.randn((R, C), generator=g, device="cuda") * 3.0
+        n = R * C
+        for mode in ("softmax", "logsumexp"):
+            for acc in (False, True):
+                byts = 4 * n + (4 * n if mode == "softmax" else 4 * R)
+                ops = n * SOFTMAX_OPS[(acc, mode)] + R * LANE_FOLD
+                lib = (lambda: torch.softmax(x, -1)) if mode == "softmax" \
+                    else (lambda: torch.logsumexp(x, -1))
+                rec = time_kernel(
+                    lambda m=mode, a=acc: ff_fused.ff_softmax(x, m, a),
+                    lambda m=mode, a=acc: ff_fused.ff_softmax(x, m, a),
+                    plain_ms.get((mode, acc)) if R == 4096 else None, lib,
+                    byts, ops, peak_ops, 20)
+                rows["ff_softmax"].append(dict(shape=[R, C], mode=mode,
+                                               accurate=acc, **rec))
+        rows["ff_norm_stats"].append(dict(shape=[R, C], **time_kernel(
+            lambda: ff_fused.ff_norm_stats(x),
+            lambda: ff_fused.ff_norm_stats(x),
+            plain_ms["norm_stats"] if R == 4096 else None,
+            lambda: torch.var_mean(x, -1, correction=0), 4 * n + 8 * R,
+            n * NORM_STATS_OPS + 2 * R * LANE_FOLD, peak_ops, 20)))
+        a = torch.tensor(1.618, device="cuda")
+        xf = FF(x, x * 1e-8)
+        yf = FF(x * 0.5, x * 1e-9)
+        axpy = ff.fused(lambda a, x, y: a * x + y)
+        prog = axpy.program(a, xf, yf)
+        rows["ff_program"].append(dict(shape=[R, C], program="axpy",
+                                       **time_kernel(
+            lambda: ff_fused.run_program(prog, (a, xf, yf)),
+            lambda: axpy(a, xf, yf),
+            plain_ms["axpy"] if R == 4096 else None, None, 6 * 4 * n + 4,
+            n * AXPY_OPS, peak_ops, 20)))
+        del x, xf, yf
+    for name, recs in rows.items():
+        for r in recs:
+            what = (f" {r['mode']}{' accurate' if r['accurate'] else ''}"
+                    if name == "ff_softmax" else "")
+            log(f"{name}{what} {r['shape']}: kernel {r['ms']:.4f} ms (call "
+                f"{r['call_ms']:.4f}), plain {r['plain_ms']}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                f"{r['library_ms']}")
+    return rows
+
+
+def fused_kernel_entries(launches, worst, rows):
+    """The kernels-line entries of the three fused-composite kernels:
+    ``launches`` as in :func:`path_counts`; the numbers of the first timed row (fast softmax, axpy) at (4096,
+    4096), every timed row under ``by_shape``."""
+    src = {"ff_softmax": ("ff_softmax.cu", 407),
+           "ff_norm_stats": ("ff_norm_stats.cu", 469),
+           "ff_program": ("ff_program.cu", 188)}
+    out = []
+    for name, (cu, line) in src.items():
+        first = rows[name][0]
+        out.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{cu}",
+            replaces=f"src/repro/kernels/ff_fused.py:{line}",
+            **path_counts(launches, name), max_abs_err=worst[name], **{k: first[k] for k in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")}, by_shape=rows[name]))
+    return out
+
+
+def phase_fused(torch, clock_hz):
+    worst, plain_ms = phase_fused_checks(torch)
+    phase_fused_routing(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = phase_table(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = phase_fused_timing(torch, plain_ms, clock_hz)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, worst, rows
 def serve_requests(rng, vocab: int):
     import numpy as np
     from repro_torch.serve import Request
@@ -768,7 +1180,6 @@ def phase_serve(torch, card: str):
     import numpy as np
     import repro_torch.ff as ff
     from repro_torch.configs.granite_3_2b import CONFIG as cfg
-    from repro_torch.kernels import ff_attention, ff_fused
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
     t0 = time.perf_counter()
@@ -783,8 +1194,7 @@ def phase_serve(torch, card: str):
         f"set up in {time.perf_counter() - t0:.1f} s")
     reqs = serve_requests(np.random.default_rng(SEED), cfg.vocab_size)
 
-    ff_fused.mean_sq.launches = 0
-    ff_attention.flash_attention_pallas.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
         if eng.submit(r) != "QUEUED":
@@ -792,12 +1202,11 @@ def phase_serve(torch, card: str):
     res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"mean_sq": ff_fused.mean_sq.launches,
-                "attention": ff_attention.flash_attention_pallas.launches}
+    launches = launch_counts()
 
     n_pf, n_dec = len(eng.prefill_s), eng.decode_steps
     norms = 2 * cfg.num_layers + 1
-    want = {"mean_sq": norms * (n_pf + n_dec),
+    want = {**{k: 0 for k in launches}, "mean_sq": norms * (n_pf + n_dec),
             "attention": cfg.num_layers * n_pf}
     log(f"launches: {launches} over {n_pf} prefills and {n_dec} decode "
         f"steps; expected {want}")
@@ -923,20 +1332,12 @@ def phase_small_train(torch):
             f"{runs['cpu']}")
 
 
-def train_launch_counts():
-    from repro_torch.kernels import ff_attention, ff_fused
-    return {"mean_sq": ff_fused.mean_sq.launches,
-            "attention": ff_attention.flash_attention_pallas.launches,
-            "adamw_update": ff_fused.adamw_update.launches}
-
-
 def phase_train(torch, card: str):
     """granite-3-2b at full width: 4 training steps, the launches of each
     kernel per step, then one more step under torch.profiler."""
     import repro_torch.ff as ff
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.granite_3_2b import CONFIG as cfg
-    from repro_torch.kernels import ff_attention, ff_fused
     from repro_torch.models import init_params
     from repro_torch.optim.adamw import AdamW, cosine_schedule, tree_leaves
     from repro_torch.train.train_step import make_train_step
@@ -959,10 +1360,8 @@ def phase_train(torch, card: str):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     torch.cuda.reset_peak_memory_stats()
 
-    ff_fused.mean_sq.launches = 0
-    ff_attention.flash_attention_pallas.launches = 0
-    ff_fused.adamw_update.launches = 0
-    per_step, prev = [], train_launch_counts()
+    reset_launch_counts()
+    per_step, prev = [], launch_counts()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -970,7 +1369,7 @@ def phase_train(torch, card: str):
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        now = train_launch_counts()
+        now = launch_counts()
         launched = {k: now[k] - prev[k] for k in now}
         prev = now
         rec = {"step": i + 1, "loss": loss, "grad_norm": gnorm,
@@ -993,7 +1392,7 @@ def phase_train(torch, card: str):
     loss, gnorm = float(m["loss"]), float(m["grad_norm"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    now = train_launch_counts()
+    now = launch_counts()
     long_rec = {"step": TRAIN_STEPS + 1, "batch": [LONG_BATCH, LONG_SEQ],
                 "loss_chunk": cfg.loss_chunk, "loss": loss,
                 "grad_norm": gnorm, "lr": float(m["lr"]),
@@ -1007,9 +1406,10 @@ def phase_train(torch, card: str):
                              f"{gnorm}")
     per_step.append(long_rec)
 
-    launches = train_launch_counts()
+    launches = launch_counts()
     norms = 2 * cfg.num_layers + 1
-    want = {"mean_sq": norms + 2 * cfg.num_layers,    # + remat recompute
+    want = {**{k: 0 for k in launches},
+            "mean_sq": norms + 2 * cfg.num_layers,    # + remat recompute
             "attention": 2 * cfg.num_layers,          # forward + recompute
             "adamw_update": n_leaves(params)}
     log(f"training launches over {len(per_step)} steps: {launches}; per "
@@ -1098,9 +1498,7 @@ def phase_timing(torch, cfg, launches, errs, clock_hz):
     kernels = []
 
     def counts(name):
-        by_path = {path: c.get(name, 0) for path, c in launches.items()}
-        return dict(launches=sum(by_path.values()),
-                    launches_by_path=by_path)
+        return path_counts(launches, name)
 
     # mean_sq at the decode shape (max_batch rows of d_model)
     rows, cols = 4, cfg.d_model
@@ -1262,7 +1660,10 @@ def main() -> int:
     log(f"card: {card}; max SM clock {clock_mhz:.0f} MHz")
     phase_build(torch)
     errs = phase_kernel_checks(torch)
-    matmul_launches, matmul_kernels = phase_matmul(torch, clock_mhz * 1e6)
+    matmul_launches, matmul_worst, matmul_rows = phase_matmul(
+        torch, clock_mhz * 1e6)
+    table_launches, fused_worst, fused_rows = phase_fused(torch,
+                                                          clock_mhz * 1e6)
     phase_small_engine(torch)
     serve_launches, cfg, eng = phase_serve(torch, card)
     phase_decode_profile(torch, eng, cfg)
@@ -1275,10 +1676,11 @@ def main() -> int:
     train_launches = phase_train(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    kernels = phase_timing(torch, cfg, {"serve": serve_launches,
-                                        "train": train_launches,
-                                        "matmul": {}},
-                           errs, clock_mhz * 1e6) + matmul_kernels
+    launches = {"serve": serve_launches, "train": train_launches,
+                "matmul": matmul_launches, "table": table_launches}
+    kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
+               + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
+               + fused_kernel_entries(launches, fused_worst, fused_rows))
     torch.cuda.synchronize()
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,9 @@ class FF:
     def astuple(self) -> Tuple[Tensor, Tensor]:
         return self.hi, self.lo
 
+    def __neg__(self) -> "FF":
+        return FF(-self.hi, -self.lo)
+
     def __repr__(self):
         return f"FF(hi={self.hi!r}, lo={self.lo!r})"
 
@@ -123,6 +126,34 @@ def div22(a: FF, b: FF) -> FF:
     th, tl = T.two_prod(ch, b.hi)
     cl = ((((a.hi - th) - tl) + a.lo) - ch * b.lo) / b.hi
     rh, rl = T.fast_two_sum(ch, cl)
+    return FF(rh, rl)
+
+
+def sqrt_rn(x: Tensor) -> Tensor:
+    """The correctly rounded f32 square root.  PyTorch's vectorised CPU
+    ``sqrt`` is not (it is within ~0.5001 ulp); the f64 root of an f32
+    rounds back to the correctly rounded f32 (53 >= 2*24 + 2 bits)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def sqrt22(a: FF) -> FF:
+    """FF square root: one Newton correction of the correctly rounded f32
+    root (:func:`sqrt_rn`, as ``jnp.sqrt`` and the card's ``sqrtf``)."""
+    ch = sqrt_rn(a.hi)
+    th, tl = T.two_prod(ch, ch)
+    num = ((a.hi - th) - tl) + a.lo
+    cl = num / (ch + ch)
+    rh, rl = T.fast_two_sum(ch, cl)
+    return FF(rh, rl)
+
+
+def fma22(a: FF, b: FF, c: FF) -> FF:
+    """a*b + c in FF (fused at the algorithm level: one renormalization)."""
+    th, tl = T.two_prod(a.hi, b.hi)
+    t = tl + (a.hi * b.lo + a.lo * b.hi)
+    sh, sl = T.two_sum(th, c.hi)
+    v = sl + (t + c.lo)
+    rh, rl = T.fast_two_sum(sh, v)
     return FF(rh, rl)
 
 

@@ -1,6 +1,7 @@
-"""Float-float exp and log (counterpart of ``repro.core.ffmath``; this slice
-carries ``exp22`` and ``log22`` with their helpers, which the FF attention
-tiers and ``token_logprob_ff`` need).
+"""Float-float exp, expm1, log, tanh and sigmoid (counterpart of
+``repro.core.ffmath``: ``exp22`` and ``log22``, which the FF attention
+tiers and ``token_logprob_ff`` need, and ``expm122``, ``tanh22`` and
+``sigmoid22``, which with them are the deep ops of ``ff.fusion``).
 
 Same constants, same op order as the reference (Cody–Waite ``ln2``
 reduction with exact 16-bit-piece products, FF Horner over an f32 tail,
@@ -55,7 +56,22 @@ _LOG_S_FF = (
 _LOG_S_F32 = (0.11111111, 0.09090909, 0.07692308,
               0.06666667, 0.05882353, 0.05263158)
 
+# tanh Maclaurin (odd series, coefficients of x^(2n+1)) for |x| <= 0.35:
+# FF for n = 0..5, f32 tail n = 6..11
+_TANH_C_FF = (
+    (1.0, 0.0),
+    (-0.33333334, 9.934108e-09),
+    (0.13333334, -6.9538753e-09),
+    (-0.053968254, 5.085317e-10),
+    (0.021869488, 4.7568083e-10),
+    (-0.008863236, 2.939079e-10),
+)
+_TANH_C_F32 = (0.003592128, -0.0014558344, 0.0005900274,
+               -0.00023912912, 9.691538e-05, -3.9278322e-05)
+
 _EXP_CLIP_LO, _EXP_CLIP_HI = -105.0, 89.0   # beyond: saturated anyway
+_TANH_SMALL = 0.35                          # Maclaurin branch bound
+_IDENTITY = 2.0 ** -45                      # f(x) == x at FF precision
 _SQRT2_F32 = 1.4142135
 
 
@@ -115,6 +131,70 @@ def exp22(xh: Tensor, xl: Tensor) -> Limb:
     el = torch.where(big | tiny | (eh == inf), 0.0, el)
     nan = xh != xh
     return torch.where(nan, xh, eh), torch.where(nan, xh, el)
+
+
+def expm122(xh: Tensor, xl: Tensor) -> Limb:
+    """FF expm1: the exp kernel without the +1 where the reduction
+    integer k is 0, exp(x) - 1 beyond; x itself below 2^-45."""
+    rh, rl, k = _exp_reduce(xh, xl)
+    s = _exp_poly(rh, rl)                         # expm1(r): the k=0 answer
+    p = core_ff.add212(s, 1.0)
+    eh, el = _scale2k(p.hi, p.lo, k)
+    g = core_ff.add212(FF(eh, el), -1.0)          # exp(x) - 1, k != 0
+    inf = float("inf")
+    ovf = eh == inf               # inf - 1 trips TwoSum nans: saturate
+    gh = torch.where(ovf, eh, g.hi)
+    gl = torch.where(ovf, 0.0, g.lo)
+    small = k == 0
+    oh = torch.where(small, s.hi, gh)
+    ol = torch.where(small, s.lo, gl)
+    idt = torch.abs(xh) < _IDENTITY
+    oh = torch.where(idt, xh, oh)
+    ol = torch.where(idt, xl, ol)
+    big = xh > _EXP_CLIP_HI
+    tiny = xh < _EXP_CLIP_LO
+    oh = torch.where(big, inf, torch.where(tiny, -1.0, oh))
+    ol = torch.where(big | tiny, 0.0, ol)
+    nan = xh != xh
+    return torch.where(nan, xh, oh), torch.where(nan, xh, ol)
+
+
+def tanh22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF tanh: the odd Maclaurin kernel on |x| <= 0.35, -t/(2+t) with
+    t = expm1(-2|x|) beyond, x itself below 2^-45."""
+    x = FF(xh, xl)
+    z = core_ff.mul22(x, x)
+    t = _TANH_C_F32[-1]
+    for c in _TANH_C_F32[-2::-1]:
+        t = t * z.hi + c
+    p = FF(t, torch.zeros_like(t))
+    for ch, cl in _TANH_C_FF[::-1]:
+        p = core_ff.mul22(p, z)
+        p = core_ff.add22(p, FF(torch.full_like(xh, ch),
+                                torch.full_like(xh, cl)))
+    sm = core_ff.mul22(x, p)
+    sgn = torch.where(xh < 0, -1.0, 1.0)
+    th, tl = expm122(-2.0 * sgn * xh, -2.0 * sgn * xl)
+    d = core_ff.add212(FF(th, tl), 2.0)
+    q = core_ff.div22(FF(-th, -tl), d)
+    small = torch.abs(xh) <= _TANH_SMALL
+    rh = torch.where(small, sm.hi, sgn * q.hi)
+    rl = torch.where(small, sm.lo, sgn * q.lo)
+    idt = torch.abs(xh) < _IDENTITY
+    return torch.where(idt, xh, rh), torch.where(idt, xl, rl)
+
+
+def sigmoid22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF logistic sigmoid, u / (1 + z) with z = exp(-|x|), u = 1 for
+    x >= 0 and z otherwise (no cancellation)."""
+    sgn = torch.where(xh < 0, -1.0, 1.0)
+    zh, zl = exp22(-sgn * xh, -sgn * xl)
+    d = core_ff.add212(FF(zh, zl), 1.0)
+    pos = xh >= 0
+    n = FF(torch.where(pos, 1.0, zh), torch.where(pos, 0.0, zl))
+    r = core_ff.div22(n, d)
+    nan = xh != xh
+    return torch.where(nan, xh, r.hi), torch.where(nan, xh, r.lo)
 
 
 def _atanh_poly(s: FF) -> FF:

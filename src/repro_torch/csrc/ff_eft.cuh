@@ -104,11 +104,82 @@ __device__ __forceinline__ ff2 div22(ff2 a, ff2 b) {
   return fast_two_sum(ch, cl);
 }
 
+// FF square root: one Newton correction of the correctly rounded f32 root.
+__device__ __forceinline__ ff2 sqrt22(ff2 a) {
+  float ch = __fsqrt_rn(a.hi);
+  ff2 t = two_prod(ch, ch);
+  float num = add(sub(sub(a.hi, t.hi), t.lo), a.lo);
+  float cl = dvd(num, add(ch, ch));
+  return fast_two_sum(ch, cl);
+}
+
+// a*b + c in FF with one renormalisation.
+__device__ __forceinline__ ff2 fma22(ff2 a, ff2 b, ff2 c) {
+  ff2 t = two_prod(a.hi, b.hi);
+  float u = add(t.lo, add(mul(a.hi, b.lo), mul(a.lo, b.hi)));
+  ff2 s = two_sum(t.hi, c.hi);
+  float v = add(s.lo, add(u, c.lo));
+  return fast_two_sum(s.hi, v);
+}
+
 // ---------------------------------------------------------------------------
-// exp22: FF exp of an FF argument (repro/core/ffmath.py exp22, same
-// constants, same op order).  Constants are the f32 values of the
-// reference's, written as hex floats so that no decimal rounding differs.
+// The TPU kernels' 128-lane compensated row sum (_lane_cascade and
+// _fold_lanes in repro/kernels/ff_fused.py): lane l folds columns l,
+// l+128, ... in order into a Neumaier triple (s, c, cc), then the 128
+// triples are folded in lane order.  Every whole-row kernel sums in this
+// order, so it gets its plain version's bits.
 // ---------------------------------------------------------------------------
+
+constexpr int kLanes = 128;
+
+struct LaneSum {
+  float s = 0.0f, c = 0.0f, cc = 0.0f;
+  __device__ __forceinline__ void add(float x) {
+    ff2 t = two_sum(s, x);
+    ff2 u = two_sum(c, t.lo);
+    s = t.hi;
+    c = u.hi;
+    cc = ffk::add(cc, u.lo);
+  }
+};
+
+// The FF sum of the block's 128 lanes, lane 0 first, to every thread.
+// Called by all kLanes threads; sh is 3 * kLanes + 2 floats of shared
+// memory, reusable by the next call.
+__device__ __forceinline__ ff2 fold_lanes(const LaneSum& ln, float* sh) {
+  const int lane = threadIdx.x;
+  __syncthreads();                 // the previous fold has read sh
+  sh[lane] = ln.s;
+  sh[kLanes + lane] = ln.c;
+  sh[2 * kLanes + lane] = ln.cc;
+  __syncthreads();
+  if (lane == 0) {
+    float fh = 0.0f, fl = 0.0f;
+    for (int i = 0; i < kLanes; ++i) {
+      ff2 t = two_sum(fh, sh[i]);
+      float v = add(t.lo, add(add(fl, sh[kLanes + i]), sh[2 * kLanes + i]));
+      ff2 f = fast_two_sum(t.hi, v);
+      fh = f.hi;
+      fl = f.lo;
+    }
+    sh[3 * kLanes] = fh;
+    sh[3 * kLanes + 1] = fl;
+  }
+  __syncthreads();
+  return {sh[3 * kLanes], sh[3 * kLanes + 1]};
+}
+
+// ---------------------------------------------------------------------------
+// The FF elementary functions of repro/core/ffmath.py: exp22, expm122,
+// log22, tanh22, sigmoid22 (same constants, same op order).  Constants
+// are the f32 values of the reference's, written as hex floats so that no
+// decimal rounding differs.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
+
+constexpr float kExpClipLo = -105.0f, kExpClipHi = 89.0f;
+constexpr float kIdentity = 0x1p-45f;   // f(x) == x at FF precision below
 
 __device__ __forceinline__ float exp2i(int k) {
   // exact 2^k for k in [-126, 127], from exponent bits
@@ -122,12 +193,44 @@ __device__ __forceinline__ ff2 scale2k(float h, float l, int k) {
   return {mul(mul(h, s1), s2), mul(mul(l, s1), s2)};
 }
 
+// The exp kernel's two halves (defined after exp22, which states them):
+// the Cody–Waite reduction and the expm1 polynomial.
+__device__ __forceinline__ ff2 exp_reduce(float xh, float xl, int* k);
+__device__ __forceinline__ ff2 exp_poly(ff2 r);
+
+// FF exp of an FF argument: inf above ~88.72, 0 below ~-103.
 __device__ __forceinline__ ff2 exp22(float xh, float xl) {
+  int k;
+  ff2 r = exp_reduce(xh, xl, &k);
+  ff2 em1 = exp_poly(r);
+  ff2 p = add212(em1, 1.0f);
+  ff2 e = scale2k(p.hi, p.lo, k);
+  bool big = xh > kExpClipHi;
+  bool tiny = xh < kExpClipLo;
+  float eh = big ? inf32() : (tiny ? 0.0f : e.hi);
+  float el = (big || tiny || eh == inf32()) ? 0.0f : e.lo;
+  if (xh != xh) return {xh, xh};
+  return {eh, el};
+}
+
+// Cody–Waite reduction x = k*ln2 + r, r an FF pair, |r| <= ln2/2
+// (jnp.clip / jnp.round).
+__device__ __forceinline__ ff2 exp_reduce(float xh, float xl, int* k) {
   const float INV_LN2 = 0x1.715476p+0f;
   const float L1 = 0x1.62e4p-1f;     // 45426 * 2^-16
   const float L2 = 0x1.7f7ep-20f;    // 49087 * 2^-35
   const float L3 = -0x1.c610cap-37f;
-  const float CLIP_LO = -105.0f, CLIP_HI = 89.0f;
+  float xc = fminf(fmaxf(xh, kExpClipLo), kExpClipHi);
+  float kf = rintf(mul(xc, INV_LN2));           // round half to even
+  float h1 = sub(xc, mul(kf, L1));              // exact
+  ff2 s = two_sum(h1, -mul(kf, L2));
+  float v = sub(xl, mul(kf, L3));
+  *k = static_cast<int>(kf);
+  return add212(s, v);
+}
+
+// expm1(r) = r + r^2 W(r) on |r| <= ln2/2.
+__device__ __forceinline__ ff2 exp_poly(ff2 r) {
   // f32 Horner tail of W, degrees 6..11 (W_F32[0..5])
   const float W_F32[6] = {0x1.a01a02p-16f, 0x1.71de3ap-19f, 0x1.27e4fcp-22f,
                           0x1.ae6456p-26f, 0x1.1eed8ep-29f, 0x1.612462p-33f};
@@ -137,17 +240,6 @@ __device__ __forceinline__ ff2 exp22(float xh, float xl) {
   const float W_L[6] = {0.0f, -0x1.555556p-28f, -0x1.555556p-30f,
                         -0x1.dddddep-32f, -0x1.27d27ep-35f,
                         -0x1.7f97fap-39f};
-
-  // Cody–Waite reduction x = k*ln2 + r (jnp.clip / jnp.round)
-  float xc = fminf(fmaxf(xh, CLIP_LO), CLIP_HI);
-  float kf = rintf(mul(xc, INV_LN2));           // round half to even
-  float h1 = sub(xc, mul(kf, L1));              // exact
-  ff2 s = two_sum(h1, -mul(kf, L2));
-  float v = sub(xl, mul(kf, L3));
-  ff2 r = add212(s, v);
-  int k = static_cast<int>(kf);
-
-  // expm1(r) = r + r^2 W(r)
   float t = W_F32[5];
 #pragma unroll
   for (int i = 4; i >= 0; --i) t = add(mul(t, r.hi), W_F32[i]);
@@ -159,16 +251,118 @@ __device__ __forceinline__ ff2 exp22(float xh, float xl) {
   }
   ff2 z = mul22(r, r);
   ff2 q = mul22(z, w);
-  ff2 em1 = add22(r, q);
+  return add22(r, q);
+}
 
-  ff2 p = add212(em1, 1.0f);
+// FF expm1: the exp kernel without the +1 where k == 0, exp(x) - 1
+// beyond; x itself below 2^-45.
+__device__ __forceinline__ ff2 expm122(float xh, float xl) {
+  int k;
+  ff2 r = exp_reduce(xh, xl, &k);
+  ff2 s = exp_poly(r);
+  ff2 p = add212(s, 1.0f);
   ff2 e = scale2k(p.hi, p.lo, k);
-  bool big = xh > CLIP_HI;
-  bool tiny = xh < CLIP_LO;
-  float eh = big ? __int_as_float(0x7f800000) : (tiny ? 0.0f : e.hi);
-  float el = (big || tiny || eh == __int_as_float(0x7f800000)) ? 0.0f : e.lo;
+  ff2 g = add212(e, -1.0f);
+  bool ovf = e.hi == inf32();
+  ff2 o = (k == 0) ? s : ff2{ovf ? e.hi : g.hi, ovf ? 0.0f : g.lo};
+  if (fabsf(xh) < kIdentity) o = {xh, xl};
+  bool big = xh > kExpClipHi;
+  bool tiny = xh < kExpClipLo;
+  if (big || tiny) o = {big ? inf32() : -1.0f, 0.0f};
   if (xh != xh) return {xh, xh};
-  return {eh, el};
+  return o;
+}
+
+// log(2^e m) = e ln2 + 2 s S(s^2), s = (m-1)/(m+1), m in [1/sqrt2, sqrt2).
+__device__ __forceinline__ ff2 log_core(ff2 m, float ef) {
+  const float S_F32[6] = {0x1.c71c72p-4f, 0x1.745d18p-4f, 0x1.3b13b2p-4f,
+                          0x1.111112p-4f, 0x1.e1e1e2p-5f, 0x1.af286cp-5f};
+  const float S_H[4] = {0x1p+0f, 0x1.555556p-2f, 0x1.99999ap-3f,
+                        0x1.24924ap-3f};
+  const float S_L[4] = {0.0f, -0x1.555556p-27f, -0x1.99999ap-29f,
+                        -0x1.b6db6ep-28f};
+  const float LN2_H = 0x1.62e43p-1f;   // ln2 as an FF constant
+  const float LN2_L = -0x1.05c61p-29f;
+  ff2 n = add212(m, -1.0f);
+  ff2 d = add212(m, 1.0f);
+  ff2 s = div22(n, d);
+  ff2 z = mul22(s, s);
+  float t = S_F32[5];
+#pragma unroll
+  for (int i = 4; i >= 0; --i) t = add(mul(t, z.hi), S_F32[i]);
+  ff2 a = {t, 0.0f};
+#pragma unroll
+  for (int j = 3; j >= 0; --j) {
+    a = mul22(a, z);
+    a = add22(a, {S_H[j], S_L[j]});
+  }
+  ff2 l = mul22(s, a);
+  l = {mul(2.0f, l.hi), mul(2.0f, l.lo)};       // exact
+  ff2 tl = mul212({LN2_H, LN2_L}, ef);
+  return add22(tl, l);
+}
+
+// FF natural log: nan for x < 0, -inf at x == 0.
+__device__ __forceinline__ ff2 log22(float xh, float xl) {
+  // frexp to [1/sqrt2, sqrt2) by exponent-bit surgery
+  int bits = __float_as_int(xh);
+  int e = ((bits >> 23) & 0xFF) - 127;
+  float mh = __int_as_float((bits & 0x007FFFFF) | 0x3F800000);
+  bool big = mh > 0x1.6a09e6p+0f;
+  mh = big ? mul(mh, 0.5f) : mh;
+  e += big ? 1 : 0;
+  float ml = scale2k(xl, 0.0f, -e).hi;
+  ff2 r = log_core({mh, ml}, static_cast<float>(e));
+  bool bad = (xh < 0.0f) || (xh != xh);
+  float rh = xh == 0.0f ? -inf32() : (bad ? __int_as_float(0x7fc00000) : r.hi);
+  rh = xh == inf32() ? inf32() : rh;
+  float rl = (xh == 0.0f || bad || xh == inf32()) ? 0.0f : r.lo;
+  return {rh, rl};
+}
+
+// FF tanh: odd Maclaurin kernel on |x| <= 0.35, -t/(2+t) with
+// t = expm1(-2|x|) beyond; x itself below 2^-45.
+__device__ __forceinline__ ff2 tanh22(float xh, float xl) {
+  const float C_F32[6] = {0x1.d6d3dp-9f, -0x1.7da364p-10f, 0x1.355824p-11f,
+                          -0x1.f57d78p-13f, 0x1.967e18p-14f,
+                          -0x1.497d8ep-15f};
+  const float C_H[6] = {0x1p+0f, -0x1.555556p-2f, 0x1.111112p-3f,
+                        -0x1.ba1ba2p-5f, 0x1.664f48p-6f, -0x1.226e36p-7f};
+  const float C_L[6] = {0.0f, 0x1.555556p-27f, -0x1.dddddep-28f,
+                        0x1.17917ap-31f, 0x1.058220p-31f, 0x1.4327b8p-32f};
+  ff2 x = {xh, xl};
+  ff2 z = mul22(x, x);
+  float t = C_F32[5];
+#pragma unroll
+  for (int i = 4; i >= 0; --i) t = add(mul(t, z.hi), C_F32[i]);
+  ff2 p = {t, 0.0f};
+#pragma unroll
+  for (int j = 5; j >= 0; --j) {
+    p = mul22(p, z);
+    p = add22(p, {C_H[j], C_L[j]});
+  }
+  ff2 sm = mul22(x, p);
+  float sgn = xh < 0.0f ? -1.0f : 1.0f;
+  float m2 = mul(-2.0f, sgn);
+  ff2 th = expm122(mul(m2, xh), mul(m2, xl));
+  ff2 d = add212(th, 2.0f);
+  ff2 q = div22({-th.hi, -th.lo}, d);
+  ff2 r = fabsf(xh) <= 0x1.666666p-2f ? sm
+                                        : ff2{mul(sgn, q.hi), mul(sgn, q.lo)};
+  if (fabsf(xh) < kIdentity) return {xh, xl};
+  return r;
+}
+
+// FF logistic sigmoid, u / (1 + z), z = exp(-|x|), u = 1 for x >= 0 and
+// z otherwise.
+__device__ __forceinline__ ff2 sigmoid22(float xh, float xl) {
+  float ns = xh < 0.0f ? 1.0f : -1.0f;          // -sgn
+  ff2 z = exp22(mul(ns, xh), mul(ns, xl));
+  ff2 d = add212(z, 1.0f);
+  ff2 n = xh >= 0.0f ? ff2{1.0f, 0.0f} : z;
+  ff2 r = div22(n, d);
+  if (xh != xh) return {xh, xh};
+  return r;
 }
 
 }  // namespace ffk

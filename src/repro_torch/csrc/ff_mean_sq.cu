@@ -15,7 +15,7 @@
 // it walks columns l, l+128, ... (a warp reads 32 consecutive floats) with
 // the (s, c, cc) Neumaier update of the reference's _lane_cascade, in
 // registers.  One thread then folds the 128 lane triples in lane order, as
-// _fold_lanes does.  Keeping the lanes and their order keeps the
+// _fold_lanes does (ffk::LaneSum and ffk::fold_lanes).  Keeping the lanes and their order keeps the
 // reference's summation order (not its blocking), so the result agrees
 // with the plain version (ff_sum_blocked with block=128) to <= 1 ulp and
 // in practice to the bit.
@@ -24,39 +24,21 @@
 
 namespace {
 
-constexpr int kLanes = 128;
+using ffk::kLanes;
 
 __global__ void __launch_bounds__(kLanes)
 mean_sq_kernel(const float* __restrict__ x, float* __restrict__ out,
                int cols) {
   using namespace ffk;
+  __shared__ float sh[3 * kLanes + 2];
   const float* row = x + static_cast<size_t>(blockIdx.x) * cols;
-  const int lane = threadIdx.x;
-  float s = 0.0f, c = 0.0f, cc = 0.0f;
-  for (int j = lane; j < cols; j += kLanes) {
+  LaneSum ln;
+  for (int j = threadIdx.x; j < cols; j += kLanes) {
     float v = row[j];
-    ff2 t = two_sum(s, mul(v, v));
-    ff2 u = two_sum(c, t.lo);
-    s = t.hi;
-    c = u.hi;
-    cc = add(cc, u.lo);
+    ln.add(mul(v, v));
   }
-  __shared__ float s_acc[kLanes], c_acc[kLanes], cc_acc[kLanes];
-  s_acc[lane] = s;
-  c_acc[lane] = c;
-  cc_acc[lane] = cc;
-  __syncthreads();
-  if (lane == 0) {
-    float fh = 0.0f, fl = 0.0f;
-    for (int i = 0; i < kLanes; ++i) {
-      ff2 t = two_sum(fh, s_acc[i]);
-      float v = add(t.lo, add(add(fl, c_acc[i]), cc_acc[i]));
-      ff2 f = fast_two_sum(t.hi, v);
-      fh = f.hi;
-      fl = f.lo;
-    }
-    out[blockIdx.x] = dvd(fh, static_cast<float>(cols));
-  }
+  const ff2 f = fold_lanes(ln, sh);
+  if (threadIdx.x == 0) out[blockIdx.x] = dvd(f.hi, static_cast<float>(cols));
 }
 
 }  // namespace

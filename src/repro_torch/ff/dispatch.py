@@ -1,5 +1,6 @@
 """Dispatch registry for ``repro_torch.ff`` (counterpart of
-``repro.ff.dispatch``, with the ops of the serving and training paths).
+``repro.ff.dispatch``, with the ops of the serving, training, FF matmul
+and fused-composite paths).
 
 Each op name maps to named implementations; a call resolves one:
 
@@ -11,16 +12,19 @@ Each op name maps to named implementations; a call resolves one:
 
 The port has no tuning table yet: ``"tuned"`` resolves to the per-device
 default and ``"tuned_accurate"`` to the first registered name of the op's
-accurate fallback (for matmul: f64, ozaki, dot2), as the reference does for
-a shape its table lacks.  Mesh and guard resolution are not ported yet.
+accurate fallback (for matmul: f64, ozaki, dot2; for softmax and
+logsumexp: ff), as the reference does for a shape its table lacks.  Mesh and guard resolution are not ported yet.
 Implementation names are the reference's, so one policy string means the
 same in both packages: ``"pallas"`` (``"pallas_*"`` for matmul) names the
 one-kernel tier, which in the port is a CUDA kernel, and for
 ``adamw_update``, ``"fused"`` names the one-kernel update, the CUDA default
-as ``"tpu"`` is the reference's.
+as ``"tpu"`` is the reference's.  The ``f64`` tiers are real device tiers
+(the H100 and the CPU have f64 units); unlike the reference, no CPU
+default lands on them (``jnp`` stays the CPU default).
 
 The public calls route through the ``torch.autograd.Function``s of
-:mod:`repro_torch.ff.autodiff` when an input requires a gradient.
+:mod:`repro_torch.ff.autodiff` when an input requires a gradient
+(``softmax`` and ``norm_stats`` have none yet and raise).
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import compensated, ffmatmul
+from repro_torch.core import compensated, ffmatmul, ffmath
 from repro_torch.core import ff as core_ff
+from repro_torch.core import transforms as T
 from repro_torch.core.ff import FF
 from repro_torch.ff import autodiff, scope
 from repro_torch.kernels import ff_attention, ff_fused, ff_matmul
@@ -44,7 +49,10 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {}     # op -> {device type|"*": impl}
 # what "tuned_accurate" resolves to without a tuning table: per op, the
 # first registered name
 _ACCURATE_FALLBACK: Dict[str, Tuple[str, ...]] = {
-    "matmul": ("f64", "ozaki", "dot2")}
+    "matmul": ("f64", "ozaki", "dot2"),
+    # composites whose f32-builtin exponentials cap them at the fast
+    # class: the accurate tier is the FF-exp impl
+    "softmax": ("ff",), "logsumexp": ("ff",)}
 
 
 def register(op: str, impl: str, fn: Callable, *,
@@ -120,7 +128,17 @@ def _add_jnp(a, b, **_kw) -> FF:
     return core_ff.add22(_as_ff(a), _as_ff(b))
 
 
+def _mul_jnp(a, b, **_kw) -> FF:
+    """Mul212 where one operand is f32, Mul22 where both are FF."""
+    if isinstance(a, FF) and not isinstance(b, FF):
+        return core_ff.mul212(a, torch.as_tensor(b, dtype=torch.float32))
+    if isinstance(b, FF) and not isinstance(a, FF):
+        return core_ff.mul212(b, torch.as_tensor(a, dtype=torch.float32))
+    return core_ff.mul22(_as_ff(a), _as_ff(b))
+
+
 register("add", "jnp", _add_jnp, default_for=("*",))
+register("mul", "jnp", _mul_jnp, default_for=("*",))
 
 
 # -- sum: the compensated sum -------------------------------------------------
@@ -138,7 +156,20 @@ register("mean_sq", "jnp", ff_fused.mean_sq_plain, default_for=("*",))
 register("mean_sq", "fused", ff_fused.mean_sq, default_for=("cuda",))
 
 
-# -- logsumexp ----------------------------------------------------------------
+# -- whole-row composites: logsumexp, softmax, norm_stats ---------------------
+#
+# ``jnp`` is the compensated formulation (f32 max and builtin exp, FF
+# exp-sum); ``pallas`` the one-kernel tier (``ff_fused.ff_softmax`` /
+# ``ff_norm_stats``), the CUDA default; ``ff`` the accurate class (FF
+# exponentials: its kernel on the card where the row fits, else the FF
+# formulation); ``f64`` a native-f64 exp-sum.
+
+def _last_axis_fusable(x: Tensor, axis: int) -> bool:
+    """Whether the whole-row kernels apply: a last-axis reduction with the
+    row within ``ff_fused.MAX_FUSED_COLS``."""
+    return (x.ndim >= 1 and axis in (-1, x.ndim - 1)
+            and x.shape[-1] <= ff_fused.MAX_FUSED_COLS)
+
 
 def _logsumexp_jnp(x: Tensor, axis: int = -1, *, block: int = 256, **_kw):
     """Compensated LSE: f32 max, f32 builtin exp, FF exp-sum, f32 log."""
@@ -149,7 +180,126 @@ def _logsumexp_jnp(x: Tensor, axis: int = -1, *, block: int = 256, **_kw):
     return m.squeeze(axis) + torch.log(s.to_f32())
 
 
+def _logsumexp_pallas(x: Tensor, axis: int = -1, **_kw):
+    """One kernel: max, exp, compensated sum, log.  Non-last axes and rows
+    longer than MAX_FUSED_COLS take the jnp formulation, with a warning."""
+    x = x.to(torch.float32)
+    if not _last_axis_fusable(x, axis):
+        _fallback_warn("pallas", "logsumexp",
+                       "not a last-axis reduction within MAX_FUSED_COLS")
+        return _logsumexp_jnp(x, axis=axis)
+    return ff_fused.ff_softmax(x, mode="logsumexp")
+
+
+def _sum_f64_axis(e: Tensor, axis: int) -> Tensor:
+    """The exp-sum in native f64, rounded to f32."""
+    return e.to(torch.float64).sum(dim=axis).to(torch.float32)
+
+
+def _logsumexp_f64(x: Tensor, axis: int = -1, **_kw):
+    """LSE with a native-f64 exp-sum (f64-quality sum, f32 builtins)."""
+    x = x.to(torch.float32)
+    m = torch.amax(x, dim=axis, keepdim=True)
+    e = torch.exp(x - m)
+    return m.squeeze(axis) + torch.log(_sum_f64_axis(e, axis))
+
+
+def _ff_exp_terms(x: Tensor, axis: int):
+    """exp(x - max) in FF with the reduction held exact (TwoSum)."""
+    m = torch.amax(x, dim=axis, keepdim=True)
+    dh, dl = T.two_sum(x, (-m).expand(x.shape))
+    return m, FF(*ffmath.exp22(dh, dl))
+
+
+def _ff_expsum(e: FF, axis: int, block: int) -> FF:
+    return core_ff.add22_accurate(
+        compensated.ff_sum_blocked(e.hi, axis=axis, block=block),
+        compensated.ff_sum_blocked(e.lo, axis=axis, block=block))
+
+
+def _logsumexp_ff(x: Tensor, axis: int = -1, *, block: int = 256, **_kw):
+    """Accurate-class LSE: FF exponentials, FF log of the FF exp-sum."""
+    x = x.to(torch.float32)
+    if x.device.type == "cuda" and _last_axis_fusable(x, axis):
+        return ff_fused.ff_softmax(x, mode="logsumexp", accurate=True)
+    m, e = _ff_exp_terms(x, axis)
+    s = _ff_expsum(e, axis, block)
+    logs = FF(*ffmath.log22(s.hi, s.lo))
+    return core_ff.add212(logs, m.squeeze(axis)).hi
+
+
 register("logsumexp", "jnp", _logsumexp_jnp, default_for=("*",))
+register("logsumexp", "pallas", _logsumexp_pallas, default_for=("cuda",))
+register("logsumexp", "f64", _logsumexp_f64)
+register("logsumexp", "ff", _logsumexp_ff)
+
+
+def _softmax_jnp(x: Tensor, axis: int = -1, *, block: int = 256, **_kw):
+    """Compensated softmax: exp(x - max) / FF-accurate denominator."""
+    x = x.to(torch.float32)
+    m = torch.amax(x, dim=axis, keepdim=True)
+    e = torch.exp(x - m)
+    s = compensated.ff_sum_blocked(e, axis=axis, block=block)
+    return e / s.to_f32().unsqueeze(axis % x.ndim)
+
+
+def _softmax_pallas(x: Tensor, axis: int = -1, **_kw):
+    x = x.to(torch.float32)
+    if not _last_axis_fusable(x, axis):
+        _fallback_warn("pallas", "softmax",
+                       "not a last-axis reduction within MAX_FUSED_COLS")
+        return _softmax_jnp(x, axis=axis)
+    return ff_fused.ff_softmax(x, mode="softmax")
+
+
+def _softmax_f64(x: Tensor, axis: int = -1, **_kw):
+    """Softmax with a native-f64 denominator."""
+    x = x.to(torch.float32)
+    m = torch.amax(x, dim=axis, keepdim=True)
+    e = torch.exp(x - m)
+    return e / _sum_f64_axis(e, axis).unsqueeze(axis % x.ndim)
+
+
+def _softmax_ff(x: Tensor, axis: int = -1, *, block: int = 256, **_kw):
+    """Accurate-class softmax: FF exponentials and an FF division."""
+    x = x.to(torch.float32)
+    if x.device.type == "cuda" and _last_axis_fusable(x, axis):
+        return ff_fused.ff_softmax(x, mode="softmax", accurate=True)
+    _m, e = _ff_exp_terms(x, axis)
+    s = _ff_expsum(e, axis, block)
+    ax = axis % x.ndim
+    return core_ff.div22(e, FF(s.hi.unsqueeze(ax).expand(x.shape),
+                               s.lo.unsqueeze(ax).expand(x.shape))).hi
+
+
+register("softmax", "jnp", _softmax_jnp, default_for=("*",))
+register("softmax", "pallas", _softmax_pallas, default_for=("cuda",))
+register("softmax", "f64", _softmax_f64)
+register("softmax", "ff", _softmax_ff)
+
+
+def _norm_stats_jnp(x: Tensor, *, block: int = 128, **_kw):
+    """LayerNorm statistics: compensated mean and centred variance."""
+    x = x.to(torch.float32)
+    n = x.shape[-1]
+    mu = ff_fused.div_n(
+        compensated.ff_sum_blocked(x, axis=-1, block=block).to_f32(), n)
+    d = x - mu[..., None]
+    var = ff_fused.div_n(
+        compensated.ff_sum_blocked(d * d, axis=-1, block=block).to_f32(), n)
+    return mu, var
+
+
+def _norm_stats_pallas(x: Tensor, **_kw):
+    x = x.to(torch.float32)
+    if not _last_axis_fusable(x, -1):
+        _fallback_warn("pallas", "norm_stats", "row exceeds MAX_FUSED_COLS")
+        return _norm_stats_jnp(x)
+    return ff_fused.ff_norm_stats(x)
+
+
+register("norm_stats", "jnp", _norm_stats_jnp, default_for=("*",))
+register("norm_stats", "pallas", _norm_stats_pallas, default_for=("cuda",))
 
 
 # -- adamw_update: the FF-master-weight AdamW leaf update ---------------------
@@ -271,6 +421,13 @@ def add(a, b, *, impl: Optional[str] = None, **opts) -> FF:
     return _resolved("add", impl, dev, opts)(a, b)
 
 
+def mul(a, b, *, impl: Optional[str] = None, **opts) -> FF:
+    """FF multiplication (paper Mul22; Mul212 where one operand is f32).
+    Accepts FF or f32 operands; no gradient."""
+    dev = (a.hi if isinstance(a, FF) else torch.as_tensor(a)).device
+    return _resolved("mul", impl, dev, opts)(a, b)
+
+
 def sum(x: Tensor, axis=None, *, impl: Optional[str] = None,
         **opts) -> FF:
     """Compensated sum of an f32 tensor -> FF (~44-bit accurate)."""
@@ -300,6 +457,31 @@ def logsumexp(x: Tensor, axis: int = -1, *, impl: Optional[str] = None,
     if autodiff.needs_grad(x):
         return autodiff.LogSumExp.apply(x, fn, axis)
     return fn(x, axis=axis)
+
+
+def _forward_only(op: str, x: Tensor) -> None:
+    if autodiff.needs_grad(x):
+        raise NotImplementedError(
+            f"the gradient of ff.{op} is not ported yet (ROADMAP, queue "
+            f"item 3): call it on a tensor that needs no gradient")
+
+
+def softmax(x: Tensor, axis: int = -1, *, impl: Optional[str] = None,
+            **opts) -> Tensor:
+    """Compensated softmax -> f32: one kernel on the card for rows up to
+    ``MAX_FUSED_COLS`` (longer rows take the jnp impl, with a warning).
+    Forward only."""
+    x = x.to(torch.float32)
+    _forward_only("softmax", x)
+    return _resolved("softmax", impl, x.device, opts)(x, axis=axis % x.ndim)
+
+
+def norm_stats(x: Tensor, *, impl: Optional[str] = None, **opts):
+    """Compensated LayerNorm statistics over the last axis -> (mean, var),
+    both f32: one kernel on the card, reading x once.  Forward only."""
+    x = x.to(torch.float32)
+    _forward_only("norm_stats", x)
+    return _resolved("norm_stats", impl, x.device, opts)(x)
 
 
 def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,

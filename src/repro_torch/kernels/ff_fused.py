@@ -1,10 +1,19 @@
-"""Two programs of the reference's fused executor as CUDA kernels, each
-with its plain version.
+"""The reference's fused kernels (``repro.kernels.ff_fused``) as CUDA
+kernels, each with its plain version.
 
-Counterparts of ``repro.kernels.ff_fused.run_pallas`` on the two programs
-the TPU runs by default on the model paths; the general Program executor
-is not ported yet.
+The general Program executor and two dedicated programs of
+``run_pallas``, and the two whole-row composites:
 
+  * ``run_program``, one recorded ``ff.fusion`` Program in one launch
+    (``csrc/ff_program.cu``): a fixed kernel that evaluates the Program's
+    instruction tape per element, with each trailing row sum in the TPU
+    kernel's 128-lane order.  Bit for bit its plain version
+    ``run_program_plain``.
+  * ``ff_softmax``, softmax or log-sum-exp over the last axis, with the
+    f32 builtin exp or (``accurate``) ``exp22`` on an exact TwoSum shift
+    (``csrc/ff_softmax.cu``); ``ff_norm_stats``, the compensated mean and
+    centred variance (``csrc/ff_norm_stats.cu``).  Rows up to
+    ``MAX_FUSED_COLS``; the plain versions fold in the same lane order.
   * ``mean_sq``, the FF RMSNorm statistic ``(x*x).sum() / C``
     (``csrc/ff_mean_sq.cu``).  The kernel keeps the TPU kernel's 128
     lanes and their fold order; the plain version is the reference's CPU
@@ -20,27 +29,40 @@ is not ported yet.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Any, List, Sequence, Tuple
 
 import torch
 
-from repro_torch.core import compensated
+from repro_torch.core import compensated, ffmath
 from repro_torch.core import ff as core_ff
-from repro_torch.core.ff import FF
+from repro_torch.core import transforms as T
+from repro_torch.core.ff import FF, sqrt_rn
 from repro_torch.kernels import build
+from repro_torch.kernels.ff_elementwise import (_pad_to, _to_2d,
+                                                broadcast_planes)
 
 Tensor = torch.Tensor
+
+LANE = 128                   # the TPU kernels' lane count, kept as an order
+MAX_FUSED_COLS = 16384       # whole-row kernels beyond this -> jnp impls
 
 # ff_mean_sq_f32(x, out, rows, cols, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
 
 
+def div_n(x: Tensor, n: int) -> Tensor:
+    """``x / n`` as an IEEE f32 division.  PyTorch divides a CUDA tensor
+    by a Python number as a multiply by the number's rounded reciprocal
+    (the CPU divides); a divisor tensor keeps the division on both."""
+    return x / torch.full_like(x, n)
+
+
 def mean_sq_plain(x: Tensor) -> Tensor:
     """Compensated mean of squares over the last axis, (..., C) -> (...)."""
     x = x.to(torch.float32)
-    return (compensated.ff_sum_blocked(x * x, axis=-1, block=128).to_f32()
-            / x.shape[-1])
+    return div_n(compensated.ff_sum_blocked(x * x, axis=-1,
+                                            block=128).to_f32(), x.shape[-1])
 
 
 def mean_sq(x: Tensor) -> Tensor:
@@ -93,13 +115,6 @@ def f32_scalar(x: float) -> float:
 
 def _scalar(x, device) -> Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device).reshape(())
-
-
-def sqrt_rn(x: Tensor) -> Tensor:
-    """The correctly rounded f32 square root.  PyTorch's vectorised CPU
-    ``sqrt`` is not (it is within ~0.5001 ulp); the f64 root of an f32
-    rounds back to the correctly rounded f32 (53 >= 2*24 + 2 bits)."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def adamw_chain(g: Tensor, m: Tensor, v: Tensor, w: Tensor, lr, b1, b2,
@@ -169,3 +184,391 @@ def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
 
 
 adamw_update.launches = 0   # kernel launches since the last reset
+
+
+# -- the fixed 128-lane summation order ---------------------------------------
+
+def _lane_cascade(val: Tensor, acc=None):
+    """Fold ``val`` (R, C) into 128 per-lane (s, c, cc) Neumaier
+    accumulators, lane l taking columns l, l+128, ... in order (the
+    reference's ``_lane_cascade``; zero padding past C adds nothing).
+    ``acc``: accumulators to continue from.  Returns (s, c, cc), (R, 128)
+    each."""
+    R = val.shape[0]
+    val = _pad_to(val, 1, LANE)
+    if acc is None:
+        z = val.new_zeros((R, LANE))
+        acc = (z, z, z)
+    s, c, cc = acc
+    for xt in val.reshape(R, -1, LANE).unbind(1):
+        s, e = T.two_sum(s, xt)
+        c, e2 = T.two_sum(c, e)
+        cc = cc + e2
+    return s, c, cc
+
+
+def _fold_lanes(acc) -> FF:
+    """Exact sequential fold of the 128 lane accumulators, lane 0 first
+    (the reference's ``_fold_lanes``): (R, 128) x3 -> FF per row (R,)."""
+    s, c, cc = acc
+    fh = fl = s.new_zeros(s.shape[0])
+    for i in range(s.shape[1]):
+        sh, sl = T.two_sum(fh, s[:, i])
+        v = sl + (fl + c[:, i] + cc[:, i])
+        fh, fl = T.fast_two_sum(sh, v)
+    return FF(fh, fl)
+
+
+def _rows(x: Tensor, what: str) -> Tuple[Tensor, Tuple[int, ...]]:
+    """x as f32 (R, C) rows, C <= MAX_FUSED_COLS, and its shape."""
+    x = x.to(torch.float32)
+    x2 = _to_2d(x)
+    if x2.shape[1] > MAX_FUSED_COLS:
+        raise ValueError(f"{what}: row length {x2.shape[1]} exceeds "
+                         f"MAX_FUSED_COLS ({MAX_FUSED_COLS}); use the jnp "
+                         f"impl")
+    return x2, x.shape
+
+
+def _row_entry(name: str, fn: str, argtypes, x2: Tensor, outs, *extra):
+    """Launch a one-block-per-row kernel of lib``name`` on (R, C) f32
+    rows; raises on a launch error."""
+    R, C = x2.shape
+    if R >= 2 ** 31:
+        raise ValueError(f"{name} kernel takes < 2^31 rows, got {R}")
+    with torch.cuda.device(x2.device):
+        err = build.entry(name, fn, argtypes)(
+            x2.data_ptr(), *(o.data_ptr() for o in outs), R, C, *extra,
+            torch.cuda.current_stream(x2.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _kernel_rows(x: Tensor, what: str
+                 ) -> Tuple[Tensor, Tuple[int, ...]]:
+    """``x`` for a row kernel: a CUDA f32 tensor as contiguous (R, C) rows
+    (a copy only for a strided view), and its shape."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} kernel takes float32, got {x.dtype}")
+    return _rows(x.contiguous(), what)
+
+
+# -- ff_softmax: softmax / log-sum-exp over the last axis ---------------------
+
+_SOFTMAX_MODES = {"softmax": 0, "logsumexp": 1}
+# ff_softmax_f32(x, out, rows, cols, mode, accurate, stream)
+_SOFTMAX_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _SOFTMAX_MODES:
+        raise ValueError(f"ff_softmax mode {mode!r}; modes: "
+                         f"{tuple(_SOFTMAX_MODES)}")
+
+
+def ff_softmax_plain(x: Tensor, mode: str = "softmax",
+                     accurate: bool = False) -> Tensor:
+    """The reference's ``_softmax_kernel`` in PyTorch: row max; exp(x - m)
+    (the f32 builtin), or ``exp22`` of TwoSum(x, -m) with both limb
+    planes summed (``accurate``); the 128-lane compensated sum; then
+    ``e / s`` or ``div22(e, s).hi`` (softmax, shape of x), ``m + log s``
+    or ``add212(log22(s), m).hi`` (logsumexp, shape[:-1])."""
+    _check_mode(mode)
+    x2, shape = _rows(x, "ff_softmax")
+    m = torch.amax(x2, dim=1, keepdim=True)
+    if accurate:
+        dh, dl = T.two_sum(x2, (-m).expand(x2.shape))
+        eh, el = ffmath.exp22(dh, dl)
+        f = _fold_lanes(_lane_cascade(el, _lane_cascade(eh)))
+        if mode == "softmax":
+            out = core_ff.div22(FF(eh, el), FF(f.hi[:, None],
+                                               f.lo[:, None])).hi
+        else:
+            out = core_ff.add212(FF(*ffmath.log22(f.hi, f.lo)), m[:, 0]).hi
+    else:
+        e = torch.exp(x2 - m)
+        fh = _fold_lanes(_lane_cascade(e)).hi
+        if mode == "softmax":
+            out = e / fh[:, None]
+        else:
+            out = m[:, 0] + torch.log(fh)
+    return out.reshape(shape if mode == "softmax" else shape[:-1])
+
+
+def ff_softmax(x: Tensor, mode: str = "softmax",
+               accurate: bool = False) -> Tensor:
+    """One-kernel compensated softmax / log-sum-exp over the last axis of
+    an f32 tensor, as :func:`ff_softmax_plain` (bit for bit with
+    ``accurate``; with the f32 builtin exp, to the card's ``expf``).
+
+    On a CUDA tensor: one launch (raises if it cannot launch); on a CPU
+    tensor: the plain version.  Rows longer than ``MAX_FUSED_COLS``
+    raise ``ValueError``."""
+    if x.device.type == "cpu":
+        return ff_softmax_plain(x, mode, accurate)
+    _check_mode(mode)
+    x2, shape = _kernel_rows(x, "ff_softmax")
+    R, C = x2.shape
+    if mode == "softmax":
+        out = torch.empty((R, C), dtype=torch.float32, device=x.device)
+    else:
+        out = torch.empty((R,), dtype=torch.float32, device=x.device)
+    if R and C:
+        _row_entry("ff_softmax", "ff_softmax_f32", _SOFTMAX_ARGTYPES, x2,
+                   (out,), _SOFTMAX_MODES[mode], int(bool(accurate)))
+        ff_softmax.launches += 1
+    return out.reshape(shape if mode == "softmax" else shape[:-1])
+
+
+ff_softmax.launches = 0   # kernel launches since the last reset
+
+
+# -- ff_norm_stats: LayerNorm statistics --------------------------------------
+
+# ff_norm_stats_f32(x, mu, var, rows, cols, stream)
+_NORM_STATS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p]
+
+
+def ff_norm_stats_plain(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """The reference's ``_norm_stats_kernel`` in PyTorch: the 128-lane
+    compensated row sum, ``mu = hi / C``, then the same sum of
+    ``(x - mu)^2``, ``var = hi / C``.  Returns (mu, var), shape[:-1]."""
+    x2, shape = _rows(x, "ff_norm_stats")
+    C = x2.shape[1]
+    mu = div_n(_fold_lanes(_lane_cascade(x2)).hi, C)
+    d = x2 - mu[:, None]
+    var = div_n(_fold_lanes(_lane_cascade(d * d)).hi, C)
+    return mu.reshape(shape[:-1]), var.reshape(shape[:-1])
+
+
+def ff_norm_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """One-kernel compensated mean and centred variance over the last axis
+    of an f32 tensor, bit for bit :func:`ff_norm_stats_plain`.
+
+    On a CUDA tensor: one launch (raises if it cannot launch); on a CPU
+    tensor: the plain version.  Rows longer than ``MAX_FUSED_COLS``
+    raise ``ValueError``."""
+    if x.device.type == "cpu":
+        return ff_norm_stats_plain(x)
+    x2, shape = _kernel_rows(x, "ff_norm_stats")
+    R, C = x2.shape
+    mu = torch.empty((R,), dtype=torch.float32, device=x.device)
+    var = torch.empty_like(mu)
+    if R and C:
+        _row_entry("ff_norm_stats", "ff_norm_stats_f32",
+                   _NORM_STATS_ARGTYPES, x2, (mu, var))
+        ff_norm_stats.launches += 1
+    return mu.reshape(shape[:-1]), var.reshape(shape[:-1])
+
+
+ff_norm_stats.launches = 0   # kernel launches since the last reset
+
+
+# -- run_program: the general ff.fusion Program executor ----------------------
+
+# op codes of csrc/ff_program.cu (enum Op, same order)
+PROGRAM_OPS = ("leaf_ff", "leaf_f32", "const", "fadd", "fsub", "fmul",
+               "fdiv", "fneg", "fsqrt", "fexp", "flog", "add22", "add212",
+               "mul22", "mul212", "div22", "sqrt22", "fma22", "neg22",
+               "exp22", "log22", "tanh22", "sigmoid22", "lift", "hi", "lo",
+               "pack", "rowsum")
+MAX_INSTRS, MAX_PLANES, MAX_OUTS = 64, 32, 16  # the tape's capacity
+_OUT_KINDS = {"f32": 0, "ff": 1, "red": 2}
+
+
+class _Instr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_int), ("a", ctypes.c_int * 3),
+                ("imm", ctypes.c_float)]
+
+
+class _Tape(ctypes.Structure):
+    """``struct Tape`` of csrc/ff_program.cu, field for field."""
+    _fields_ = [("n_instr", ctypes.c_int), ("n_out", ctypes.c_int),
+                ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
+                ("ins", _Instr * MAX_INSTRS),
+                ("plane", ctypes.c_void_p * MAX_PLANES),
+                ("rs", ctypes.c_longlong * MAX_PLANES),
+                ("cs", ctypes.c_longlong * MAX_PLANES),
+                ("out_id", ctypes.c_int * MAX_OUTS),
+                ("out_kind", ctypes.c_int * MAX_OUTS),
+                ("red_width", ctypes.c_longlong * MAX_OUTS),
+                ("out_hi", ctypes.c_void_p * MAX_OUTS),
+                ("out_lo", ctypes.c_void_p * MAX_OUTS)]
+
+
+# ff_program_f32(tape, stream); ff_program_tape_bytes()
+_PROGRAM_ARGTYPES = [ctypes.POINTER(_Tape), ctypes.c_void_p]
+
+
+def _unbroadcast(arr: Tensor, full_shape, nd) -> Tensor:
+    """A value of true ND shape ``nd`` from its full-broadcast plane:
+    along every dim the value broadcasts over, all slices are copies —
+    take index 0."""
+    if tuple(nd) == tuple(full_shape):
+        return arr
+    pad = len(full_shape) - len(nd)
+    idx = tuple(
+        slice(0, 1) if (1 if d < pad else nd[d - pad]) == 1 and size != 1
+        else slice(None)
+        for d, size in enumerate(full_shape))
+    return arr[idx].reshape(nd)
+
+
+def _program_layout(prog, operands: Sequence[Any], device: torch.device):
+    """Flatten the operands to broadcastable 2-D planes.  Returns the
+    planes, each leaf's plane indices, every value's ND shape, the
+    broadcast shape and its (R, C)."""
+    from repro_torch.ff import fusion
+    raw: List[Tensor] = []
+    leaf_planes: List[Tuple[int, ...]] = []
+    for kind, x in zip(prog.leaf_kinds, fusion.leaf_values(operands,
+                                                           device)):
+        if kind == "ff":
+            leaf_planes.append((len(raw), len(raw) + 1))
+            raw += [x.hi.to(torch.float32), x.lo.to(torch.float32)]
+        else:
+            leaf_planes.append((len(raw),))
+            raw.append(x)
+    nd_shapes = fusion.infer_shapes(prog, [
+        tuple((x.hi if isinstance(x, FF) else torch.as_tensor(x)).shape)
+        for x in operands])
+    planes, out_shape = broadcast_planes(raw)
+    R = 1
+    for d in out_shape[:-1]:
+        R *= d
+    C = out_shape[-1] if out_shape else 1
+    return planes, leaf_planes, nd_shapes, out_shape, R, C
+
+
+def _red_width(prog, nd_shapes, oid: int) -> int:
+    """The width a rowsum output reduces: its value's own last dim (1 for
+    a column-broadcast value), not the broadcast width."""
+    vshape = nd_shapes[prog.instrs[oid].args[0]]
+    return vshape[-1] if vshape else 1
+
+
+def _program_outputs(prog, flat: Sequence, nd_shapes, out_shape, R, C):
+    """Un-pad, un-broadcast and reshape the (R, C) / (R,) output planes."""
+    outs: List[Any] = []
+    lead = out_shape[:-1] if len(out_shape) else ()
+    for oid, planes in zip(prog.out_ids, flat):
+        nd = nd_shapes[oid]
+        if prog.instrs[oid].op == "rowsum":
+            outs.append(FF(*(_unbroadcast(p[:R].reshape(lead), lead, nd)
+                             for p in planes)))
+            continue
+        vals = [_unbroadcast(p[:R, :C].reshape(out_shape), out_shape, nd)
+                for p in planes]
+        outs.append(FF(*vals) if len(vals) == 2 else vals[0])
+    return outs
+
+
+def run_program_plain(prog, operands: Sequence[Any]) -> List[Any]:
+    """The Program kernel in PyTorch: every value over the broadcast
+    planes through ``repro_torch.core`` ops, each rowsum in the 128-lane
+    order, masked past its value's own width (the reference's
+    ``run_pallas``).  Returns the outputs at their ``infer_shapes``
+    shape."""
+    from repro_torch.ff import fusion
+    dev = fusion.operand_device(operands)
+    planes, leaf_planes, nd_shapes, out_shape, R, C = _program_layout(
+        prog, operands, dev)
+    leaves = [FF(planes[ix[0]], planes[ix[1]]) if len(ix) == 2
+              else planes[ix[0]] for ix in leaf_planes]
+    env = fusion.eval_instrs(prog, leaves, lambda v: None, dev)
+    full = lambda v: v.expand(R, C)        # noqa: E731
+    flat = []
+    for oid in prog.out_ids:
+        ins = prog.instrs[oid]
+        if ins.op == "rowsum":
+            val = full(env[ins.args[0]])
+            width = _red_width(prog, nd_shapes, oid)
+            val = torch.where(torch.arange(C, device=val.device) < width,
+                              val, 0.0)
+            f = _fold_lanes(_lane_cascade(val))
+            flat.append((f.hi, f.lo))
+        elif ins.dtype == "ff":
+            flat.append((full(env[oid].hi), full(env[oid].lo)))
+        else:
+            flat.append((full(env[oid]),))
+    return _program_outputs(prog, flat, nd_shapes, out_shape, R, C)
+
+
+def _check_tape_layout() -> None:
+    """The kernel's ``struct Tape`` and :class:`_Tape` must agree."""
+    n = build.entry("ff_program", "ff_program_tape_bytes", [])()
+    if n != ctypes.sizeof(_Tape):
+        raise RuntimeError(f"ff_program: the kernel's tape is {n} bytes, "
+                           f"the wrapper's {ctypes.sizeof(_Tape)}")
+
+
+def run_program(prog, operands: Sequence[Any]) -> List[Any]:
+    """Run one ``ff.fusion`` Program as one kernel launch, as
+    :func:`run_program_plain` (same arguments, same bits).
+
+    On CUDA operands: one launch of ``csrc/ff_program.cu`` — elementwise
+    over (R, C) without a rowsum, one block of 128 lanes per row with one
+    — which raises if it cannot launch, or if the Program exceeds the
+    tape (``MAX_INSTRS`` instructions, ``MAX_PLANES`` operand planes,
+    ``MAX_OUTS`` outputs).  On CPU operands: the plain version."""
+    from repro_torch.ff import fusion
+    dev = fusion.operand_device(operands)
+    if dev.type == "cpu":
+        return run_program_plain(prog, operands)
+    if dev.type != "cuda":
+        raise RuntimeError(f"run_program: no kernel for device {dev}")
+    planes, leaf_planes, nd_shapes, out_shape, R, C = _program_layout(
+        prog, operands, dev)
+    n_ins, n_out = len(prog.instrs), len(prog.out_ids)
+    if n_ins > MAX_INSTRS or len(planes) > MAX_PLANES or n_out > MAX_OUTS:
+        raise ValueError(
+            f"run_program: {n_ins} instructions, {len(planes)} operand "
+            f"planes, {n_out} outputs exceed the kernel's tape "
+            f"({MAX_INSTRS}, {MAX_PLANES}, {MAX_OUTS})")
+    if not hasattr(run_program, "_checked"):
+        _check_tape_layout()
+        run_program._checked = True
+    tape = _Tape(n_instr=n_ins, n_out=n_out, rows=R, cols=C)
+    for i, ins in enumerate(prog.instrs):
+        args = (leaf_planes[int(ins.imm)] if ins.op.startswith("leaf_")
+                else ins.args)
+        tape.ins[i].op = PROGRAM_OPS.index(ins.op)
+        for k, a in enumerate(args):
+            tape.ins[i].a[k] = a
+        tape.ins[i].imm = ins.imm if ins.op == "const" else 0.0
+    for k, p in enumerate(planes):
+        tape.plane[k] = p.data_ptr()
+        tape.rs[k] = p.stride(0) if p.shape[0] != 1 else 0
+        tape.cs[k] = p.stride(1) if p.shape[1] != 1 else 0
+    flat = []
+    for k, oid in enumerate(prog.out_ids):
+        ins = prog.instrs[oid]
+        kind = ("red" if ins.op == "rowsum" else ins.dtype)
+        shape = (R,) if kind == "red" else (R, C)
+        bufs = tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                     for _ in range(1 if kind == "f32" else 2))
+        tape.out_id[k] = oid
+        tape.out_kind[k] = _OUT_KINDS[kind]
+        tape.red_width[k] = (_red_width(prog, nd_shapes, oid)
+                             if kind == "red" else 0)
+        tape.out_hi[k] = bufs[0].data_ptr()
+        tape.out_lo[k] = bufs[-1].data_ptr() if kind != "f32" else None
+        flat.append(bufs)
+    if R * C:
+        with torch.cuda.device(dev):
+            err = build.entry("ff_program", "ff_program_f32",
+                              _PROGRAM_ARGTYPES)(
+                ctypes.byref(tape), torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"ff_program kernel launch failed: CUDA "
+                               f"error {err}")
+        run_program.launches += 1
+    return _program_outputs(prog, flat, nd_shapes, out_shape, R, C)
+
+
+run_program.launches = 0   # kernel launches since the last reset

@@ -43,13 +43,11 @@ def make_decode_step(cfg: ModelConfig,
 def token_logprob(logits: Tensor, token: Tensor,
                   policy: Optional[PrecisionPolicy] = None) -> Tensor:
     """Log-probability of ``token`` under ``logits`` (B, V) -> (B,), with
-    the compensated ``ff.logsumexp`` normalizer."""
+    the compensated ``ff.logsumexp`` normalizer; under a policy with
+    ``ff_math``, its accurate ``"ff"`` impl (FF exponentials, FF log)."""
     policy = resolve_policy(policy)
-    if policy.ff_math:
-        raise NotImplementedError("token_logprob under ff_math (the 'ff' "
-                                  "logsumexp tier) is not ported yet")
     x = logits.to(torch.float32)
-    lse = ff.logsumexp(x, axis=-1)
+    lse = ff.logsumexp(x, axis=-1, impl="ff" if policy.ff_math else None)
     chosen = torch.gather(x, -1, token[:, None].long())[:, 0]
     return chosen - lse
 

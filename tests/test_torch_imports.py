@@ -36,7 +36,10 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 new = {"repro_torch.core.ffmatmul", "repro_torch.kernels.ff_matmul",
-       "repro_torch.kernels.ref", "repro_torch.benchmarks.table_ffmatmul"}
+       "repro_torch.kernels.ref", "repro_torch.benchmarks.table_ffmatmul",
+       "repro_torch.ff.fusion", "repro_torch.ff.tuning",
+       "repro_torch.kernels.ff_elementwise",
+       "repro_torch.benchmarks.table_elementwise"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
@@ -113,6 +116,17 @@ def test_matmul_benchmark_needs_cuda_unless_cpu_is_asked(monkeypatch,
     assert rows[-1]["resolved_impl"] == "hybrid"
     assert all(r["device"] == "cpu" for r in rows)
     assert "dispatch_default" in capsys.readouterr().out
+
+
+def test_elementwise_benchmark_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.benchmarks import table_elementwise
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table_elementwise.main(["--shapes", "2x8", "--chains", "axpy"])
+    rows = table_elementwise.main(["--shapes", "2x8", "--chains", "axpy",
+                                   "--reps", "1", "--rounds", "1",
+                                   "--device", "cpu"])
+    assert [(r["chain"], r["device"]) for r in rows] == [("axpy", "cpu")]
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
