@@ -34,13 +34,26 @@ Phases (any failed check raises, so the script exits non-zero):
      routing by shape at granite-3-2b's vocabulary (the jnp formulation,
      one warning, no launch); ``table_elementwise`` at its three shapes
      with the kernels' launch counts read around it; each kernel timed;
-  5. serving: a reduced granite-3-2b engine on the card against the same
+  5. the paper's operators and ff.math: ``elementwise`` (Add22, Mul22,
+     Div22, Sqrt22, TwoSum, TwoProd at scalar, row, column and full
+     operands), ``ff_rowsum`` and ``math_elementwise`` (ten functions on
+     inputs that cover every branch) bit for bit their plain versions on
+     the card, and within their NUMERICS.md contracts of a float64
+     oracle; ``ff.tune`` for fifteen ops at four shapes into a temporary
+     sidecar (each bucket's µs per impl and its winners), with the launch
+     counts read around it; one call of each op with no ``impl=``,
+     resolving ``tuned_default`` and launching the winner's kernel; the
+     table cleared and the environment restored; each kernel timed;
+  6. serving: a reduced granite-3-2b engine on the card against the same
      engine on the CPU (plain versions), then granite-3-2b at full width
      (random weights from a seed) serving 8 requests under
      ``policy("ff_reduce", attention="pallas")``, with the kernels' launch
-     counts read around that run; then one more decode step with every
-     row full under ``torch.profiler``, for the device-busy share;
-  6. training: a reduced granite-3-2b trained 2 steps on the card against
+     counts read around that run; then 4 requests under ``ff_math=True``
+     with ``ff.use(silu="pallas")`` (``ff_math`` launched once per layer
+     of every prefill and decode step) and again with the jnp silu (the
+     same greedy tokens); then one more decode step with every row full
+     under ``torch.profiler``, for the device-busy share;
+  7. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
      the sequence-chunked loss; then, with the serving engine freed,
      granite-3-2b at full width (random weights from a seed) trained 4
@@ -49,8 +62,9 @@ Phases (any failed check raises, so the script exits non-zero):
      FF-master-weight AdamW under ``policy("ff_reduce",
      attention="pallas")``, with the kernels' launch counts read around
      those steps; then one more step under ``torch.profiler``; the serving
-     and training runs launch none of the fused-composite kernels;
-  7. timing: each kernel, its plain version and a PyTorch yardstick with
+     and training runs launch none of the fused-composite kernels, nor
+     (but for the ``ff_math`` run) this slice's;
+  8. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -69,6 +83,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
+T0 = 0.0                                 # the script's start (perf_counter)
 FULL_REQUESTS, MAX_NEW = 8, 16
 PROMPT_LENS = (16, 64)
 
@@ -501,7 +516,8 @@ def phase_matmul_checks(torch):
 
 def launch_fns():
     """Every kernel's wrapper, by the name the launch counts use."""
-    from repro_torch.kernels import ff_attention, ff_fused
+    from repro_torch.kernels import (ff_attention, ff_elementwise, ff_fused,
+                                     ff_math, ff_reduce)
     from repro_torch.kernels import ff_matmul as km
     return {"mean_sq": ff_fused.mean_sq,
             "attention": ff_attention.flash_attention_pallas,
@@ -509,7 +525,10 @@ def launch_fns():
             "ozaki": km.ff_matmul_ozaki, "dot2": km.ff_matmul_dot2,
             "ff_softmax": ff_fused.ff_softmax,
             "ff_norm_stats": ff_fused.ff_norm_stats,
-            "ff_program": ff_fused.run_program}
+            "ff_program": ff_fused.run_program,
+            "ff_elementwise": ff_elementwise.elementwise,
+            "ff_rowsum": ff_reduce.ff_rowsum,
+            "ff_math": ff_math.math_elementwise}
 
 
 def launch_counts():
@@ -1125,6 +1144,515 @@ def phase_fused(torch, clock_hz):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, worst, rows
+
+
+# ---------------------------------------------------------------------------
+# the paper's operators, ff.math and ff.tune
+
+EW_SHAPES = ((3, 130), (4096, 4096), (512, 2048))
+ROWSUM_SHAPES = ((3, 64), (5, 300), (4096, 4096), (512, 49155))
+MATH_BIG = (512, 8192)                   # the silu gate of 512 tokens
+TUNE_SHAPES = ((256, 1024), (4096, 4096), (512, 2048), (512, 8192))
+TUNE_OPS = ("add", "mul", "div", "sqrt", "sum", "exp", "expm1", "log",
+            "log1p", "tanh", "sigmoid", "erf", "gelu", "silu", "pow")
+DEFAULT_SHAPE = (512, 2048)
+FF_MATH_REQUESTS, FF_MATH_MAX_NEW = 4, 6
+# the one-kernel tier of each tuned op, by the launch counts' names
+KERNEL_TIER = {"pallas": {**{op: "ff_elementwise" for op in
+                             ("add", "mul", "div", "sqrt")},
+                          **{op: "ff_math" for op in TUNE_OPS[5:]}},
+               "pallas_rowsum": {"sum": "ff_rowsum"}}
+
+# f32 instructions per element (csrc/ff_eft.cuh, counted as above); a
+# function with branches counts the branch each element takes
+SQRT22 = 1 + TWO_PROD + 3 + 2 + FAST_TWO_SUM              # 11
+EW_OPS_COUNT = {"add22": ADD22, "mul22": MUL22, "div22": DIV22,
+                "sqrt22": SQRT22, "two_sum": TWO_SUM, "two_prod": TWO_PROD}
+EW_BYTES = {"add22": 24, "mul22": 24, "div22": 24, "sqrt22": 16,
+            "two_sum": 16, "two_prod": 16}
+EXPM1_OPS = EXP22 + ADD212 + 4
+ATANH = MUL22 + 10 + 4 * (MUL22 + ADD22)                  # 99
+LOG22_OPS = 8 + 2 * ADD212 + DIV22 + ATANH + MUL22 + 2 + MUL212 + ADD22 + 6
+LOG1P_NEAR = ADD212 + DIV22 + ATANH + MUL22 + 2 + 4
+LOG1P_FAR = TWO_SUM + 1 + FAST_TWO_SUM + LOG22_OPS + 4
+TANH_SMALL = MUL22 + 10 + 6 * (MUL22 + ADD22) + MUL22 + 4
+TANH_LARGE = 3 + EXPM1_OPS + ADD212 + DIV22 + 2 + 4
+SIGMOID_OPS = 3 + EXP22 + ADD212 + DIV22 + 2
+SILU_OPS = SIGMOID_OPS + MUL22 + 3
+ERF_PRO = 6                              # sign, |x|, clamp, band selects
+ERF_SMALL = MUL22 + 16 * (MUL22 + 2 * DIV22 + ADD22 + 2) + 2 * MUL22
+ERF_MID = MUL22 + 2 + 59 * (MUL22 + DIV22 + ADD22) + EXP22 + 3 * MUL22
+ERF_BIG = MUL22 + 1 + 24 + EXP22 + MUL212 + MUL22 + DIV22 + ADD212
+GELU_EXTRA = 2 * MUL22 + ADD212 + 5
+POW_OPS = LOG22_OPS + MUL22 + EXP22 + 6
+# NUMERICS.md's full-domain contracts of ff.math, with the ranges the CPU
+# tests sample (tests/test_torch_math.py)
+MATH_CONTRACT = {"exp": ((-55, 88), 2.0 ** -42),
+                 "expm1": ((-20, 20), 2.0 ** -41),
+                 "log": ((0.01, 1e6), 2.0 ** -42),
+                 "log1p": ((-0.29, 0.41), 2.0 ** -43),
+                 "tanh": ((-20, 20), 2.0 ** -41),
+                 "sigmoid": ((-30, 30), 2.0 ** -42),
+                 "erf": ((-6, 6), 2.0 ** -42), "gelu": ((-1, 20), 2.0 ** -42),
+                 "silu": ((-30, 30), 2.0 ** -42)}
+
+
+def math_ops(op, x) -> int:
+    """f32 instructions ``op`` needs on the hi limbs ``x``: each element
+    counted on the branch it takes."""
+    n = x.numel()
+    a = x.abs()
+    if op == "log1p":
+        near = int(((x >= -0.2928932) & (x <= 0.41421354)).sum())
+        return near * LOG1P_NEAR + (n - near) * LOG1P_FAR
+    if op == "tanh":
+        small = int((a <= 0.35).sum())
+        return small * TANH_SMALL + (n - small) * TANH_LARGE
+    if op in ("erf", "gelu"):
+        v = a if op == "erf" else a * 0.70710677
+        small = int((v <= 1.0).sum())
+        mid = int(((v > 1.0) & (v <= 4.0)).sum())
+        ops = (n * ERF_PRO + small * ERF_SMALL + mid * ERF_MID
+               + (n - small - mid) * ERF_BIG)
+        return ops + (n * GELU_EXTRA if op == "gelu" else 0)
+    return n * {"exp": EXP22, "expm1": EXPM1_OPS, "log": LOG22_OPS,
+                "sigmoid": SIGMOID_OPS, "silu": SILU_OPS,
+                "pow": POW_OPS}[op]
+
+
+def same_nan(a, b) -> bool:
+    """The same bits (a NaN matches any NaN: its sign and payload are the
+    arithmetic's, not the algorithm's)."""
+    import torch
+    a, b = a.contiguous(), b.contiguous()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if a.shape != b.shape or not torch.equal(na, nb):
+        return False
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | na).all())
+
+
+def ff_limbs(torch, x64):
+    """FF limbs (hi = fl32(x), lo = fl32(x - hi)) of float64 values on the
+    card; lo is 0 where x is not finite."""
+    hi = x64.to(torch.float32)
+    lo = torch.where(torch.isfinite(x64), x64 - hi.double(), 0.0)
+    return hi, lo.to(torch.float32)
+
+
+def math_branch_inputs(torch, op, g):
+    """Inputs on the card that cover each branch of ``op`` (erf's three
+    bands, log1p near and far, tanh's two forms, the identity bands, the
+    saturations, +-0, +-inf, nan) with normal limbs."""
+    def u(a, b, n=4096):
+        return torch.rand(n, generator=g, device="cuda",
+                          dtype=torch.float64) * (b - a) + a
+    tiny = u(-1, 1, 512) * 10.0 ** u(-30, -14, 512)
+    spec = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan],
+                        device="cuda", dtype=torch.float64)
+    parts = {
+        "exp": [u(-0.34, 0.34), u(-60, 88), u(88.5, 120, 64),
+                u(-200, -106, 64)],
+        "expm1": [u(-0.34, 0.34), u(-20, 20), u(-85, 88), tiny],
+        "log": [u(0.7, 1.42), torch.exp(u(-50, 50))],
+        "log1p": [u(-0.29, 0.41), torch.exp(u(-30, 4)), u(-0.99, -0.3),
+                  tiny],
+        "tanh": [u(-0.35, 0.35), u(-20, 20), tiny],
+        "sigmoid": [u(-30, 30), u(-65, -30)],
+        "erf": [u(-1, 1), u(-4, 4), u(-8.2, 8.2), u(31, 1e6, 64)],
+        "gelu": [u(-1, 11.5), u(-8, -1), u(-0.5, 0.5)],
+        "silu": [u(-30, 30), u(-65, 80)],
+        "pow": [torch.exp(u(-3, 3))],
+    }[op]
+    x = torch.cat(parts + ([] if op == "pow" else [spec]))
+    hi, lo = ff_limbs(torch, x)
+    if op != "pow":
+        return (hi, lo)
+    bh, bl = ff_limbs(torch, u(-8, 8, x.numel()))
+    edge = torch.tensor([[0.0, 1.5], [0.0, -1.5], [0.0, 0.0], [math.inf, 2.0],
+                         [math.inf, -2.0], [math.inf, 0.0], [-2.0, 0.5],
+                         [-2.0, 0.0]], device="cuda")
+    return (torch.cat([hi, edge[:, 0]]), torch.cat([lo, edge[:, 0] * 0]),
+            torch.cat([bh, edge[:, 1]]), torch.cat([bl, edge[:, 1] * 0]))
+
+
+def math_oracle(torch, op, x):
+    """float64 ``op`` on the card."""
+    if op == "sigmoid":
+        return 1.0 / (1.0 + torch.exp(-x))
+    if op == "gelu":
+        return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    if op == "silu":
+        return x / (1.0 + torch.exp(-x))
+    return getattr(torch, op)(x)
+
+
+def phase_ops_checks(torch):
+    """Each new kernel against its plain version on the card, bit for bit,
+    and within its NUMERICS.md contract of a float64 oracle on the card:
+    ``elementwise`` (six ops; scalar, row, column and full operands) at
+    EW_SHAPES, ``ff_rowsum`` at ROWSUM_SHAPES, ``math_elementwise`` (ten
+    functions) on inputs that cover each branch and at (512, 8192).
+    Returns the largest kernel-vs-plain differences (0: bit for bit)."""
+    from repro_torch.kernels import ff_elementwise as ew
+    from repro_torch.kernels import ff_math as fm
+    from repro_torch.kernels import ff_reduce as fr
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    worst = {"ff_elementwise": 0.0, "ff_rowsum": 0.0, "ff_math": 0.0}
+
+    def rn(*shape, sc=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * sc
+
+    def check(name, what, got, want):
+        for a, b in zip(got, want):
+            if not same_nan(a, b):
+                raise AssertionError(f"{name} {what}: kernel != plain")
+            fin = torch.isfinite(a)
+            if fin.any():
+                worst[name] = max(worst[name],
+                                  float((a[fin] - b[fin]).abs().max()))
+
+    def ff64(h, lo):
+        return h.double() + lo.double()
+
+    # elementwise: bitwise, then each op's contract
+    for R, C in EW_SHAPES:
+        ah, bh = rn(R, C), rn(R, C).abs() + 0.5
+        al, bl = ah * 1e-8 * rn(R, C), bh * 1e-8 * rn(R, C)
+        forms = {"full": (bh, bl), "row": (bh[:1], bl[:1]),
+                 "column": (bh[:, :1], bl[:, :1]),
+                 "scalar": (bh[0, 0], bl[0, 0])}
+        errs = {}
+        for op in ew.EW_OPS:
+            for form, (xh, xl) in forms.items():
+                if op == "sqrt22" and form != "full":
+                    continue
+                args = {"sqrt22": (xh, xl), "two_sum": (ah, xh),
+                        "two_prod": (ah, xh)}.get(op, (ah, al, xh, xl))
+                got = ew.elementwise(op, *args)
+                check("ff_elementwise", f"{op} {form} {(R, C)}", got,
+                      ew.elementwise_plain(op, *args))
+                a64, b64 = ff64(ah, al), ff64(xh, xl)
+                g64 = ff64(*got)
+                if op == "add22":
+                    # the sloppy Add22 has no relative bound under
+                    # cancellation: held to 2^-44 where the signs agree
+                    ex = a64 + b64
+                    same = (ah > 0) == (xh > 0)
+                    rel = ((g64 - ex).abs() / ex.abs().clamp_min(
+                        1e-300))[same]
+                    e = float(rel.max())
+                    ok = e <= 2.0 ** -44
+                    txt = (f"2^{math.log2(max(e, 1e-300)):.1f} where the "
+                           f"signs agree (bound 2^-44)")
+                elif op in ("two_sum", "two_prod"):    # exact
+                    ex = (ah.double() + xh.double() if op == "two_sum"
+                          else ah.double() * xh.double())
+                    e = float((g64 - ex).abs().max())
+                    ok, txt = e == 0.0, f"{e} (exact)"
+                else:
+                    ex, bound = {"mul22": (a64 * b64, 2.0 ** -44),
+                                 "div22": (a64 / b64, 2.0 ** -43),
+                                 "sqrt22": (b64.sqrt(), 2.0 ** -44)}[op]
+                    e = float(((g64 - ex).abs()
+                               / ex.abs().clamp_min(1e-300)).max())
+                    ok = e <= bound
+                    txt = (f"2^{math.log2(max(e, 1e-300)):.1f} (bound "
+                           f"2^{math.log2(bound):.0f})")
+                if not ok:
+                    raise AssertionError(f"elementwise {op} {form} "
+                                         f"{(R, C)} outside its float64 "
+                                         f"bound: {txt}")
+                errs.setdefault(op, txt)
+        log(f"elementwise {(R, C)}: kernel == plain bit for bit (6 ops x "
+            f"full/row/column/scalar); vs float64 (full operands): "
+            + "; ".join(f"{k} {v}" for k, v in errs.items()))
+        del ah, bh, al, bl
+
+    # the row sum: bitwise, then within 2^-44 of sum |x|
+    for R, C in ROWSUM_SHAPES:
+        x = rn(R, C) * 10.0 ** (torch.rand((R, C), generator=g,
+                                           device="cuda") * 6 - 3)
+        got = fr.ff_rowsum(x)
+        check("ff_rowsum", f"{(R, C)}", got, fr.ff_rowsum_plain(x))
+        ex = x.double().sum(-1)
+        mag = x.double().abs().sum(-1)
+        e = float(((ff64(*got) - ex).abs() / mag).max())
+        if not e <= 2.0 ** -44:
+            raise AssertionError(f"ff_rowsum {(R, C)}: 2^{math.log2(e)} "
+                                 f"of sum |x| from float64")
+        log(f"ff_rowsum {(R, C)} (lanes {fr.lanes_for(C)}): kernel == "
+            f"plain bit for bit; vs float64 2^{math.log2(max(e, 1e-300)):.1f}"
+            f" of sum |x|")
+        del x
+
+    # ff.math: bitwise on each branch and at (512, 8192), then the contract
+    for op in fm.MATH_OPS:
+        args = math_branch_inputs(torch, op, g)
+        check("ff_math", f"{op} branches", fm.math_elementwise(op, *args),
+              fm.math_elementwise_plain(op, *args))
+        h = rn(*MATH_BIG)
+        big = ((h.abs(), h * 1e-8, h, h * 1e-8) if op == "pow" else
+               (h.abs() + 1e-3 if op in ("log", "log1p") else h, h * 1e-8))
+        check("ff_math", f"{op} {MATH_BIG}", fm.math_elementwise(op, *big),
+              fm.math_elementwise_plain(op, *big))
+        if op == "pow":
+            a = torch.exp(torch.rand(65536, generator=g, device="cuda",
+                                     dtype=torch.float64) * 6 - 3)
+            b = torch.rand(65536, generator=g, device="cuda",
+                           dtype=torch.float64) * 16 - 8
+            (ah, al), (bh, bl) = ff_limbs(torch, a), ff_limbs(torch, b)
+            got = ff64(*fm.math_elementwise("pow", ah, al, bh, bl))
+            a64, b64 = ff64(ah, al), ff64(bh, bl)
+            ex = torch.pow(a64, b64)
+            rel = (got - ex).abs() / ex.abs()
+            e = float((rel / (1.0 + (b64 * a64.log()).abs())).max())
+            bound = 2.0 ** -42
+        else:
+            (lo_, hi_), bound = MATH_CONTRACT[op]
+            x = torch.rand(65536, generator=g, device="cuda",
+                           dtype=torch.float64) * (hi_ - lo_) + lo_
+            xh, xl = ff_limbs(torch, x)
+            x64 = ff64(xh, xl)
+            ex = math_oracle(torch, op, x64)
+            got = ff64(*fm.math_elementwise(op, xh, xl))
+            e = float(((got - ex).abs() / ex.abs().clamp_min(1e-300)).max())
+        if not e <= bound:
+            raise AssertionError(f"ff_math {op}: 2^{math.log2(e):.1f} from "
+                                 f"float64 > 2^{math.log2(bound):.0f}")
+        log(f"ff_math {op}: kernel == plain bit for bit ({args[0].numel()} "
+            f"branch inputs, {MATH_BIG}); vs float64 2^"
+            f"{math.log2(max(e, 1e-300)):.1f} (contract 2^"
+            f"{math.log2(bound):.0f}{' x (1 + |b ln a|)' if op == 'pow' else ''})")
+    torch.cuda.synchronize()
+    return worst
+
+
+def tune_operands(torch, op, shape, g):
+    """One call's operands at ``shape``, as the tuner builds them."""
+    from repro_torch.core.ff import FF
+
+    def pair(positive):
+        h = torch.randn(shape, generator=g, device="cuda")
+        if positive:
+            h = h.abs() + 0.5
+        return FF(h, h * 1e-8 * torch.randn(shape, generator=g,
+                                            device="cuda"))
+    if op == "sum":
+        return (torch.randn(shape, generator=g, device="cuda"),), {
+            "axis": -1}
+    if op in ("add", "mul"):
+        return (pair(False), pair(False)), {}
+    if op in ("div", "pow"):
+        return (pair(True), pair(op == "div")), {}
+    return (pair(True),), {}
+
+
+def phase_tune(torch):
+    """``ff.tune`` on the card for TUNE_OPS at TUNE_SHAPES into a temporary
+    sidecar, with the launch counts read around it; then one call of each
+    op at DEFAULT_SHAPE with no ``impl=``, which resolves ``tuned_default``
+    and launches the winner's kernel (if it has one) once; then the table
+    cleared and the environment restored, so that the later phases resolve
+    and launch as before.  Returns the two paths' launch counts and the
+    table."""
+    import os
+    import shutil
+    import tempfile
+    import repro_torch.ff as ff
+    from repro_torch.ff import dispatch, tuning
+    env_old = os.environ.get(tuning.CACHE_ENV)
+    tmp = tempfile.mkdtemp(prefix="tune-", dir=ROOT / "build")
+    os.environ[tuning.CACHE_ENV] = os.path.join(tmp, tuning.SIDECAR)
+    tuning.clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    table = {}
+    for op in TUNE_OPS:
+        t1 = time.perf_counter()
+        out = ff.tune(op, shapes=TUNE_SHAPES, device="cuda")
+        for key in sorted(out["table"], key=lambda k: [int(d) for d in
+                                                        k.split("x")]):
+            rec = out["table"][key]
+            table[(op, key)] = rec
+            per = ", ".join(f"{n} {r['us']:.1f}" for n, r in
+                            sorted(rec["impls"].items(),
+                                   key=lambda kv: kv[1]["us"]))
+            log(f"tune {op} {key}: us {per}; fast {rec['fast']['impl']}"
+                f"{rec['fast']['opts'] or ''}, accurate "
+                f"{rec.get('accurate', {}).get('impl')}")
+        log(f"tune {op}: {time.perf_counter() - t1:.1f} s")
+    torch.cuda.synchronize()
+    tune_launches = launch_counts()
+    log(f"tuning run: {time.perf_counter() - t0:.1f} s, launches "
+        f"{tune_launches}")
+    for k in ("ff_elementwise", "ff_rowsum", "ff_math"):
+        if not tune_launches[k]:
+            raise AssertionError(f"the tuning run launched no {k}")
+    # default calls at a tuned shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    key = tuning.bucket_key(DEFAULT_SHAPE)
+    default_launches = {k: 0 for k in launch_counts()}
+    winners = {}
+    for op in TUNE_OPS:
+        rec = table[(op, key)]["fast"]
+        args, kw = tune_operands(torch, op, DEFAULT_SHAPE, g)
+        res_key = (op, rec["impl"], "tuned_default", "cuda", key)
+        n0, before = dispatch.RESOLUTIONS[res_key], launch_counts()
+        out = getattr(ff, op)(*args, **kw)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        for k, v in got.items():
+            default_launches[k] += v
+        kern = KERNEL_TIER.get(rec["impl"], {}).get(op)
+        want = {k: int(k == kern) for k in after}
+        if dispatch.RESOLUTIONS[res_key] != n0 + 1 or got != want:
+            raise AssertionError(f"default ff.{op} {DEFAULT_SHAPE}: "
+                                 f"resolutions {dict(dispatch.RESOLUTIONS)}, "
+                                 f"launches {got} != {want}")
+        ref = getattr(ff, op)(*args, impl=rec["impl"], **rec["opts"], **kw)
+        if not (same_nan(out.hi, ref.hi) and same_nan(out.lo, ref.lo)):
+            raise AssertionError(f"default ff.{op} != impl={rec['impl']}")
+        winners[op] = (rec["impl"], kern)
+    log(f"default calls at {DEFAULT_SHAPE}: each resolved tuned_default "
+        f"(op: winner, kernel launched once) " + ", ".join(
+            f"{op}: {w} {k or '-'}" for op, (w, k) in winners.items())
+        + f"; launches {default_launches}")
+    # clear the table, restore the environment: static defaults again
+    tuning.clear()
+    if env_old is None:
+        os.environ.pop(tuning.CACHE_ENV)
+    else:
+        os.environ[tuning.CACHE_ENV] = env_old
+    shutil.rmtree(tmp)
+    for op in TUNE_OPS:
+        name = dispatch.resolve_name(op, None, "cuda", DEFAULT_SHAPE)
+        if name != dispatch.resolve_name(op, device="cuda"):
+            raise AssertionError(f"{op} still resolves {name} after clear")
+    log("tuning table cleared: every op resolves its static default again")
+    return tune_launches, default_launches, table
+
+
+def phase_ops_timing(torch, clock_hz):
+    """Each new kernel, its plain version and a float64 yardstick at
+    (4096, 4096) (and the math functions at (512, 8192), the rows at
+    (512, 49155)): kernel ms by CUDA-graph replay, the call's ms, the
+    bound from this run's inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ff_elementwise as ew
+    from repro_torch.kernels import ff_math as fm
+    from repro_torch.kernels import ff_reduce as fr
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    peak_ops = F32_LANES * clock_hz
+    rows = {"ff_elementwise": [], "ff_rowsum": [], "ff_math": []}
+
+    def pair(shape, positive=True):
+        h = torch.randn(shape, generator=g, device="cuda")
+        if positive:
+            h = h.abs() + 0.5
+        return h, h * 1e-8 * torch.randn(shape, generator=g, device="cuda")
+
+    R, C = 4096, 4096
+    n = R * C
+    (ah, al), (bh, bl) = pair((R, C), False), pair((R, C))
+    a64, b64 = ah.double(), bh.double()
+    lib = {"add22": lambda: torch.add(a64, b64),
+           "mul22": lambda: torch.mul(a64, b64),
+           "div22": lambda: torch.div(a64, b64),
+           "sqrt22": lambda: torch.sqrt(b64),
+           "two_sum": lambda: torch.add(a64, b64),
+           "two_prod": lambda: torch.mul(a64, b64)}
+    for op in ew.EW_OPS:
+        args = {"sqrt22": (bh, bl), "two_sum": (ah, bh),
+                "two_prod": (ah, bh)}.get(op, (ah, al, bh, bl))
+        rows["ff_elementwise"].append(dict(op=op, shape=[R, C], **time_kernel(
+            lambda: ew.elementwise(op, *args),
+            lambda: ew.elementwise(op, *args),
+            cuda_ms(lambda: ew.elementwise_plain(op, *args), 2), lib[op],
+            EW_BYTES[op] * n, EW_OPS_COUNT[op] * n, peak_ops, 20),
+            library="float64 " + {"add22": "add", "two_sum": "add",
+                                  "mul22": "mul", "two_prod": "mul",
+                                  "div22": "div", "sqrt22": "sqrt"}[op]))
+    del a64, b64, al, bl
+    for shape in ((R, C), (512, 49155)):
+        x = torch.randn(shape, generator=g, device="cuda")
+        r, c = shape
+        rows["ff_rowsum"].append(dict(shape=list(shape), **time_kernel(
+            lambda: fr.ff_rowsum(x), lambda: fr.ff_rowsum(x),
+            cuda_ms(lambda: fr.ff_rowsum_plain(x), 2),
+            lambda: torch.sum(x, -1, dtype=torch.float64), 4 * r * c + 8 * r,
+            r * c * CASCADE + r * 128 * LANE_FOLD, peak_ops, 20),
+            library="torch.sum(x, -1, dtype=float64)"))
+        del x
+    f64 = {"gelu": lambda t: F.gelu(t), "silu": lambda t: F.silu(t),
+           "sigmoid": torch.sigmoid}
+    for shape in ((R, C), MATH_BIG):
+        (h, lo), (ph, pl) = pair(shape), pair(shape, False)
+        x64, p64 = h.double() + lo.double(), ph.double() + pl.double()
+        for op in fm.MATH_OPS:
+            args = (h, lo, ph, pl) if op == "pow" else (h, lo)
+            if op == "pow":
+                yard = lambda: torch.pow(x64, p64)          # noqa: E731
+            else:
+                fn = f64[op] if op in f64 else getattr(torch, op)
+                yard = lambda fn=fn: fn(x64)                # noqa: E731
+            nbytes = (16 if op == "pow" else 8) * h.numel() + 8 * h.numel()
+            iters = 5 if op in ("erf", "gelu") else 10
+            rows["ff_math"].append(dict(op=op, shape=list(shape), **time_kernel(
+                lambda: fm.math_elementwise(op, *args),
+                lambda: fm.math_elementwise(op, *args),
+                cuda_ms(lambda: fm.math_elementwise_plain(op, *args), 1),
+                yard, nbytes, math_ops(op, h), peak_ops, iters),
+                library=f"float64 {op}"))
+        del h, lo, ph, pl, x64, p64
+    for name, recs in rows.items():
+        for r in recs:
+            log(f"{name} {r.get('op', '')} {r['shape']}: kernel "
+                f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}), plain "
+                f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms")
+    return rows
+
+
+def ops_kernel_entries(launches, worst, rows):
+    """The kernels-line entries of the three new kernels; the headline
+    numbers are those of the main path's op and shape (Add22 and the row
+    sum at (4096, 4096), silu at (512, 8192)), every timed row under
+    ``by_shape``."""
+    src = {"ff_elementwise": ("ff_elementwise.cu", "ff_elementwise.py:169",
+                              ("add22", [4096, 4096])),
+           "ff_rowsum": ("ff_rowsum.cu", "ff_reduce.py:75",
+                         (None, [4096, 4096])),
+           "ff_math": ("ff_math.cu", "ff_math.py:63",
+                       ("silu", list(MATH_BIG)))}
+    out = []
+    for name, (cu, ref, (op, shape)) in src.items():
+        head = next(r for r in rows[name]
+                    if r.get("op") == op and r["shape"] == shape)
+        out.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{cu}",
+            replaces=f"src/repro/kernels/{ref}",
+            **path_counts(launches, name), max_abs_err=worst[name],
+            **{k: head[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library",
+                                    "shape")},
+            op=op, by_shape=rows[name]))
+    return out
+
+
+def phase_ops(torch, clock_hz):
+    worst = phase_ops_checks(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tune_launches, default_launches, _table = phase_tune(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = phase_ops_timing(torch, clock_hz)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tune_launches, default_launches, worst, rows
+
+
 def serve_requests(rng, vocab: int):
     import numpy as np
     from repro_torch.serve import Request
@@ -1235,6 +1763,73 @@ def phase_serve(torch, card: str):
                "decode_steps": n_dec, "wall_s": wall, "card": card}
     log(f"serving: {json.dumps(serving)}")
     return launches, cfg, eng
+
+
+def phase_serve_ff_math(torch, params, cfg):
+    """granite-3-2b at full width served under ``policy("ff_reduce",
+    attention="pallas", ff_math=True)`` with ``ff.use(silu="pallas")``:
+    FF_MATH_REQUESTS requests stepped one scheduler iteration at a time,
+    each iteration launching ``ff_math`` once per layer of each forward
+    (prefill or decode), ``mean_sq`` and ``attention`` as in the main
+    serving run, nothing else; then the same requests with
+    ``ff.use(silu="jnp")`` (no ``ff_math`` launch) give the same greedy
+    tokens.  Returns the pallas run's launch counts."""
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.serve import Request, ServeEngine
+    reqs = serve_requests(np.random.default_rng(SEED + 3),
+                          cfg.vocab_size)[:FF_MATH_REQUESTS]
+    with ff.policy("ff_reduce", attention="pallas", ff_math=True):
+        eng = ServeEngine(params, cfg, max_batch=4, page_size=16,
+                          max_ctx=128)
+    L, norms = cfg.num_layers, 2 * cfg.num_layers + 1
+    tokens, walls = {}, {}
+    for silu, base in (("pallas", 0), ("jnp", 100)):
+        for r in reqs:
+            eng.submit(Request(uid=base + r.uid, prompt=r.prompt,
+                               max_new=FF_MATH_MAX_NEW))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        more = True
+        with ff.use(silu=silu):
+            while more:
+                n_pf, n_dec, before = (len(eng.prefill_s), eng.decode_steps,
+                                       launch_counts())
+                more = eng.step()
+                torch.cuda.synchronize()
+                after = launch_counts()
+                fwd = len(eng.prefill_s) - n_pf + eng.decode_steps - n_dec
+                got = {k: after[k] - before[k] for k in after}
+                want = {**{k: 0 for k in after},
+                        "mean_sq": norms * fwd,
+                        "attention": L * (len(eng.prefill_s) - n_pf),
+                        "ff_math": L * fwd if silu == "pallas" else 0}
+                if got != want:
+                    raise AssertionError(f"ff_math serving ({silu}) step: "
+                                         f"launches {got} != {want}")
+        walls[silu] = time.perf_counter() - t0
+        if silu == "pallas":
+            launches = launch_counts()
+        for r in reqs:
+            out = eng.results[base + r.uid]
+            if out.status != "OK" or out.tokens.shape != (FF_MATH_MAX_NEW,)\
+                    or not np.isfinite(out.logprobs_ff).all():
+                raise AssertionError(f"ff_math serving uid {r.uid} "
+                                     f"({silu}): {out.status}")
+            tokens.setdefault(r.uid, []).append(out.tokens)
+    for uid, (a, b) in tokens.items():
+        if not np.array_equal(a, b):
+            raise AssertionError(f"ff_math serving uid {uid}: pallas silu "
+                                 f"{a} != jnp silu {b}")
+    n_pf, n_dec = len(eng.prefill_s) // 2, eng.decode_steps // 2
+    log(f"ff_math serving: {len(reqs)} requests x {FF_MATH_MAX_NEW} tokens, "
+        f"{n_pf} prefills and {n_dec} decode steps per run; every step "
+        f"launched ff_math {L} times per forward with silu=pallas "
+        f"({launches['ff_math']} in all), 0 with silu=jnp; greedy tokens "
+        f"equal; wall {walls['pallas']:.2f} s (pallas) vs "
+        f"{walls['jnp']:.2f} s (jnp); launches {launches}")
+    del eng
+    return launches
 
 
 def device_busy_us(prof):
@@ -1655,6 +2250,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
 
+    global T0
+    T0 = time.perf_counter()
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"card: {card}; max SM clock {clock_mhz:.0f} MHz")
@@ -1664,8 +2261,13 @@ def main() -> int:
         torch, clock_mhz * 1e6)
     table_launches, fused_worst, fused_rows = phase_fused(torch,
                                                           clock_mhz * 1e6)
+    tune_launches, default_launches, ops_worst, ops_rows = phase_ops(
+        torch, clock_mhz * 1e6)
     phase_small_engine(torch)
     serve_launches, cfg, eng = phase_serve(torch, card)
+    ff_math_launches = phase_serve_ff_math(torch, eng.params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_decode_profile(torch, eng, cfg)
     del eng
     gc.collect()
@@ -1677,10 +2279,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches = {"serve": serve_launches, "train": train_launches,
-                "matmul": matmul_launches, "table": table_launches}
+                "matmul": matmul_launches, "table": table_launches,
+                "tune": tune_launches, "default_calls": default_launches,
+                "serve_ff_math": ff_math_launches}
     kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
                + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
-               + fused_kernel_entries(launches, fused_worst, fused_rows))
+               + fused_kernel_entries(launches, fused_worst, fused_rows)
+               + ops_kernel_entries(launches, ops_worst, ops_rows))
+    log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     torch.cuda.synchronize()
     print(card)
     print(json.dumps({"kernels": kernels}))

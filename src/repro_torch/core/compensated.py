@@ -1,7 +1,8 @@
 """Compensated reductions built from the paper's EFTs (counterpart of
-``repro.core.compensated``; this slice carries ``ff_sum_blocked``, the
-reduction under the RMSNorm statistic, the vocab log-sum-exp and the FF
-attention block sums).  f64 never appears."""
+``repro.core.compensated``): ``ff_sum`` (the Neumaier cascade, the
+``cascade`` tier of ``ff.sum``), ``kahan_sum`` and ``ff_sum_blocked``
+(the reduction under the RMSNorm statistic, the vocab log-sum-exp and
+the FF attention block sums).  f64 never appears."""
 
 from __future__ import annotations
 
@@ -28,6 +29,25 @@ def _move_axis_front(x: Tensor, axis: Axis) -> Tensor:
     for a in axes:
         red *= x.shape[a]
     return xt.reshape((red,) + tuple(x.shape[a] for a in keep))
+
+
+def kahan_sum(x: Tensor, axis: Axis = None) -> Tensor:
+    """Kahan–Neumaier compensated sum rounded to f32 (``ff_sum``'s hi)."""
+    return ff_sum(x, axis=axis).to_f32()
+
+
+def ff_sum(x: Tensor, axis: Axis = None) -> FF:
+    """Sum of an f32 tensor in FF by the cascaded TwoSum (Sum3), one
+    element of the reduced axis after another in index order, as the
+    reference's ``lax.scan``: its bits."""
+    x = x.to(torch.float32)
+    xf = _move_axis_front(x, axis)
+    s = c = cc = xf.new_zeros(xf.shape[1:])
+    for xi in xf.unbind(0):
+        s, e = T.two_sum(s, xi)
+        c, e2 = T.two_sum(c, e)        # compensate the compensation
+        cc = cc + e2
+    return FF(*T.fast_two_sum(s, c + cc))
 
 
 def ff_sum_blocked(x: Tensor, axis: Axis = None, block: int = 128,

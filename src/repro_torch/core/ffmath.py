@@ -1,7 +1,7 @@
-"""Float-float exp, expm1, log, tanh and sigmoid (counterpart of
-``repro.core.ffmath``: ``exp22`` and ``log22``, which the FF attention
-tiers and ``token_logprob_ff`` need, and ``expm122``, ``tanh22`` and
-``sigmoid22``, which with them are the deep ops of ``ff.fusion``).
+"""Float-float elementary functions (counterpart of ``repro.core.ffmath``):
+``exp22``, ``expm122``, ``log22``, ``log1p22``, ``tanh22``,
+``sigmoid22``, ``erf22``, ``gelu22``, ``silu22`` and ``pow22`` over raw
+``(hi, lo)`` limbs, and ``UNARY22``, the nine unary ones by name.
 
 Same constants, same op order as the reference (Cody–Waite ``ln2``
 reduction with exact 16-bit-piece products, FF Horner over an f32 tail,
@@ -10,6 +10,9 @@ the reference's bits on arguments whose limbs stay normal.  ``torch.round``
 rounds half to even like ``jnp.round``; exact powers of two are built from
 exponent bits, never with ``exp2``.  Constants are Python floats; torch
 rounds a scalar operand to f32 before the op, as ``jnp.float32(c)`` does.
+A number over a tensor is divided as two tensors (``_num``): torch
+evaluates ``c / t`` as ``c * (1 / t)``, two roundings, and on the card
+``t / c`` as a multiply by the rounded reciprocal.
 """
 
 from __future__ import annotations
@@ -73,6 +76,25 @@ _EXP_CLIP_LO, _EXP_CLIP_HI = -105.0, 89.0   # beyond: saturated anyway
 _TANH_SMALL = 0.35                          # Maclaurin branch bound
 _IDENTITY = 2.0 ** -45                      # f(x) == x at FF precision
 _SQRT2_F32 = 1.4142135
+
+_TWO_OVER_SQRTPI = (1.1283792, -5.8635383e-08)
+_INV_SQRT2 = (0.70710677, 1.21016175e-08)
+_SQRTPI = (1.7724539, -5.32464e-08)
+# asymptotic erfc series A(w) = sum_k (-1)^k (2k-1)!! w^k, w = 1/(2x^2)
+_ERFC_ASY = (1.0, -1.0, 3.0, -15.0, 105.0, -945.0, 10395.0, -135135.0,
+             2027025.0, -34459425.0, 654729075.0, -13749310575.0,
+             316234143225.0)
+_ERF_SMALL = 1.0                            # alternating-series bound
+_ERF_MID = 4.0                              # positive-series / asymptotic seam
+_ERF_ALT_TERMS = 17                         # n = 1..16 after the n=0 seed
+_ERF_POS_TERMS = 60                         # n = 1..59 after the n=0 seed
+_ERF_CLAMP = 30.0                           # erf(30) == 1 at FF precision
+_LOG1P_NEAR = (-0.2928932, 0.41421354)      # 1 + x in the reduced range
+
+
+def _num(x: Tensor, c: float) -> Tensor:
+    """The constant ``c`` as a tensor like ``x`` (a divisor or dividend)."""
+    return torch.full_like(x, c)
 
 
 def _exp2i(k: Tensor) -> Tensor:
@@ -249,3 +271,160 @@ def log22(xh: Tensor, xl: Tensor) -> Limb:
     rh = torch.where(xh == float("inf"), float("inf"), rh)
     rl = torch.where((xh == 0) | bad | (xh == float("inf")), 0.0, rl)
     return rh, rl
+
+
+def log1p22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF log1p: 2 atanh(x / (2 + x)) from x itself on the near branch
+    (x in [-0.2929, 0.4142]), log of the exact 1 + x beyond; x itself
+    below 2^-45."""
+    d = core_ff.add212(FF(xh, xl), 2.0)
+    s = core_ff.div22(FF(xh, xl), d)
+    p = _atanh_poly(s)
+    n = core_ff.mul22(s, p)
+    nh, nl = 2.0 * n.hi, 2.0 * n.lo
+    # the traced operand first, as the reference orders it
+    wh, we = T.two_sum(xh, torch.ones_like(xh))
+    wl = we + xl
+    wh, wl = T.fast_two_sum(wh, wl)
+    fh, fl = log22(wh, wl)
+    near = (xh >= _LOG1P_NEAR[0]) & (xh <= _LOG1P_NEAR[1])
+    rh = torch.where(near, nh, fh)
+    rl = torch.where(near, nl, fl)
+    idt = torch.abs(xh) < _IDENTITY
+    rh = torch.where(idt, xh, rh)
+    rl = torch.where(idt, xl, rl)
+    inf = xh == float("inf")                      # 1 + inf trips TwoSum nans
+    rh = torch.where(inf, float("inf"), rh)
+    rl = torch.where(inf, 0.0, rl)
+    nan = xh != xh
+    return torch.where(nan, xh, rh), torch.where(nan, xh, rl)
+
+
+def _ff_const(like: Tensor, c: Tuple[float, float]) -> FF:
+    return FF(torch.full_like(like, c[0]), torch.full_like(like, c[1]))
+
+
+def _erf_small(xh: Tensor, xl: Tensor) -> FF:
+    """Alternating Maclaurin sum for |x| <= 1: (2/sqrt pi) x sum_n
+    (-1)^n (x^2)^n / (n! (2n+1)), every term update in FF."""
+    z = core_ff.mul22(FF(xh, xl), FF(xh, xl))
+    zero = torch.zeros_like(xh)
+    u = FF(torch.ones_like(xh), zero)
+    a = FF(torch.ones_like(xh), zero)
+    for n in range(1, _ERF_ALT_TERMS):
+        u = core_ff.mul22(u, z)
+        u = core_ff.div22(u, FF(_num(xh, float(n)), zero))   # z^n / n!
+        t = core_ff.div22(u, FF(_num(xh, float(2 * n + 1)), zero))
+        sg = -1.0 if n % 2 == 1 else 1.0
+        a = core_ff.add22(a, FF(sg * t.hi, sg * t.lo))
+    s = core_ff.mul22(FF(xh, xl), a)
+    return core_ff.mul22(s, _ff_const(xh, _TWO_OVER_SQRTPI))
+
+
+def _erf_mid(axh: Tensor, axl: Tensor) -> FF:
+    """Positive (Kummer) series for 1 < x <= 4: (2x/sqrt pi) e^{-x^2}
+    sum_n (2x^2)^n / (2n+1)!!, with e^{-x^2} the FF exp of the FF x^2."""
+    z = core_ff.mul22(FF(axh, axl), FF(axh, axl))          # x^2
+    v = FF(2.0 * z.hi, 2.0 * z.lo)                          # 2 x^2 (exact)
+    zero = torch.zeros_like(axh)
+    t = FF(torch.ones_like(axh), zero)
+    a = FF(torch.ones_like(axh), zero)
+    for n in range(1, _ERF_POS_TERMS):
+        t = core_ff.mul22(t, v)
+        t = core_ff.div22(t, FF(_num(axh, float(2 * n + 1)), zero))
+        a = core_ff.add22(a, t)
+    e = FF(*exp22(-z.hi, -z.lo))
+    g = core_ff.mul22(FF(axh, axl), e)
+    g = core_ff.mul22(g, a)
+    return core_ff.mul22(g, _ff_const(axh, _TWO_OVER_SQRTPI))
+
+
+def _erf_big(axh: Tensor, axl: Tensor) -> FF:
+    """Asymptotic band x > 4: 1 - e^{-x^2} A(w) / (x sqrt pi),
+    w = 1/(2x^2), A by an f32 Horner."""
+    z = core_ff.mul22(FF(axh, axl), FF(axh, axl))          # x^2
+    w = _num(z.hi, 0.5) / z.hi                              # f32 suffices
+    a = _ERFC_ASY[-1]
+    for c in _ERFC_ASY[-2::-1]:
+        a = a * w + c
+    e = FF(*exp22(-z.hi, -z.lo))
+    u = core_ff.mul212(e, a)
+    d = core_ff.mul22(FF(axh, axl), _ff_const(axh, _SQRTPI))
+    c = core_ff.div22(u, d)                                 # erfc
+    return core_ff.add212(FF(-c.hi, -c.lo), 1.0)            # 1 - erfc
+
+
+def erf22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF error function: the alternating series on |x| <= 1, the
+    positive series to 4, the asymptotic erfc beyond; |x| clamped at 30,
+    erf(+-0) = +-0."""
+    sgn = torch.where(xh < 0, -1.0, 1.0)
+    axh, axl = sgn * xh, sgn * xl
+    big_in = axh > _ERF_CLAMP
+    axh = torch.minimum(axh, _num(axh, _ERF_CLAMP))
+    axl = torch.where(big_in, 0.0, axl)
+    sm = _erf_small(xh, xl)                       # odd series: sign built in
+    md = _erf_mid(axh, axl)
+    bg = _erf_big(axh, axl)
+    mid = axh <= _ERF_MID
+    lgh = torch.where(mid, md.hi, bg.hi)
+    lgl = torch.where(mid, md.lo, bg.lo)
+    small = axh <= _ERF_SMALL
+    rh = torch.where(small, sm.hi, sgn * lgh)
+    rl = torch.where(small, sm.lo, sgn * lgl)
+    zero = xh == 0
+    rh = torch.where(zero, xh, rh)
+    rl = torch.where(zero, 0.0, rl)
+    nan = xh != xh
+    return torch.where(nan, xh, rh), torch.where(nan, xh, rl)
+
+
+def _zero_and_rails(xh: Tensor, rh: Tensor, rl: Tensor) -> Limb:
+    """f(+-0) = +-0, f(-inf) = 0, f(inf) = inf (gelu and silu)."""
+    zero = xh == 0
+    rh = torch.where(zero, xh, rh)
+    rl = torch.where(zero, 0.0, rl)
+    ninf, pinf = xh == float("-inf"), xh == float("inf")
+    rh = torch.where(ninf, 0.0, torch.where(pinf, float("inf"), rh))
+    rl = torch.where(ninf | pinf, 0.0, rl)
+    return rh, rl
+
+
+def gelu22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF exact-form GELU, 0.5 x (1 + erf(x / sqrt2))."""
+    v = core_ff.mul22(FF(xh, xl), _ff_const(xh, _INV_SQRT2))
+    e = FF(*erf22(v.hi, v.lo))
+    o = core_ff.add212(e, 1.0)
+    r = core_ff.mul22(FF(xh, xl), o)
+    return _zero_and_rails(xh, 0.5 * r.hi, 0.5 * r.lo)   # exact scale
+
+
+def silu22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF SiLU, x * sigmoid(x)."""
+    s = FF(*sigmoid22(xh, xl))
+    r = core_ff.mul22(FF(xh, xl), s)
+    return _zero_and_rails(xh, r.hi, r.lo)
+
+
+def pow22(ah: Tensor, al: Tensor, bh: Tensor, bl: Tensor) -> Limb:
+    """FF a**b = exp(b log a): nan for a < 0; IEEE limits at a in
+    {0, inf}; b == 0 gives 1, last (0**0 == 1)."""
+    lh, ll = log22(ah, al)
+    t = core_ff.mul22(FF(lh, ll), FF(bh, bl))
+    rh, rl = exp22(t.hi, t.lo)
+    inf = float("inf")
+    for edge, blim in ((ah == 0, 0.0), (ah == inf, inf)):
+        rh = torch.where(edge & (bh > 0), blim, rh)
+        rh = torch.where(edge & (bh < 0), inf if blim == 0 else 0.0, rh)
+        rl = torch.where(edge, 0.0, rl)
+    b0 = bh == 0
+    rh = torch.where(b0, 1.0, rh)
+    rl = torch.where(b0, 0.0, rl)
+    return rh, rl
+
+
+UNARY22 = {
+    "exp": exp22, "expm1": expm122, "log": log22, "log1p": log1p22,
+    "tanh": tanh22, "sigmoid": sigmoid22, "erf": erf22, "gelu": gelu22,
+    "silu": silu22,
+}

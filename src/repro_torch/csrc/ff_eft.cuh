@@ -143,37 +143,45 @@ struct LaneSum {
   }
 };
 
-// The FF sum of the block's 128 lanes, lane 0 first, to every thread.
-// Called by all kLanes threads; sh is 3 * kLanes + 2 floats of shared
-// memory, reusable by the next call.
-__device__ __forceinline__ ff2 fold_lanes(const LaneSum& ln, float* sh) {
+// The FF sum of the block's `lanes` lanes (one thread each, lane 0
+// first), to every thread.  Called by all `lanes` threads of the block;
+// sh is 3 * lanes + 2 floats of shared memory, reusable by the next call.
+__device__ __forceinline__ ff2 fold_lanes_n(const LaneSum& ln, float* sh,
+                                            int lanes) {
   const int lane = threadIdx.x;
   __syncthreads();                 // the previous fold has read sh
   sh[lane] = ln.s;
-  sh[kLanes + lane] = ln.c;
-  sh[2 * kLanes + lane] = ln.cc;
+  sh[lanes + lane] = ln.c;
+  sh[2 * lanes + lane] = ln.cc;
   __syncthreads();
   if (lane == 0) {
     float fh = 0.0f, fl = 0.0f;
-    for (int i = 0; i < kLanes; ++i) {
+    for (int i = 0; i < lanes; ++i) {
       ff2 t = two_sum(fh, sh[i]);
-      float v = add(t.lo, add(add(fl, sh[kLanes + i]), sh[2 * kLanes + i]));
+      float v = add(t.lo, add(add(fl, sh[lanes + i]), sh[2 * lanes + i]));
       ff2 f = fast_two_sum(t.hi, v);
       fh = f.hi;
       fl = f.lo;
     }
-    sh[3 * kLanes] = fh;
-    sh[3 * kLanes + 1] = fl;
+    sh[3 * lanes] = fh;
+    sh[3 * lanes + 1] = fl;
   }
   __syncthreads();
-  return {sh[3 * kLanes], sh[3 * kLanes + 1]};
+  return {sh[3 * lanes], sh[3 * lanes + 1]};
+}
+
+// The TPU kernels' fold: fold_lanes_n over kLanes lanes.
+__device__ __forceinline__ ff2 fold_lanes(const LaneSum& ln, float* sh) {
+  return fold_lanes_n(ln, sh, kLanes);
 }
 
 // ---------------------------------------------------------------------------
 // The FF elementary functions of repro/core/ffmath.py: exp22, expm122,
-// log22, tanh22, sigmoid22 (same constants, same op order).  Constants
-// are the f32 values of the reference's, written as hex floats so that no
-// decimal rounding differs.
+// log22, log1p22, tanh22, sigmoid22, erf22, gelu22, silu22 and pow22
+// (same constants, same op order).  Constants are the f32 values of the
+// reference's, written as hex floats so that no decimal rounding differs.
+// The reference evaluates every branch and selects with jnp.where; these
+// branch, and return the value its selection picks.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
@@ -273,19 +281,33 @@ __device__ __forceinline__ ff2 expm122(float xh, float xl) {
   return o;
 }
 
+// The atanh kernel of log and log1p (defined after log_core, which states
+// it).
+__device__ __forceinline__ ff2 atanh_poly(ff2 s);
+
 // log(2^e m) = e ln2 + 2 s S(s^2), s = (m-1)/(m+1), m in [1/sqrt2, sqrt2).
 __device__ __forceinline__ ff2 log_core(ff2 m, float ef) {
+  const float LN2_H = 0x1.62e43p-1f;   // ln2 as an FF constant
+  const float LN2_L = -0x1.05c61p-29f;
+  ff2 n = add212(m, -1.0f);
+  ff2 d = add212(m, 1.0f);
+  ff2 s = div22(n, d);
+  ff2 a = atanh_poly(s);
+  ff2 l = mul22(s, a);
+  l = {mul(2.0f, l.hi), mul(2.0f, l.lo)};       // exact
+  ff2 tl = mul212({LN2_H, LN2_L}, ef);
+  return add22(tl, l);
+}
+
+// S(z) = sum z^n / (2n+1) at z = s^2 <= 0.0295: FF Horner n = 3..0 over
+// an f32 tail n = 9..4 (the atanh kernel of log and log1p).
+__device__ __forceinline__ ff2 atanh_poly(ff2 s) {
   const float S_F32[6] = {0x1.c71c72p-4f, 0x1.745d18p-4f, 0x1.3b13b2p-4f,
                           0x1.111112p-4f, 0x1.e1e1e2p-5f, 0x1.af286cp-5f};
   const float S_H[4] = {0x1p+0f, 0x1.555556p-2f, 0x1.99999ap-3f,
                         0x1.24924ap-3f};
   const float S_L[4] = {0.0f, -0x1.555556p-27f, -0x1.99999ap-29f,
                         -0x1.b6db6ep-28f};
-  const float LN2_H = 0x1.62e43p-1f;   // ln2 as an FF constant
-  const float LN2_L = -0x1.05c61p-29f;
-  ff2 n = add212(m, -1.0f);
-  ff2 d = add212(m, 1.0f);
-  ff2 s = div22(n, d);
   ff2 z = mul22(s, s);
   float t = S_F32[5];
 #pragma unroll
@@ -296,10 +318,7 @@ __device__ __forceinline__ ff2 log_core(ff2 m, float ef) {
     a = mul22(a, z);
     a = add22(a, {S_H[j], S_L[j]});
   }
-  ff2 l = mul22(s, a);
-  l = {mul(2.0f, l.hi), mul(2.0f, l.lo)};       // exact
-  ff2 tl = mul212({LN2_H, LN2_L}, ef);
-  return add22(tl, l);
+  return a;
 }
 
 // FF natural log: nan for x < 0, -inf at x == 0.
@@ -362,6 +381,134 @@ __device__ __forceinline__ ff2 sigmoid22(float xh, float xl) {
   ff2 n = xh >= 0.0f ? ff2{1.0f, 0.0f} : z;
   ff2 r = div22(n, d);
   if (xh != xh) return {xh, xh};
+  return r;
+}
+
+// FF log1p: 2 atanh(x / (2 + x)) from x itself on the near branch
+// (x in [-0.2929, 0.4142]), log of the exact 1 + x beyond; x itself
+// below 2^-45.
+__device__ __forceinline__ ff2 log1p22(float xh, float xl) {
+  if (xh != xh) return {xh, xh};
+  if (xh == inf32()) return {inf32(), 0.0f};
+  if (fabsf(xh) < kIdentity) return {xh, xl};
+  if (xh >= -0x1.2bec32p-2f && xh <= 0x1.a82798p-2f) {
+    ff2 d = add212({xh, xl}, 2.0f);
+    ff2 s = div22({xh, xl}, d);
+    ff2 n = mul22(s, atanh_poly(s));
+    return {mul(2.0f, n.hi), mul(2.0f, n.lo)};
+  }
+  ff2 w = two_sum(xh, 1.0f);
+  ff2 f = fast_two_sum(w.hi, add(w.lo, xl));
+  return log22(f.hi, f.lo);
+}
+
+constexpr float kTwoOverSqrtPiH = 0x1.20dd76p+0f, kTwoOverSqrtPiL =
+    -0x1.f7ac92p-25f;
+
+// erf on |x| <= 1: the alternating Maclaurin sum (2/sqrt pi) x sum_n
+// (-1)^n (x^2)^n / (n! (2n+1)), every term update in FF.
+__device__ __noinline__ ff2 erf_small(float xh, float xl) {
+  ff2 x = {xh, xl};
+  ff2 z = mul22(x, x);
+  ff2 u = {1.0f, 0.0f}, a = {1.0f, 0.0f};
+  for (int n = 1; n < 17; ++n) {
+    u = mul22(u, z);
+    u = div22(u, {static_cast<float>(n), 0.0f});          // z^n / n!
+    ff2 t = div22(u, {static_cast<float>(2 * n + 1), 0.0f});
+    a = add22(a, (n & 1) ? ff2{-t.hi, -t.lo} : t);
+  }
+  return mul22(mul22(x, a), {kTwoOverSqrtPiH, kTwoOverSqrtPiL});
+}
+
+// erf on 1 < x <= 4: the positive (Kummer) series (2x/sqrt pi) e^{-x^2}
+// sum_n (2x^2)^n / (2n+1)!!.
+__device__ __noinline__ ff2 erf_mid(float axh, float axl) {
+  ff2 ax = {axh, axl};
+  ff2 z = mul22(ax, ax);
+  ff2 v = {mul(2.0f, z.hi), mul(2.0f, z.lo)};    // exact
+  ff2 t = {1.0f, 0.0f}, a = {1.0f, 0.0f};
+  for (int n = 1; n < 60; ++n) {
+    t = mul22(t, v);
+    t = div22(t, {static_cast<float>(2 * n + 1), 0.0f});
+    a = add22(a, t);
+  }
+  ff2 e = exp22(-z.hi, -z.lo);
+  ff2 g = mul22(mul22(ax, e), a);
+  return mul22(g, {kTwoOverSqrtPiH, kTwoOverSqrtPiL});
+}
+
+// erf on x > 4: 1 - e^{-x^2} A(w) / (x sqrt pi), w = 1/(2x^2), A the
+// asymptotic erfc series by an f32 Horner.
+__device__ __noinline__ ff2 erf_big(float axh, float axl) {
+  const float ASY[13] = {0x1p+0f, -0x1p+0f, 0x1.8p+1f, -0x1.ep+3f,
+                         0x1.a4p+6f, -0x1.d88p+9f, 0x1.44d8p+13f,
+                         -0x1.07ef8p+17f, 0x1.eee11p+20f, -0x1.06e79p+25f,
+                         0x1.3832fcp+29f, -0x1.99c2eap+33f,
+                         0x1.268418p+38f};
+  ff2 ax = {axh, axl};
+  ff2 z = mul22(ax, ax);
+  float w = dvd(0.5f, z.hi);
+  float a = ASY[12];
+#pragma unroll
+  for (int k = 11; k >= 0; --k) a = add(mul(a, w), ASY[k]);
+  ff2 e = exp22(-z.hi, -z.lo);
+  ff2 u = mul212(e, a);
+  ff2 d = mul22(ax, {0x1.c5bf8ap+0f, -0x1.c96212p-25f});   // x sqrt pi
+  ff2 c = div22(u, d);                                     // erfc
+  return add212({-c.hi, -c.lo}, 1.0f);
+}
+
+// FF error function: the alternating series on |x| <= 1, the positive
+// series to 4, the asymptotic erfc beyond; |x| clamped at 30 (erf == 1
+// there at FF precision), erf(+-0) = +-0.
+__device__ __forceinline__ ff2 erf22(float xh, float xl) {
+  if (xh != xh) return {xh, xh};
+  if (xh == 0.0f) return {xh, 0.0f};
+  const float sgn = xh < 0.0f ? -1.0f : 1.0f;
+  float axh = mul(sgn, xh), axl = mul(sgn, xl);
+  if (axh > 30.0f) axl = 0.0f;
+  axh = fminf(axh, 30.0f);
+  if (axh <= 1.0f) return erf_small(xh, xl);   // odd: sign built in
+  ff2 r = axh <= 4.0f ? erf_mid(axh, axl) : erf_big(axh, axl);
+  return {mul(sgn, r.hi), mul(sgn, r.lo)};
+}
+
+// FF exact-form GELU, 0.5 x (1 + erf(x / sqrt2)); gelu(+-0) = +-0,
+// gelu(-inf) = 0, gelu(inf) = inf.
+__device__ __forceinline__ ff2 gelu22(float xh, float xl) {
+  if (xh == 0.0f) return {xh, 0.0f};
+  if (xh == -inf32()) return {0.0f, 0.0f};
+  if (xh == inf32()) return {inf32(), 0.0f};
+  ff2 x = {xh, xl};
+  ff2 v = mul22(x, {0x1.6a09e6p-1f, 0x1.9fcef4p-27f});     // x / sqrt2
+  ff2 o = add212(erf22(v.hi, v.lo), 1.0f);
+  ff2 r = mul22(x, o);
+  return {mul(0.5f, r.hi), mul(0.5f, r.lo)};               // exact
+}
+
+// FF SiLU, x * sigmoid(x), with gelu22's rules at +-0 and +-inf.
+__device__ __forceinline__ ff2 silu22(float xh, float xl) {
+  if (xh == 0.0f) return {xh, 0.0f};
+  if (xh == -inf32()) return {0.0f, 0.0f};
+  if (xh == inf32()) return {inf32(), 0.0f};
+  return mul22({xh, xl}, sigmoid22(xh, xl));
+}
+
+// FF a**b = exp(b log a): nan for a < 0; the IEEE limits at a in {0, inf};
+// b == 0 gives 1, last (0**0 == 1).  The selections in the reference's
+// order.
+__device__ __forceinline__ ff2 pow22(float ah, float al, float bh,
+                                     float bl) {
+  ff2 l = log22(ah, al);
+  ff2 t = mul22(l, {bh, bl});
+  ff2 r = exp22(t.hi, t.lo);
+  if (ah == 0.0f || ah == inf32()) {
+    const bool zero = ah == 0.0f;
+    if (bh > 0.0f) r.hi = zero ? 0.0f : inf32();
+    if (bh < 0.0f) r.hi = zero ? inf32() : 0.0f;
+    r.lo = 0.0f;
+  }
+  if (bh == 0.0f) r = {1.0f, 0.0f};
   return r;
 }
 

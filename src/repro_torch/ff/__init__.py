@@ -1,11 +1,15 @@
 """``repro_torch.ff``: the port's public FF namespace (counterpart of
-``repro.ff``, with the ops of the serving and training paths).
+``repro.ff``).
 
     import repro_torch.ff as ff
     with ff.policy("ff_reduce", attention="pallas"):
         ...                                  # models read the scope
     ff.mean_sq(x)                            # fused CUDA kernel on the card
     s = ff.sum(x)                            # compensated sum -> FF
+    s = ff.sum(x, axis=-1, impl="pallas_rowsum")   # the row-sum kernel
+    z = ff.div(a, b, impl="pallas")          # Div22, one CUDA kernel
+    y = ff.silu(x)                           # FF elementary function
+    ff.tune("silu", shapes=[(512, 8192)])    # time the impls, cache winners
     ff.adamw_update(g, m, v, w, wlo, lr, b1, b2, bc1, bc2, eps=1e-8,
                     wd=0.1)                  # one kernel, in place
     p = ff.softmax(x)                        # one kernel (rows <= 16384)
@@ -13,27 +17,42 @@
     axpy = ff.fused(lambda a, x, y: a * x + y)
     z = axpy(1.618, x, y)                    # one Program kernel
     C = ff.matmul(A, B)                      # hybrid CUDA kernel -> FF
-    C = ff.matmul(A, B, impl="dot2")         # paper-faithful
     with ff.policy("ff_full", matmul="ozaki"):
         C = ff.matmul(A, B)
 
 ``sum``, ``logsumexp``, ``mean_sq``, ``matmul`` and ``attention`` carry
-their reference gradients (:mod:`repro_torch.ff.autodiff`); ``softmax``
-and ``norm_stats`` are forward only, ``add``, ``mul`` and ``fused`` have
-no gradient.
+their reference gradients (:mod:`repro_torch.ff.autodiff`); ``softmax``,
+``norm_stats``, ``div``, ``sqrt``, ``two_sum``, ``two_prod`` and the
+``ff.math`` functions are forward only; ``add``, ``sub``, ``mul`` and
+``fused`` have no gradient.
 """
 
 from repro_torch.core.ff import FF
 from repro_torch.core.policy import PrecisionPolicy
-from repro_torch.ff import fusion
-from repro_torch.ff.dispatch import (adamw_update, add, attention, impls,
-                                     logsumexp, matmul, mean_sq, mul,
-                                     norm_stats, ops, resolve_name, softmax,
-                                     sum)
+from repro_torch.ff import fusion, math, tuning
+from repro_torch.ff.dispatch import (adamw_update, add, attention, div,
+                                     impls, logsumexp, matmul, mean_sq, mul,
+                                     norm_stats, ops, resolve_name,
+                                     resolve_opts, softmax, sqrt, sub, sum,
+                                     two_prod, two_sum)
 from repro_torch.ff.fusion import fused
+from repro_torch.ff.guard import FFTuneWarning
+from repro_torch.ff.math import (erf, exp, expm1, gelu, log, log1p, pow,
+                                 sigmoid, silu, tanh)
 from repro_torch.ff.scope import current_policy, policy, resolve_policy, use
+from repro_torch.ff.tuning import tune
 
-__all__ = ["FF", "PrecisionPolicy", "adamw_update", "add", "attention",
-           "current_policy", "fused", "fusion", "impls", "logsumexp",
-           "matmul", "mean_sq", "mul", "norm_stats", "ops", "policy",
-           "resolve_name", "resolve_policy", "softmax", "sum", "use"]
+
+def to_f32(x):
+    """An FF value rounded to f32 (its hi limb); a tensor passes through."""
+    return x.to_f32() if isinstance(x, FF) else x
+
+
+__all__ = ["FF", "FFTuneWarning", "PrecisionPolicy",
+           "adamw_update", "add", "attention", "current_policy", "div",
+           "erf", "exp", "expm1", "fused", "fusion", "gelu", "impls", "log",
+           "log1p", "logsumexp", "math", "matmul", "mean_sq", "mul",
+           "norm_stats", "ops", "policy", "pow", "resolve_name",
+           "resolve_opts", "resolve_policy", "sigmoid", "silu", "softmax",
+           "sqrt", "sub", "sum", "tanh", "to_f32", "tune", "tuning",
+           "two_prod", "two_sum", "use"]

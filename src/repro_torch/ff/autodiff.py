@@ -21,12 +21,38 @@ import torch
 
 from repro_torch.core.ff import FF, add12, add22
 from repro_torch.core.ffmatmul import _dot_f32
+from repro_torch.ff import tuning
 from repro_torch.kernels.ff_attention import flash_attention_fast
 
 Tensor = torch.Tensor
 
 # the options of the attention call that the fast recurrence shares
 _ATTN_FAST_KEYS = ("causal", "block_q", "block_kv", "q_offset", "scale")
+
+
+def bucket2d(shape) -> Tuple[int, int]:
+    """The tuning bucket of an elementwise or row operand: (prod(leading),
+    last), as the kernels flatten it and ``ff.tune`` keys it
+    (``_bucket2d`` of ``repro/ff/autodiff.py``)."""
+    if len(shape) == 0:
+        return (1, 1)
+    if len(shape) == 1:
+        return (1, int(shape[0]))
+    r = 1
+    for d in shape[:-1]:
+        r *= int(d)
+    return (r, int(shape[-1]))
+
+
+def merge_tuned(op: str, name: str, shape, opts: dict, device) -> dict:
+    """The tuned block config of (op, impl, shape bucket, device) merged
+    under the caller's explicit options (``_merge_tuned``)."""
+    opts = dict(opts)
+    if shape is not None:
+        for k, v in tuning.lookup_opts(op, name, shape,
+                                       torch.device(device)).items():
+            opts.setdefault(k, v)
+    return opts
 
 
 def _norm_axes(axis, ndim: int) -> Tuple[int, ...]:

@@ -1,22 +1,29 @@
 """Dispatch registry for ``repro_torch.ff`` (counterpart of
-``repro.ff.dispatch``, with the ops of the serving, training, FF matmul
-and fused-composite paths).
+``repro.ff.dispatch``).
 
 Each op name maps to named implementations; a call resolves one:
 
     per-call ``impl=`` > ``use(op=impl)`` scope
       > policy (``PrecisionPolicy.matmul_impl``, for ``matmul``)
-      > ``"tuned"`` / ``"tuned_accurate"``
+      > ``"tuned"`` / ``"tuned_accurate"``: the tuning table's winner of
+        the call's (device, shape bucket); an untuned accurate request
+        takes the op's accurate fallback (``_ACCURATE_FALLBACK``)
+      > the tuning table's fast winner (``tuned_default``)
       > per-device default ("cuda" / "cpu", else "*")
       > first registered implementation
 
-The port has no tuning table yet: ``"tuned"`` resolves to the per-device
-default and ``"tuned_accurate"`` to the first registered name of the op's
-accurate fallback (for matmul: f64, ozaki, dot2; for softmax and
-logsumexp: ff), as the reference does for a shape its table lacks.  Mesh and guard resolution are not ported yet.
+The tuning table (:mod:`repro_torch.ff.tuning`, ``ff.tune``) is keyed by
+the call's device where the reference keys it by JAX backend; a winner
+this build does not register falls through to the static default.
+``resolve_opts`` gives the tuned block config of a resolved impl, which
+the calls merge under their explicit options.  Each resolution is
+counted in ``RESOLUTIONS`` by (op, impl, source, device, bucket), the
+reference's resolution telemetry.  Mesh and guard resolution are not
+ported yet.
+
 Implementation names are the reference's, so one policy string means the
-same in both packages: ``"pallas"`` (``"pallas_*"`` for matmul) names the
-one-kernel tier, which in the port is a CUDA kernel, and for
+same in both packages: ``"pallas"`` (``"pallas_*"`` for matmul and sum)
+names the one-kernel tier, which in the port is a CUDA kernel, and for
 ``adamw_update``, ``"fused"`` names the one-kernel update, the CUDA default
 as ``"tpu"`` is the reference's.  The ``f64`` tiers are real device tiers
 (the H100 and the CPU have f64 units); unlike the reference, no CPU
@@ -24,14 +31,16 @@ default lands on them (``jnp`` stays the CPU default).
 
 The public calls route through the ``torch.autograd.Function``s of
 :mod:`repro_torch.ff.autodiff` when an input requires a gradient
-(``softmax`` and ``norm_stats`` have none yet and raise).
+(``softmax``, ``norm_stats``, ``div``, ``sqrt``, ``two_sum``,
+``two_prod`` and the ``ff.math`` functions have none yet and raise).
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,8 +48,9 @@ from repro_torch.core import compensated, ffmatmul, ffmath
 from repro_torch.core import ff as core_ff
 from repro_torch.core import transforms as T
 from repro_torch.core.ff import FF
-from repro_torch.ff import autodiff, scope
-from repro_torch.kernels import ff_attention, ff_fused, ff_matmul
+from repro_torch.ff import autodiff, scope, tuning
+from repro_torch.kernels import (ff_attention, ff_elementwise, ff_fused,
+                                 ff_math, ff_matmul, ff_reduce)
 
 Tensor = torch.Tensor
 
@@ -50,9 +60,20 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {}     # op -> {device type|"*": impl}
 # first registered name
 _ACCURATE_FALLBACK: Dict[str, Tuple[str, ...]] = {
     "matmul": ("f64", "ozaki", "dot2"),
+    "add": ("accurate",),
     # composites whose f32-builtin exponentials cap them at the fast
     # class: the accurate tier is the FF-exp impl
-    "softmax": ("ff",), "logsumexp": ("ff",)}
+    "softmax": ("ff",), "logsumexp": ("ff",),
+    "attention": ("f64", "ff"),
+    # ff.math: native f64 (the card and the CPU have it), else the FF kernel
+    **{op: ("f64", "jnp") for op in tuple(ffmath.UNARY22) + ("pow",)},
+}
+
+# (op, impl, source, device, shape bucket) -> resolutions: which rule
+# picked each call's impl ("explicit", "scope", "policy", "tuned",
+# "tuned_accurate", "accurate_fallback", "tuned_default",
+# "static_default", "first_registered")
+RESOLUTIONS: collections.Counter = collections.Counter()
 
 
 def register(op: str, impl: str, fn: Callable, *,
@@ -74,30 +95,59 @@ def impls(op: str) -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY.get(op, ())))
 
 
-def resolve_name(op: str, impl: Optional[str] = None,
-                 device: Optional[torch.device] = None) -> str:
-    """Which implementation a call to ``op`` on ``device`` uses."""
+def resolve_name(op: str, impl: Optional[str] = None, device=None,
+                 shape: Optional[Sequence[int]] = None) -> str:
+    """Which implementation a call to ``op`` on ``device`` uses.  With
+    ``shape`` (the call's tuning bucket: (M, K, N) for matmul, (R, C)
+    otherwise) the tuning table takes part (see the module docstring)."""
     if op not in _REGISTRY:
         raise KeyError(f"unknown ff op {op!r}; registered: {ops()}")
+    dev = torch.device(device or "cpu").type
     name = impl or scope.current_impl(op)
+    src = "explicit" if impl else ("scope" if name is not None else None)
     if name is None and op == "matmul":
         pol = scope.current_policy().matmul_impl
         if pol and pol != "auto":
-            name = pol
-    if name == "tuned":
-        name = None
-    elif name == "tuned_accurate":
-        name = next((c for c in _ACCURATE_FALLBACK.get(op, ())
-                     if c in _REGISTRY[op]), None)
+            name, src = pol, "policy"
+    if name in ("tuned", "tuned_accurate"):
+        accurate = name == "tuned_accurate"
+        name = (tuning.lookup_impl(op, shape,
+                                   "accurate" if accurate else "fast", dev)
+                if shape is not None else None)
+        src = "tuned_accurate" if accurate else "tuned"
+        if name is not None and name not in _REGISTRY[op]:
+            name = None   # a stale or foreign table never breaks dispatch
+        if name is None and accurate:
+            # an accurate request never degrades to the fast class
+            name = next((c for c in _ACCURATE_FALLBACK.get(op, ())
+                         if c in _REGISTRY[op]), None)
+            src = "accurate_fallback"
+    if name is None and shape is not None:
+        name = tuning.lookup_impl(op, shape, "fast", dev)
+        src = "tuned_default"
+        if name is not None and name not in _REGISTRY[op]:
+            name = None
     if name is None:
         d = _DEFAULTS.get(op, {})
-        name = d.get(torch.device(device or "cpu").type, d.get("*"))
+        name, src = d.get(dev, d.get("*")), "static_default"
     if name is None:
-        name = next(iter(_REGISTRY[op]))
+        name, src = next(iter(_REGISTRY[op])), "first_registered"
     if name not in _REGISTRY[op]:
         raise KeyError(f"ff op {op!r} has no implementation {name!r}; "
                        f"available: {impls(op)}")
+    RESOLUTIONS[(op, name, src, dev,
+                 tuning.bucket_key(shape) if shape else "")] += 1
     return name
+
+
+def resolve_opts(op: str, name: str, shape: Optional[Sequence[int]] = None,
+                 device=None) -> dict:
+    """The measured-best block config of ``name`` at ``shape`` on
+    ``device`` (empty without a table entry); callers merge it under
+    their explicit options."""
+    if shape is None:
+        return {}
+    return tuning.lookup_opts(op, name, shape, torch.device(device or "cpu"))
 
 
 def lookup(op: str, impl: str) -> Callable:
@@ -137,8 +187,73 @@ def _mul_jnp(a, b, **_kw) -> FF:
     return core_ff.mul22(_as_ff(a), _as_ff(b))
 
 
+def _add_accurate(a, b, **_kw) -> FF:
+    return core_ff.add22_accurate(_as_ff(a), _as_ff(b))
+
+
+def _elementwise_pallas(op22: str):
+    """The one-kernel tier of a binary FF op (``ff_elementwise``): FF or
+    f32 operands, both lifted to FF (an f32 operand's lo is 0)."""
+    def fn(a, b, *, block=None, **_kw) -> FF:
+        af, bf = _as_ff(a), _as_ff(b)
+        return FF(*ff_elementwise.elementwise(
+            op22, af.hi, af.lo, bf.hi, bf.lo,
+            block=tuple(block) if block else ff_elementwise.DEFAULT_BLOCK))
+    return fn
+
+
+def _div_jnp(a, b, **_kw) -> FF:
+    return core_ff.div22(_as_ff(a), _as_ff(b))
+
+
+def _sqrt_jnp(a, **_kw) -> FF:
+    return core_ff.sqrt22(_as_ff(a))
+
+
+def _sqrt_pallas(a, *, block=None, **_kw) -> FF:
+    af = _as_ff(a)
+    return FF(*ff_elementwise.elementwise(
+        "sqrt22", af.hi, af.lo,
+        block=tuple(block) if block else ff_elementwise.DEFAULT_BLOCK))
+
+
+# The elementwise default is jnp on every device, as in the reference: the
+# per-op kernels stay registered for explicit callers and for ff.tune.
 register("add", "jnp", _add_jnp, default_for=("*",))
+register("add", "accurate", _add_accurate)
+register("add", "pallas", _elementwise_pallas("add22"))
 register("mul", "jnp", _mul_jnp, default_for=("*",))
+register("mul", "pallas", _elementwise_pallas("mul22"))
+register("div", "jnp", _div_jnp, default_for=("*",))
+register("div", "pallas", _elementwise_pallas("div22"))
+register("sqrt", "jnp", _sqrt_jnp, default_for=("*",))
+register("sqrt", "pallas", _sqrt_pallas)
+
+
+# -- EFTs: (f32, f32) -> FF, exact ---------------------------------------------
+
+def _f32(x) -> Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _two_sum_jnp(a, b) -> FF:
+    return FF(*T.two_sum(_f32(a), _f32(b)))
+
+
+def _two_prod_jnp(a, b) -> FF:
+    return FF(*T.two_prod(_f32(a), _f32(b)))
+
+
+def _eft_pallas(op: str):
+    def fn(a, b) -> FF:
+        return FF(*ff_elementwise.elementwise(op, _f32(a), _f32(b)))
+    return fn
+
+
+register("two_sum", "jnp", _two_sum_jnp, default_for=("*",))
+register("two_sum", "pallas", _eft_pallas("two_sum"))
+register("two_prod", "jnp", _two_prod_jnp, default_for=("*",))
+register("two_prod", "pallas", _eft_pallas("two_prod"))
 
 
 # -- sum: the compensated sum -------------------------------------------------
@@ -147,7 +262,31 @@ def _sum_blocked(x: Tensor, axis=None, *, block: int = 128, **_kw) -> FF:
     return compensated.ff_sum_blocked(x, axis=axis, block=block)
 
 
+def _sum_cascade(x: Tensor, axis=None, **_kw) -> FF:
+    return compensated.ff_sum(x, axis=axis)
+
+
+def _sum_pallas_rowsum(x: Tensor, axis=None, *, br: int = 256,
+                       bc: int = 512, lane: int = 128, **_kw) -> FF:
+    """The row-sum kernel over the last axis; ND input flattens to
+    (prod(leading), last).  Other axes take the blocked impl, with a
+    warning (a tuned winner must never break a call)."""
+    if isinstance(axis, tuple) and len(axis) == 1:
+        axis = axis[0]
+    if x.ndim < 1 or axis not in (-1, x.ndim - 1):
+        _fallback_warn("pallas_rowsum", "sum",
+                       f"axis {axis} of a {x.ndim}-D input is not a "
+                       f"last-axis row reduction")
+        return _sum_blocked(x, axis=axis)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]) if x.ndim != 2 else x
+    hi, lo = ff_reduce.ff_rowsum(x2, br=br, bc=bc, lane=lane)
+    return FF(hi.reshape(lead), lo.reshape(lead))
+
+
 register("sum", "blocked", _sum_blocked, default_for=("*",))
+register("sum", "cascade", _sum_cascade)
+register("sum", "pallas_rowsum", _sum_pallas_rowsum)
 
 
 # -- mean_sq: the RMSNorm statistic ------------------------------------------
@@ -405,34 +544,227 @@ register("attention", "ff", ff_attention.flash_attention_ff)
 register("attention", "pallas", _attention_pallas)
 
 
+# -- the FF elementary functions (ff.math) ------------------------------------
+#
+# Four classes per function, as in the reference: ``jnp`` the compensated
+# formulation (``core.ffmath``; the default everywhere), ``pallas`` the
+# same arithmetic as one CUDA kernel (``ff_math``; bitwise ``jnp``), ``f64``
+# the native-f64 function rounded to FF (a real tier on the card and the
+# CPU, never a default), ``fast`` the f32 builtin on hi + lo, lifted to FF
+# with a zero lo (~2^-24: never a default, never a tuned fast winner).
+
+MATH_UNARY_OPS: Tuple[str, ...] = tuple(sorted(ffmath.UNARY22))
+MATH_OPS: Tuple[str, ...] = MATH_UNARY_OPS + ("pow",)
+
+
+def _math_jnp(op: str):
+    fn = ffmath.UNARY22[op]
+
+    def impl(a, **_kw) -> FF:
+        af = _as_ff(a)
+        return FF(*fn(af.hi, af.lo))
+    return impl
+
+
+def _math_block(block) -> Tuple[int, int]:
+    return tuple(block) if block else ff_math.DEFAULT_BLOCK
+
+
+def _math_pallas(op: str):
+    def impl(a, *, block=None, **_kw) -> FF:
+        af = _as_ff(a)
+        return FF(*ff_math.math_elementwise(op, af.hi, af.lo,
+                                            block=_math_block(block)))
+    return impl
+
+
+def _f64_to_ff(r: Tensor) -> FF:
+    hi = r.to(torch.float32)
+    return FF(hi, (r - hi.to(torch.float64)).to(torch.float32))
+
+
+def _sigmoid64(x: Tensor) -> Tensor:
+    one = torch.ones_like(x)
+    return one / (one + torch.exp(-x))
+
+
+def _gelu64(x: Tensor) -> Tensor:
+    one = torch.ones_like(x)
+    two = one + one
+    return (one / two) * x * (one + torch.erf(x / torch.sqrt(two)))
+
+
+_MATH_F64_FNS = {
+    "exp": torch.exp, "expm1": torch.expm1, "log": torch.log,
+    "log1p": torch.log1p, "tanh": torch.tanh, "sigmoid": _sigmoid64,
+    "erf": torch.erf, "gelu": _gelu64, "silu": lambda x: x * _sigmoid64(x),
+}
+
+
+def _math_f64(op: str):
+    fn = _MATH_F64_FNS[op]
+
+    def impl(a, **_kw) -> FF:
+        af = _as_ff(a)
+        return _f64_to_ff(fn(af.hi.to(torch.float64)
+                             + af.lo.to(torch.float64)))
+    return impl
+
+
+_MATH_FAST_FNS = {
+    "exp": torch.exp, "expm1": torch.expm1, "log": torch.log,
+    "log1p": torch.log1p, "tanh": torch.tanh, "sigmoid": torch.sigmoid,
+    "erf": torch.erf,
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="none"),
+    "silu": torch.nn.functional.silu,
+}
+
+
+def _math_fast(op: str):
+    fn = _MATH_FAST_FNS[op]
+
+    def impl(a, **_kw) -> FF:
+        af = _as_ff(a)
+        return FF.from_f32(fn(af.hi + af.lo))
+    return impl
+
+
+for _op in MATH_UNARY_OPS:
+    register(_op, "jnp", _math_jnp(_op), default_for=("*",))
+    register(_op, "pallas", _math_pallas(_op))
+    register(_op, "f64", _math_f64(_op))
+    register(_op, "fast", _math_fast(_op))
+
+
+def _pow_jnp(a, b, **_kw) -> FF:
+    af, bf = _as_ff(a), _as_ff(b)
+    return FF(*ffmath.pow22(af.hi, af.lo, bf.hi, bf.lo))
+
+
+def _pow_pallas(a, b, *, block=None, **_kw) -> FF:
+    af, bf = _as_ff(a), _as_ff(b)
+    return FF(*ff_math.math_elementwise("pow", af.hi, af.lo, bf.hi, bf.lo,
+                                        block=_math_block(block)))
+
+
+def _pow_f64(a, b, **_kw) -> FF:
+    """Native-f64 pow with the FF kernel's domain rule: nan for a < 0
+    (unless b == 0), no integer-exponent case."""
+    af, bf = _as_ff(a), _as_ff(b)
+    neg = (af.hi < 0) & (bf.hi != 0)
+    x = af.hi.to(torch.float64) + af.lo.to(torch.float64)
+    y = bf.hi.to(torch.float64) + bf.lo.to(torch.float64)
+    return _f64_to_ff(torch.where(neg, float("nan"), torch.pow(x, y)))
+
+
+def _pow_fast(a, b, **_kw) -> FF:
+    af, bf = _as_ff(a), _as_ff(b)
+    a32, b32 = af.hi + af.lo, bf.hi + bf.lo
+    return FF.from_f32(torch.where((a32 < 0) & (b32 != 0), float("nan"),
+                                   torch.pow(a32, b32)))
+
+
+register("pow", "jnp", _pow_jnp, default_for=("*",))
+register("pow", "pallas", _pow_pallas)
+register("pow", "f64", _pow_f64)
+register("pow", "fast", _pow_fast)
+
+
 # -- the public calls (the reference's ``repro.ff`` entry points) -----------
 
-def _resolved(op: str, impl: Optional[str], device, opts: dict):
-    """The implementation of ``op`` a call on ``device`` runs, with the
-    call's options bound."""
-    return functools.partial(lookup(op, resolve_name(op, impl, device)),
-                             **opts)
+def _resolved(op: str, impl: Optional[str], device, opts: dict,
+              shape: Optional[Sequence[int]] = None):
+    """The implementation of ``op`` a call on ``device`` (tuning bucket
+    ``shape``) runs, with the call's options bound over the tuned ones."""
+    name = resolve_name(op, impl, device, shape)
+    return functools.partial(lookup(op, name), **autodiff.merge_tuned(
+        op, name, shape, opts, device))
+
+
+def _limbs(x):
+    return (x.hi, x.lo) if isinstance(x, FF) else (x,)
+
+
+def _ew_call(op: str, impl: Optional[str], opts: dict, *xs):
+    """An elementwise call's implementation, resolved on its operands'
+    device and broadcast (R, C) bucket."""
+    xs = [x if isinstance(x, FF) else torch.as_tensor(x, dtype=torch.float32)
+          for x in xs]
+    dev = ff_elementwise.operand_device([t for x in xs for t in _limbs(x)])
+    shape = autodiff.bucket2d(torch.broadcast_shapes(
+        *(x.shape for x in xs)))
+    return _resolved(op, impl, dev, opts, shape), xs
+
+
+def _forward_only(op: str, *xs) -> None:
+    if autodiff.needs_grad(*(t for x in xs for t in _limbs(x))):
+        raise NotImplementedError(
+            f"the gradient of ff.{op} is not ported yet (ROADMAP, queue "
+            f"item 3): call it on a tensor that needs no gradient")
 
 
 def add(a, b, *, impl: Optional[str] = None, **opts) -> FF:
     """FF addition (paper Add22; Add212 where one operand is f32).
-    Accepts FF or f32 operands."""
-    dev = (a.hi if isinstance(a, FF) else torch.as_tensor(a)).device
-    return _resolved("add", impl, dev, opts)(a, b)
+    Accepts FF or f32 operands; no gradient."""
+    fn, (a, b) = _ew_call("add", impl, opts, a, b)
+    return fn(a, b)
+
+
+def sub(a, b, *, impl: Optional[str] = None, **opts) -> FF:
+    """FF subtraction: add(a, -b) (negation is exact)."""
+    b = b if isinstance(b, FF) else torch.as_tensor(b, dtype=torch.float32)
+    return add(a, -b, impl=impl, **opts)
 
 
 def mul(a, b, *, impl: Optional[str] = None, **opts) -> FF:
     """FF multiplication (paper Mul22; Mul212 where one operand is f32).
     Accepts FF or f32 operands; no gradient."""
-    dev = (a.hi if isinstance(a, FF) else torch.as_tensor(a)).device
-    return _resolved("mul", impl, dev, opts)(a, b)
+    fn, (a, b) = _ew_call("mul", impl, opts, a, b)
+    return fn(a, b)
+
+
+def div(a, b, *, impl: Optional[str] = None, **opts) -> FF:
+    """FF division (Dekker quotient + one correction).  Forward only."""
+    fn, (a, b) = _ew_call("div", impl, opts, a, b)
+    _forward_only("div", a, b)
+    return fn(a, b)
+
+
+def sqrt(a, *, impl: Optional[str] = None, **opts) -> FF:
+    """FF square root (correctly rounded f32 root + one Newton
+    correction).  Forward only."""
+    fn, (a,) = _ew_call("sqrt", impl, opts, a)
+    _forward_only("sqrt", a)
+    return fn(a)
+
+
+def two_sum(a, b, *, impl: Optional[str] = None, **opts) -> FF:
+    """Exact a + b of two f32 tensors as FF (paper Theorem 2).  Forward
+    only."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    b = torch.as_tensor(b, dtype=torch.float32)
+    _forward_only("two_sum", a, b)
+    dev = ff_elementwise.operand_device([a, b])
+    return functools.partial(lookup("two_sum", resolve_name(
+        "two_sum", impl, dev)), **opts)(a, b)
+
+
+def two_prod(a, b, *, impl: Optional[str] = None, **opts) -> FF:
+    """Exact a * b of two f32 tensors as FF (paper Theorem 4, Dekker's
+    split).  Forward only."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    b = torch.as_tensor(b, dtype=torch.float32)
+    _forward_only("two_prod", a, b)
+    dev = ff_elementwise.operand_device([a, b])
+    return functools.partial(lookup("two_prod", resolve_name(
+        "two_prod", impl, dev)), **opts)(a, b)
 
 
 def sum(x: Tensor, axis=None, *, impl: Optional[str] = None,
         **opts) -> FF:
     """Compensated sum of an f32 tensor -> FF (~44-bit accurate)."""
     x = x.to(torch.float32)
-    fn = _resolved("sum", impl, x.device, opts)
+    fn = _resolved("sum", impl, x.device, opts, autodiff.bucket2d(x.shape))
     if autodiff.needs_grad(x):
         return FF(*autodiff.Sum.apply(x, fn, axis))
     return fn(x, axis=axis)
@@ -442,7 +774,8 @@ def mean_sq(x: Tensor, *, impl: Optional[str] = None, **opts) -> Tensor:
     """Compensated mean of squares over the last axis -> f32 (the RMSNorm
     statistic)."""
     x = x.to(torch.float32)
-    fn = _resolved("mean_sq", impl, x.device, opts)
+    fn = _resolved("mean_sq", impl, x.device, opts,
+                   autodiff.bucket2d(x.shape))
     if autodiff.needs_grad(x):
         return autodiff.MeanSq.apply(x, fn)
     return fn(x)
@@ -452,18 +785,12 @@ def logsumexp(x: Tensor, axis: int = -1, *, impl: Optional[str] = None,
               **opts) -> Tensor:
     """Compensated log-sum-exp -> f32 (gradient: the softmax)."""
     x = x.to(torch.float32)
-    fn = _resolved("logsumexp", impl, x.device, opts)
+    fn = _resolved("logsumexp", impl, x.device, opts,
+                   autodiff.bucket2d(x.shape))
     axis = axis % x.ndim
     if autodiff.needs_grad(x):
         return autodiff.LogSumExp.apply(x, fn, axis)
     return fn(x, axis=axis)
-
-
-def _forward_only(op: str, x: Tensor) -> None:
-    if autodiff.needs_grad(x):
-        raise NotImplementedError(
-            f"the gradient of ff.{op} is not ported yet (ROADMAP, queue "
-            f"item 3): call it on a tensor that needs no gradient")
 
 
 def softmax(x: Tensor, axis: int = -1, *, impl: Optional[str] = None,
@@ -473,7 +800,8 @@ def softmax(x: Tensor, axis: int = -1, *, impl: Optional[str] = None,
     Forward only."""
     x = x.to(torch.float32)
     _forward_only("softmax", x)
-    return _resolved("softmax", impl, x.device, opts)(x, axis=axis % x.ndim)
+    return _resolved("softmax", impl, x.device, opts,
+                     autodiff.bucket2d(x.shape))(x, axis=axis % x.ndim)
 
 
 def norm_stats(x: Tensor, *, impl: Optional[str] = None, **opts):
@@ -481,7 +809,8 @@ def norm_stats(x: Tensor, *, impl: Optional[str] = None, **opts):
     both f32: one kernel on the card, reading x once.  Forward only."""
     x = x.to(torch.float32)
     _forward_only("norm_stats", x)
-    return _resolved("norm_stats", impl, x.device, opts)(x)
+    return _resolved("norm_stats", impl, x.device, opts,
+                     autodiff.bucket2d(x.shape))(x)
 
 
 def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
@@ -493,7 +822,8 @@ def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
     master weight, ``m`` and ``v`` the new moments (the reference returns
     them).  Runs outside autograd (an optimizer step)."""
     g = g.to(torch.float32)
-    _resolved("adamw_update", impl, g.device, opts)(
+    _resolved("adamw_update", impl, g.device, opts,
+              autodiff.bucket2d(g.shape))(
         g, m, v, w, wlo, lr, b1, b2, bc1, bc2, eps=eps, wd=wd)
 
 
@@ -507,15 +837,19 @@ def matmul(a, b, *, impl: Optional[str] = None, **opts) -> FF:
     ``pallas_dot2``, ``pallas_ozaki`` per call, per ``use(matmul=...)``
     scope or per ``policy(matmul=...)``.  Option precedence: explicit
     kwargs (``bk`` is read as ``block_k`` for the blocked-K impls) > the
-    ambient policy's ``ff_matmul_block_k`` (hybrid, compensated, split).
-    Differentiable: the gradient runs the same impl."""
+    tuned block config (``ff.tune``) > the ambient policy's
+    ``ff_matmul_block_k`` (hybrid, compensated, split).  Resolution is
+    shape-aware: a tuning-table entry for the (M, K, N) bucket supplies
+    the default impl.  Differentiable: the gradient runs the same impl."""
     a = a if isinstance(a, FF) else torch.as_tensor(a).to(torch.float32)
     b = b if isinstance(b, FF) else torch.as_tensor(b).to(torch.float32)
     dev = (a.hi if isinstance(a, FF) else a).device
-    name = resolve_name("matmul", impl, dev)
+    mkn = (a.shape[-2], a.shape[-1], b.shape[-1])
+    name = resolve_name("matmul", impl, dev, mkn)
     opts = dict(opts)
     if "bk" in opts and name in ("hybrid", "compensated", "split", "ozaki"):
         opts.setdefault("block_k", opts.pop("bk"))
+    opts = autodiff.merge_tuned("matmul", name, mkn, opts, dev)
     if name in ("hybrid", "compensated", "split"):
         opts.setdefault("block_k", scope.current_policy().ff_matmul_block_k)
     base = functools.partial(lookup("matmul", name), **opts)
@@ -535,10 +869,13 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H = KV * G (GQA).
     ``kv_len``: optional (B,) per-row valid-key counts (ragged serving
     batches).  ``return_ff=True`` returns the FF limb pair."""
-    name = resolve_name("attention", impl, q.device)
+    bshape = autodiff.bucket2d((q.shape[1], k.shape[1]))
+    name = resolve_name("attention", impl, q.device, bshape)
     fn = lookup("attention", name)
     call = dict(causal=bool(causal), q_offset=int(q_offset),
-                scale=None if scale is None else float(scale), **opts)
+                scale=None if scale is None else float(scale),
+                **autodiff.merge_tuned("attention", name, bshape, opts,
+                                       q.device))
     if name == "fast" or return_ff or not autodiff.needs_grad(q, k, v):
         # the fast tier's gradient is plain autograd, as in the reference
         return fn(q, k, v, kv_len=kv_len, return_ff=return_ff, **call)

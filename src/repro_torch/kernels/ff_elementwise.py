@@ -1,19 +1,43 @@
-"""Operand flattening shared by the port's row and Program kernels
-(counterpart of the helpers of ``repro.kernels.ff_elementwise``; the
-``elementwise`` kernel itself is not ported yet).
+"""The paper's elementwise FF operators as one CUDA kernel
+(``csrc/ff_elementwise.cu``), with its plain version, and the operand
+flattening shared by the port's elementwise, math, row and Program
+kernels (counterpart of ``repro.kernels.ff_elementwise``).
 
-A kernel sees each operand as a 2-D plane (rows, last axis).  An operand
-that broadcasts keeps its degenerate extent (1 row, 1 column, or both):
-the kernel reads it with a zero stride along that dimension.
+``elementwise(op, *planes)`` runs Add22, Mul22, Div22 (four planes: a's
+hi and lo, b's hi and lo), Sqrt22 (two), TwoSum or TwoProd (two f32
+operands) over broadcastable operands and returns the (hi, lo) planes at
+the broadcast shape.  A kernel sees each operand as a 2-D plane (rows,
+last axis); an operand that broadcasts keeps its degenerate extent (1
+row, 1 column, or both) and the kernel reads it with a zero stride along
+that dimension, so it is never materialised.  ``block`` is the TPU
+kernel's tile: it is validated (``pick_block``) but the CUDA launch does
+not depend on it, and no block changes a bit.
+
+On CUDA tensors ``elementwise`` launches the kernel (or raises); on CPU
+tensors it takes the plain version ``elementwise_plain``, the same op
+sequences from ``repro_torch.core`` over the broadcast planes: the
+kernel's bits and the reference kernel's.  ``elementwise.launches``
+counts launches.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import ff as core_ff
+from repro_torch.core import transforms as T
+from repro_torch.core.ff import FF
+from repro_torch.kernels import build
+
 Tensor = torch.Tensor
+
+DEFAULT_BLOCK = (256, 512)  # the TPU tile: 512 KiB per plane in VMEM
+
+SUBLANE = 8     # f32 second-to-last TPU tile dim
+LANE = 128      # last TPU tile dim
 
 
 def _to_2d(x: Tensor) -> Tensor:
@@ -25,13 +49,22 @@ def _to_2d(x: Tensor) -> Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
-def _pad_to(x: Tensor, br: int, bc: int) -> Tensor:
-    """Zero-pad a 2-D tensor up to multiples of (br, bc)."""
-    r, c = x.shape
-    pr, pc = (-r) % br, (-c) % bc
-    if pr or pc:
-        x = torch.nn.functional.pad(x, (0, pc, 0, pr))
-    return x
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pick_block(rows: int, cols: int,
+               block: Tuple[int, int] = DEFAULT_BLOCK) -> Tuple[int, int]:
+    """The reference's tile for an (rows, cols) output: the requested
+    block clamped to the padded extent, rows rounded up to the 8-sublane
+    multiple and cols to the 128-lane multiple (a (3, 130) operand gets
+    (8, 256))."""
+    br, bc = (int(b) for b in block)
+    if br < 1 or bc < 1:
+        raise ValueError(f"block {tuple(block)} must be positive")
+    br = min(_round_up(br, SUBLANE), _round_up(max(rows, 1), SUBLANE))
+    bc = min(_round_up(bc, LANE), _round_up(max(cols, 1), LANE))
+    return br, bc
 
 
 def broadcast_planes(arrays: Sequence[Tensor]
@@ -61,3 +94,148 @@ def broadcast_planes(arrays: Sequence[Tensor]
             a2 = _to_2d(a.expand(out_shape))
         planes.append(a2)
     return tuple(planes), out_shape
+
+
+# -- the strided-plane launch shared with kernels/ff_math.py ------------------
+
+MAX_IN = 4
+
+
+class _Planes(ctypes.Structure):
+    """``struct Planes`` of csrc/ff_planes.cuh, field for field."""
+    _fields_ = [("op", ctypes.c_int), ("n_in", ctypes.c_int),
+                ("rows", ctypes.c_longlong), ("cols", ctypes.c_longlong),
+                ("inp", ctypes.c_void_p * MAX_IN),
+                ("rs", ctypes.c_longlong * MAX_IN),
+                ("cs", ctypes.c_longlong * MAX_IN),
+                ("out_hi", ctypes.c_void_p), ("out_lo", ctypes.c_void_p)]
+
+
+_CHECKED = set()
+
+
+def operand_device(arrays: Sequence) -> torch.device:
+    """The device of a call: the one non-CPU device among the tensor
+    operands (a 0-d CPU tensor or a number rides along), else the CPU."""
+    devs = {a.device for a in arrays if isinstance(a, Tensor)}
+    other = devs - {torch.device("cpu")}
+    if len(other) > 1:
+        raise RuntimeError(f"operands on several devices: "
+                           f"{sorted(map(str, devs))}")
+    return other.pop() if other else torch.device("cpu")
+
+
+def layout(what: str, n_in: int, arrays: Sequence, block,
+           device: torch.device):
+    """f32 operand planes on ``device`` against their broadcast shape:
+    (planes, broadcast shape, R, C).  Validates the count and the block."""
+    if len(arrays) != n_in:
+        raise ValueError(f"{what} takes {n_in} planes, got {len(arrays)}")
+    arrays = tuple(torch.as_tensor(a, dtype=torch.float32).to(device)
+                   for a in arrays)
+    planes, out_shape = broadcast_planes(arrays)
+    R = max(p.shape[0] for p in planes)
+    C = max(p.shape[1] for p in planes)
+    pick_block(R, C, block)
+    return planes, out_shape, R, C
+
+
+def launch_planes(lib: str, op: int, planes: Sequence[Tensor],
+                  R: int, C: int, device: torch.device
+                  ) -> Tuple[Tensor, Tensor]:
+    """One launch of an elementwise kernel of lib``lib`` over strided
+    operand planes; returns the (R, C) hi and lo planes."""
+    if lib not in _CHECKED:
+        n = build.entry(lib, f"{lib}_planes_bytes", [])()
+        if n != ctypes.sizeof(_Planes):
+            raise RuntimeError(f"{lib}: the kernel's Planes is {n} bytes, "
+                               f"the wrapper's {ctypes.sizeof(_Planes)}")
+        _CHECKED.add(lib)
+    hi = torch.empty((R, C), dtype=torch.float32, device=device)
+    lo = torch.empty_like(hi)
+    t = _Planes(op=op, n_in=len(planes), rows=R, cols=C,
+                out_hi=hi.data_ptr(), out_lo=lo.data_ptr())
+    for k, p in enumerate(planes):
+        t.inp[k] = p.data_ptr()
+        t.rs[k] = p.stride(0) if p.shape[0] != 1 else 0
+        t.cs[k] = p.stride(1) if p.shape[1] != 1 else 0
+    with torch.cuda.device(device):
+        err = build.entry(lib, f"{lib}_f32",
+                          [ctypes.POINTER(_Planes), ctypes.c_void_p])(
+            ctypes.byref(t), torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")
+    return hi, lo
+
+
+# -- the operators ------------------------------------------------------------
+
+def _ff2(fn: Callable) -> Callable:
+    def body(ah, al, bh, bl):
+        r = fn(FF(ah, al), FF(bh, bl))
+        return r.hi, r.lo
+    return body
+
+
+def _sqrt22(ah, al):
+    r = core_ff.sqrt22(FF(ah, al))
+    return r.hi, r.lo
+
+
+# op -> (plain body over full planes, number of planes); the order is the
+# kernel's op codes (enum Op of csrc/ff_elementwise.cu)
+_OPS: Dict[str, Tuple[Callable, int]] = {
+    "add22": (_ff2(core_ff.add22), 4),
+    "mul22": (_ff2(core_ff.mul22), 4),
+    "div22": (_ff2(core_ff.div22), 4),
+    "sqrt22": (_sqrt22, 2),
+    "two_prod": (T.two_prod, 2),
+    "two_sum": (T.two_sum, 2),
+}
+EW_OPS = tuple(_OPS)
+
+
+def _op(op: str) -> Tuple[Callable, int]:
+    if op not in _OPS:
+        raise KeyError(f"elementwise op {op!r}; ops: {EW_OPS}")
+    return _OPS[op]
+
+
+def elementwise_plain(op: str, *arrays,
+                      block: Tuple[int, int] = DEFAULT_BLOCK
+                      ) -> Tuple[Tensor, Tensor]:
+    """The kernel in PyTorch: ``op`` over the operand planes expanded to
+    (R, C), reshaped to the broadcast shape."""
+    fn, n_in = _op(op)
+    dev = operand_device(arrays)
+    planes, out_shape, R, C = layout(f"elementwise {op!r}", n_in, arrays,
+                                     block, dev)
+    rh, rl = fn(*(p.expand(R, C) for p in planes))
+    return rh.reshape(out_shape), rl.reshape(out_shape)
+
+
+def elementwise(op: str, *arrays, block: Tuple[int, int] = DEFAULT_BLOCK
+                ) -> Tuple[Tensor, Tensor]:
+    """Run an elementwise FF operator over broadcastable operands,
+    returning (hi, lo) at the broadcast shape.
+
+    On CUDA operands: one launch of ``csrc/ff_elementwise.cu`` (raises if
+    it cannot launch); on CPU operands: the plain version."""
+    fn, n_in = _op(op)
+    dev = operand_device(arrays)
+    if dev.type == "cpu":
+        return elementwise_plain(op, *arrays, block=block)
+    if dev.type != "cuda":
+        raise RuntimeError(f"elementwise: no kernel for device {dev}")
+    planes, out_shape, R, C = layout(f"elementwise {op!r}", n_in, arrays,
+                                     block, dev)
+    if R * C == 0:
+        z = torch.empty(out_shape, dtype=torch.float32, device=dev)
+        return z, z.clone()
+    hi, lo = launch_planes("ff_elementwise", EW_OPS.index(op), planes,
+                           R, C, dev)
+    elementwise.launches += 1
+    return hi.reshape(out_shape), lo.reshape(out_shape)
+
+
+elementwise.launches = 0   # kernel launches since the last reset

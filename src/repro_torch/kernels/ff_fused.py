@@ -38,8 +38,8 @@ from repro_torch.core import ff as core_ff
 from repro_torch.core import transforms as T
 from repro_torch.core.ff import FF, sqrt_rn
 from repro_torch.kernels import build
-from repro_torch.kernels.ff_elementwise import (_pad_to, _to_2d,
-                                                broadcast_planes)
+from repro_torch.kernels.ff_elementwise import _to_2d, broadcast_planes
+from repro_torch.kernels.ref import fold_lanes, lane_cascade
 
 Tensor = torch.Tensor
 
@@ -189,34 +189,13 @@ adamw_update.launches = 0   # kernel launches since the last reset
 # -- the fixed 128-lane summation order ---------------------------------------
 
 def _lane_cascade(val: Tensor, acc=None):
-    """Fold ``val`` (R, C) into 128 per-lane (s, c, cc) Neumaier
-    accumulators, lane l taking columns l, l+128, ... in order (the
-    reference's ``_lane_cascade``; zero padding past C adds nothing).
-    ``acc``: accumulators to continue from.  Returns (s, c, cc), (R, 128)
-    each."""
-    R = val.shape[0]
-    val = _pad_to(val, 1, LANE)
-    if acc is None:
-        z = val.new_zeros((R, LANE))
-        acc = (z, z, z)
-    s, c, cc = acc
-    for xt in val.reshape(R, -1, LANE).unbind(1):
-        s, e = T.two_sum(s, xt)
-        c, e2 = T.two_sum(c, e)
-        cc = cc + e2
-    return s, c, cc
+    """``ref.lane_cascade`` over the TPU kernels' 128 lanes."""
+    return lane_cascade(val, acc, LANE)
 
 
 def _fold_lanes(acc) -> FF:
-    """Exact sequential fold of the 128 lane accumulators, lane 0 first
-    (the reference's ``_fold_lanes``): (R, 128) x3 -> FF per row (R,)."""
-    s, c, cc = acc
-    fh = fl = s.new_zeros(s.shape[0])
-    for i in range(s.shape[1]):
-        sh, sl = T.two_sum(fh, s[:, i])
-        v = sl + (fl + c[:, i] + cc[:, i])
-        fh, fl = T.fast_two_sum(sh, v)
-    return FF(fh, fl)
+    """``ref.fold_lanes`` as an FF per row."""
+    return FF(*fold_lanes(acc))
 
 
 def _rows(x: Tensor, what: str) -> Tuple[Tensor, Tuple[int, ...]]:

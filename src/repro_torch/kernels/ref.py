@@ -1,9 +1,11 @@
-"""Oracles for the FF matmul kernels (counterpart of
+"""Oracles for the FF matmul and row-sum kernels (counterpart of
 ``repro.kernels.ref``): the same algorithms with no tiling, in the kernels'
-K order, so they agree with the kernels to the bits that order decides.
+K or lane order, so they agree with the kernels to the bits that order
+decides.
 
 ``ref_ff_matmul`` is also the hybrid kernel's plain version
-(``kernels.ff_matmul.ff_matmul_plain``).
+(``kernels.ff_matmul.ff_matmul_plain``), ``ref_ff_rowsum`` the row-sum
+kernel's (``kernels.ff_reduce.ff_rowsum_plain``).
 """
 
 from __future__ import annotations
@@ -60,3 +62,43 @@ def ref_ff_matmul_dot2(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
         c, ce = T.two_sum(c, se + pe)
         cc = cc + ce
     return T.fast_two_sum(s, c + cc)
+
+
+def lane_cascade(val: Tensor, acc=None, lanes: int = 128):
+    """Fold ``val`` (R, C) into ``lanes`` per-lane (s, c, cc) Neumaier
+    accumulators, lane l taking columns l, l + lanes, ... in order (the
+    reference's ``_lane_cascade``; zero padding past C adds nothing).
+    ``acc``: accumulators to continue from.  Returns (s, c, cc), (R, lanes)
+    each."""
+    R, C = val.shape
+    if C % lanes:
+        val = torch.nn.functional.pad(val, (0, lanes - C % lanes))
+    if acc is None:
+        z = val.new_zeros((R, lanes))
+        acc = (z, z, z)
+    s, c, cc = acc
+    for xt in val.reshape(R, -1, lanes).unbind(1):
+        s, e = T.two_sum(s, xt)
+        c, e2 = T.two_sum(c, e)
+        cc = cc + e2
+    return s, c, cc
+
+
+def fold_lanes(acc) -> Tuple[Tensor, Tensor]:
+    """Exact sequential fold of the lane accumulators, lane 0 first (the
+    reference's ``_fold_lanes``): (R, lanes) x3 -> (hi, lo) per row."""
+    s, c, cc = acc
+    fh = fl = s.new_zeros(s.shape[0])
+    for i in range(s.shape[1]):
+        sh, sl = T.two_sum(fh, s[:, i])
+        v = sl + (fl + c[:, i] + cc[:, i])
+        fh, fl = T.fast_two_sum(sh, v)
+    return fh, fl
+
+
+def ref_ff_rowsum(x: Tensor, lane: int = 128) -> Tuple[Tensor, Tensor]:
+    """Oracle for ff_rowsum: ``lane`` strided (s, c, cc) Neumaier cascades
+    per row (at most C lanes), then the exact fold of the lanes, lane 0
+    first.  Returns (hi, lo), (R,) each."""
+    x = x.to(torch.float32)
+    return fold_lanes(lane_cascade(x, lanes=min(lane, x.shape[1])))

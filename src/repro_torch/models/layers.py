@@ -181,11 +181,17 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 # SwiGLU MLP, embeddings
 # ---------------------------------------------------------------------------
 
-def mlp_apply(p: Params, x: Tensor) -> Tensor:
-    """SwiGLU MLP with the f32-builtin silu gate (the policy's ``ff_math``
-    gate is not ported yet)."""
+def mlp_apply(p: Params, x: Tensor, ff_math: bool = False) -> Tensor:
+    """SwiGLU MLP.  ``ff_math=True`` (the policy's ``ff_math`` switch)
+    computes the silu gate with the FF elementary function (``ff.silu``,
+    ~2^-43; one ``ff_math`` kernel on the card under
+    ``ff.use(silu="pallas")``) in place of the f32 builtin."""
     dt = x.dtype
-    g = F.silu(x @ p["w_gate"].to(dt))
+    pre = x @ p["w_gate"].to(dt)
+    if ff_math:
+        g = ff.to_f32(ff.silu(pre.to(torch.float32))).to(dt)
+    else:
+        g = F.silu(pre)
     u = x @ p["w_up"].to(dt)
     return (g * u) @ p["w_down"].to(dt)
 
@@ -194,12 +200,20 @@ def embed_apply(p: Params, tokens: Tensor, dtype) -> Tensor:
     return p["tok"].to(dtype)[tokens]
 
 
-def unembed_apply(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Unembedding (+ optional logit soft-cap, f32-builtin tanh)."""
+def unembed_apply(p: Params, x: Tensor, cfg: ModelConfig,
+                  ff_math: bool = False) -> Tensor:
+    """Unembedding (+ optional logit soft-cap).  ``ff_math=True`` runs the
+    soft-cap tanh through ``ff.tanh`` (the cap is the last op before the
+    loss and log-prob reductions)."""
     dt = x.dtype
     w = p["unembed"].to(dt) if "unembed" in p else p["tok"].to(dt).T
     logits = x @ w
     if cfg.logit_softcap:
         c = cfg.logit_softcap
-        logits = c * torch.tanh(logits / c)
+        if ff_math:
+            lf = logits.to(torch.float32)
+            t = ff.tanh(lf / torch.full_like(lf, c))
+            logits = (c * ff.to_f32(t)).to(dt)
+        else:
+            logits = c * torch.tanh(logits / c)
     return logits

@@ -31,16 +31,20 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig, policy: PrecisionPolicy) -> None:
-    """The port serves the dense GQA family without ``ff_math`` so far."""
+def check_supported(cfg: ModelConfig, policy: PrecisionPolicy,
+                    training: bool = False) -> None:
+    """The port models the dense GQA family; it serves under ``ff_math``
+    but does not train under it yet."""
     if cfg.family != "dense" or cfg.use_mla or cfg.moe_num_experts:
         raise NotImplementedError(
             f"repro_torch models the dense GQA family only; got family="
             f"{cfg.family!r}, use_mla={cfg.use_mla}, moe_num_experts="
             f"{cfg.moe_num_experts}")
-    if policy.ff_math:
-        raise NotImplementedError("policy ff_math=True (FF silu/tanh/"
-                                  "scoring) is not ported yet")
+    if policy.ff_math and training:
+        raise NotImplementedError(
+            "training under policy ff_math=True is not ported yet: the "
+            "gradients of ff.silu and ff.tanh (the FF elementary functions) "
+            "are missing (ROADMAP, queue item 3)")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -118,7 +122,7 @@ def _decoder_layer(x: Tensor, lp: Params, cfg: ModelConfig,
     x = x + attn_apply(lp["attn"], h, cfg, positions=positions,
                        attn_impl=policy.attention)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, ff_stats=policy.ff_reductions)
-    return x + mlp_apply(lp["ffn"], h)
+    return x + mlp_apply(lp["ffn"], h, ff_math=policy.ff_math)
 
 
 def _run_stack(params: Params, x: Tensor, cfg: ModelConfig,
@@ -160,7 +164,8 @@ def chunked_cross_entropy(x: Tensor, params: Params, targets: Tensor,
     B, S, _ = x.shape
     c = cfg.loss_chunk
     if not c or S <= c:
-        logits = unembed_apply(params["embed"], x, cfg)
+        logits = unembed_apply(params["embed"], x, cfg,
+                               ff_math=policy.ff_math)
         return cross_entropy(logits, targets, policy)
     pad = (-S) % c
     mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
@@ -172,7 +177,8 @@ def chunked_cross_entropy(x: Tensor, params: Params, targets: Tensor,
 
     def body(xi, ti, mi):
         with scoped():
-            logits = unembed_apply(params["embed"], xi, cfg).to(
+            logits = unembed_apply(params["embed"], xi, cfg,
+                                   ff_math=policy.ff_math).to(
                 torch.float32)
             if policy.ff_reductions:
                 lse = ff.logsumexp(logits, axis=-1)
@@ -219,7 +225,7 @@ def train_forward(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
     Returns ``(loss, {"loss", "aux"})``; the dense family has no auxiliary
     loss, so ``aux`` is 0 and the total is the loss."""
     policy = ff.resolve_policy(policy)
-    check_supported(cfg, policy)
+    check_supported(cfg, policy, training=True)
     tokens, targets = batch["tokens"], batch["targets"]
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, compute_dtype(cfg))
@@ -258,7 +264,7 @@ def _stack(params: Params, x: Tensor, cfg: ModelConfig,
         x = x + attn(lp["attn"], z, lcache)
         z = rms_norm(x, lp["ln2"], cfg.norm_eps,
                      ff_stats=policy.ff_reductions)
-        x = x + mlp_apply(lp["ffn"], z)
+        x = x + mlp_apply(lp["ffn"], z, ff_math=policy.ff_math)
     return x
 
 
@@ -282,7 +288,8 @@ def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
     x = _stack(params, x, cfg, policy, cache, attn)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps,
                  ff_stats=policy.ff_reductions)
-    return unembed_apply(params["embed"], x, cfg)[:, 0], cache
+    return unembed_apply(params["embed"], x, cfg,
+                         ff_math=policy.ff_math)[:, 0], cache
 
 
 def decode_step(params: Params, token: Tensor, pos: int, cache: Params,
@@ -301,4 +308,5 @@ def decode_step(params: Params, token: Tensor, pos: int, cache: Params,
     x = _stack(params, x, cfg, policy, cache, attn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  ff_stats=policy.ff_reductions)
-    return unembed_apply(params["embed"], x, cfg)[:, 0], cache
+    return unembed_apply(params["embed"], x, cfg,
+                         ff_math=policy.ff_math)[:, 0], cache

@@ -204,10 +204,11 @@ class ServeEngine:
             h = h + (o.reshape(B, 1, H * hd) @ ap["wo"])
             z = rms_norm(h, lp["ln2"], cfg.norm_eps,
                          ff_stats=policy.ff_reductions)
-            h = h + mlp_apply(lp["ffn"], z)
+            h = h + mlp_apply(lp["ffn"], z, ff_math=policy.ff_math)
         x = rms_norm(h, w["final_norm"], cfg.norm_eps,
                      ff_stats=policy.ff_reductions)
-        logits = unembed_apply(w["embed"], x, cfg)[:, 0]
+        logits = unembed_apply(w["embed"], x, cfg,
+                               ff_math=policy.ff_math)[:, 0]
         nxt = torch.argmax(logits, -1)
         lp_ff = token_logprob_ff(logits, nxt)
         return nxt, token_logprob(logits, nxt, policy), lp_ff.hi, lp_ff.lo

@@ -39,7 +39,9 @@ new = {"repro_torch.core.ffmatmul", "repro_torch.kernels.ff_matmul",
        "repro_torch.kernels.ref", "repro_torch.benchmarks.table_ffmatmul",
        "repro_torch.ff.fusion", "repro_torch.ff.tuning",
        "repro_torch.kernels.ff_elementwise",
-       "repro_torch.benchmarks.table_elementwise"}
+       "repro_torch.benchmarks.table_elementwise",
+       "repro_torch.kernels.ff_reduce", "repro_torch.kernels.ff_math",
+       "repro_torch.ff.math", "repro_torch.ff.guard"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
@@ -87,6 +89,37 @@ def test_wrappers_take_plain_version_only_on_cpu():
             torch.empty((1, 2, 2, 8), device="meta"),
             torch.empty((1, 2, 1, 8), device="meta"),
             torch.empty((1, 2, 1, 8), device="meta"))
+
+
+def test_operator_and_math_wrappers_take_plain_version_only_on_cpu():
+    """elementwise, ff_rowsum and math_elementwise take their plain
+    versions for CPU tensors (no launch) and raise on any other non-CUDA
+    device; the dispatch reaches them only by name or a tuned winner."""
+    from repro_torch.kernels import ff_elementwise, ff_math, ff_reduce
+    rng = np.random.default_rng(43)
+    x = torch.from_numpy(rng.standard_normal((3, 130)).astype(np.float32))
+    calls = [
+        (ff_elementwise.elementwise, ff_elementwise.elementwise_plain,
+         ("div22", x, x * 1e-8, x.abs() + 1, x * 0)),
+        (ff_reduce.ff_rowsum, ff_reduce.ff_rowsum_plain, (x,)),
+        (ff_math.math_elementwise, ff_math.math_elementwise_plain,
+         ("erf", x, x * 1e-8)),
+    ]
+    for wrapper, plain, args in calls:
+        n0 = wrapper.launches
+        got, want = wrapper(*args), plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert wrapper.launches == n0
+        meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with pytest.raises(RuntimeError, match="no kernel"):
+            wrapper(*meta)
+    for op in ("add", "mul", "div", "sqrt", "exp", "silu", "pow"):
+        assert dispatch.resolve_name(op, device="cuda") == "jnp"
+    assert dispatch.resolve_name("sum", device="cuda") == "blocked"
+    assert dispatch.resolve_name("silu", "pallas", "cuda") == "pallas"
+    assert dispatch.resolve_name("sum", "pallas_rowsum",
+                                 "cuda") == "pallas_rowsum"
 
 
 def test_dispatch_defaults_and_resolution_order():
