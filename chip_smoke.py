@@ -44,16 +44,34 @@ Phases (any failed check raises, so the script exits non-zero):
      counts read around it; one call of each op with no ``impl=``,
      resolving ``tuned_default`` and launching the winner's kernel; the
      table cleared and the environment restored; each kernel timed;
-  6. serving: a reduced granite-3-2b engine on the card against the same
-     engine on the CPU (plain versions), then granite-3-2b at full width
+  6. the guard: ``guard_flags`` bit for bit its plain version at
+     (3, 130), (4096, 4096) and the full-width KV pool plane, with the
+     IEEE codes of the adversarial limb classes (NaN and Inf in each
+     limb, subnormal ``lo``, signed zeros, the 2^-24 boundary and the
+     float above it, ``|hi|`` below 2^-102); ``guard_probe`` with the
+     kernel and the jnp impl giving equal counts; the ``ff.add`` /
+     ``sub`` / ``mul`` gradients of the kernel tier bit for bit the plain
+     tier's; ``ff.fused`` raising on a gradient-requiring operand;
+  7. serving: a reduced granite-3-2b engine on the card against the same
+     engine on the CPU (plain versions), also under ``guard="degrade"``
+     with an ``oob``, a ``free`` and a ``dup`` block-table flip (the same
+     statuses and tokens, the audit's rebuild, clean metadata after),
+     then granite-3-2b at full width
      (random weights from a seed) serving 8 requests under
      ``policy("ff_reduce", attention="pallas")``, with the kernels' launch
      counts read around that run; then 4 requests under ``ff_math=True``
      with ``ff.use(silu="pallas")`` (``ff_math`` launched once per layer
      of every prefill and decode step) and again with the jnp silu (the
-     same greedy tokens); then one more decode step with every row full
-     under ``torch.profiler``, for the device-busy share;
-  7. training: a reduced granite-3-2b trained 2 steps on the card against
+     same greedy tokens); then guarded serving, 4 requests: under
+     ``guard="check"`` the ``guard="off"`` tokens with every guard count
+     0 and ``probe_kv`` equal through the kernel and the jnp impl; under
+     ``guard="degrade"`` with NaN written into 2 live K/V positions of
+     slot 0, the kernel probe counting 2, slot 0 ``DEGRADED`` with the
+     fast-policy ``greedy_generate`` tokens, ``OK`` rows with the check
+     run's, the ``ff_guard`` launches read around it; then one more
+     decode step with every row full under ``torch.profiler``, for the
+     device-busy share;
+  8. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
      the sequence-chunked loss; then, with the serving engine freed,
      granite-3-2b at full width (random weights from a seed) trained 4
@@ -64,7 +82,7 @@ Phases (any failed check raises, so the script exits non-zero):
      those steps; then one more step under ``torch.profiler``; the serving
      and training runs launch none of the fused-composite kernels, nor
      (but for the ``ff_math`` run) this slice's;
-  8. timing: each kernel, its plain version and a PyTorch yardstick with
+  9. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -78,6 +96,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -517,7 +536,7 @@ def phase_matmul_checks(torch):
 def launch_fns():
     """Every kernel's wrapper, by the name the launch counts use."""
     from repro_torch.kernels import (ff_attention, ff_elementwise, ff_fused,
-                                     ff_math, ff_reduce)
+                                     ff_guard, ff_math, ff_reduce)
     from repro_torch.kernels import ff_matmul as km
     return {"mean_sq": ff_fused.mean_sq,
             "attention": ff_attention.flash_attention_pallas,
@@ -528,7 +547,8 @@ def launch_fns():
             "ff_program": ff_fused.run_program,
             "ff_elementwise": ff_elementwise.elementwise,
             "ff_rowsum": ff_reduce.ff_rowsum,
-            "ff_math": ff_math.math_elementwise}
+            "ff_math": ff_math.math_elementwise,
+            "ff_guard": ff_guard.guard_flags}
 
 
 def launch_counts():
@@ -1653,6 +1673,340 @@ def phase_ops(torch, clock_hz):
     return tune_launches, default_launches, worst, rows
 
 
+# ---------------------------------------------------------------------------
+# the guard: guard_flags, the add/sub/mul gradients, guarded serving
+
+GUARD_ENGINE = dict(max_batch=4, page_size=16, max_ctx=128)
+GUARD_REQUESTS, GUARD_MAX_NEW = 4, 6
+GUARD_OPS = 7            # f32 ops an element: multiply, compare, 3 selects,
+                         # 2 adds (the integer bit tests not counted)
+GUARD_BYTES = 12         # hi and lo read, the code written
+
+
+def pool_plane(cfg):
+    """The full-width KV pool flattened as the guard probe reads it: (L x
+    pages x page_size, KV x hd) at GUARD_ENGINE."""
+    pages = GUARD_ENGINE["max_batch"] * -(-GUARD_ENGINE["max_ctx"]
+                                          // GUARD_ENGINE["page_size"])
+    return (cfg.num_layers * pages * GUARD_ENGINE["page_size"],
+            cfg.num_kv_heads * cfg.resolved_head_dim)
+
+
+# (hi, lo, IEEE code) of the adversarial classes: NaN and Inf in each limb,
+# subnormal lo of both signs, signed zeros, the 2^-24 boundary and the next
+# float above it, |hi| below 2^-102 (a subnormal bound), hi = 0 beside a
+# subnormal lo (6 here, 4 under the reference's XLA:CPU)
+TINY = 1e-40
+GUARD_CLASSES = (
+    (math.nan, 0.0, 1), (0.0, math.nan, 1), (math.inf, 0.0, 1),
+    (0.0, -math.inf, 1), (-math.inf, math.nan, 1), (math.nan, TINY, 1),
+    (1.0, TINY, 4), (1.0, -TINY, 4), (-2.0, TINY, 4),
+    (0.0, 0.0, 0), (0.0, -0.0, 0), (-0.0, -0.0, 0), (5.0, -0.0, 0),
+    (3.0, 3.0 * 2.0 ** -24, 0), (3.0, 3.0 * 2.0 ** -24 + 2.0 ** -46, 2),
+    (1.0, 2.0 ** -24, 0), (1.0, 2.0 ** -23, 2),
+    (2.0 ** -110, 0.0, 0), (2.0 ** -110, 2.0 ** -120, 2),
+    (2.0 ** -110, TINY, 6), (0.0, TINY, 6), (0.0, -TINY, 6),
+    (0.0, 1e-3, 2), (TINY, 0.0, 0))
+
+
+def guard_operands(torch, g, shape):
+    """(hi, lo) on the card: normal pairs around the 2^-24 surrogate, the
+    first lanes overwritten with GUARD_CLASSES (where they fit)."""
+    hi = torch.randn(shape, generator=g, device="cuda") * 10.0 ** (
+        torch.rand(shape, generator=g, device="cuda") * 6 - 3)
+    lo = hi * 2.0 ** -24 * torch.rand(shape, generator=g, device="cuda") * 2
+    n = min(len(GUARD_CLASSES), hi.numel())
+    cls = torch.tensor([c[:2] for c in GUARD_CLASSES[:n]], device="cuda")
+    hi.view(-1)[:n], lo.view(-1)[:n] = cls[:, 0], cls[:, 1]
+    return hi, lo
+
+
+def grad_bits(torch, ff, op, impl, a, b, w):
+    """The gradient limbs of ``(r.hi * w[0] + r.lo * w[1]).sum()`` for
+    ``r = ff.<op>(a, b, impl=impl)``; a and b are f32 tensors or (hi, lo)
+    pairs, fresh leaves each call."""
+    from repro_torch.core.ff import FF
+    leaves, args = [], []
+    for x in (a, b):
+        if isinstance(x, tuple):
+            ls = [t.detach().clone().requires_grad_() for t in x]
+            args.append(FF(*ls))
+        else:
+            ls = [x.detach().clone().requires_grad_()]
+            args.append(ls[0])
+        leaves += ls
+    r = getattr(ff, op)(*args, impl=impl)
+    (r.hi * w[0] + r.lo * w[1]).sum().backward()
+    return [t.grad for t in leaves]
+
+
+def phase_guard_checks(torch, cfg):
+    """``guard_flags`` against its plain version on the card, bit for bit,
+    at (3, 130), (4096, 4096) and the full-width pool plane, and against
+    the IEEE codes of the adversarial classes; ``guard_probe`` with
+    ``impl="pallas"`` and ``"jnp"`` giving the same counts; the ``ff.add``
+    / ``sub`` / ``mul`` gradients of the kernel tier (``impl="pallas"``,
+    one ``ff_elementwise`` launch a forward) bit for bit the plain tier's
+    for FF and f32 operands, full and broadcast, with the fault table's
+    2 and 2 b rows; ``ff.fused`` raising on a gradient-requiring operand.
+    Returns the largest kernel-vs-plain difference (0: bit for bit)."""
+    import repro_torch.ff as ff
+    from repro_torch.kernels import ff_elementwise as ew
+    from repro_torch.kernels import ff_guard as fg
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    want_cls = torch.tensor([float(c[2]) for c in GUARD_CLASSES],
+                            device="cuda")
+    for shape in ((3, 130), (4096, 4096), pool_plane(cfg)):
+        hi, lo = guard_operands(torch, g, shape)
+        got = fg.guard_flags(hi, lo)
+        want = fg.guard_flags_plain(hi, lo)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"guard_flags {shape}: kernel != plain")
+        if not torch.equal(got.view(-1)[:len(GUARD_CLASSES)], want_cls):
+            raise AssertionError(f"guard_flags {shape}: adversarial codes "
+                                 f"{got.view(-1)[:len(GUARD_CLASSES)]}")
+        counts = {impl: [int(c) for c in ff.guard_probe(hi, lo, impl=impl)]
+                  for impl in ("pallas", "jnp")}
+        if counts["pallas"] != counts["jnp"]:
+            raise AssertionError(f"guard_probe {shape}: {counts}")
+        log(f"guard_flags {shape}: kernel == plain bit for bit, the "
+            f"{len(GUARD_CLASSES)} adversarial codes as IEEE gives them; "
+            f"guard_probe pallas == jnp {counts['jnp']}")
+        del hi, lo, got, want
+
+    R, C = 512, 2048
+    ah, bh = torch.randn((R, C), generator=g, device="cuda"), torch.randn(
+        (R, C), generator=g, device="cuda")
+    a = (ah, ah * 2.0 ** -25 * torch.rand((R, C), generator=g,
+                                          device="cuda"))
+    b = (bh, bh * 2.0 ** -25 * torch.rand((R, C), generator=g,
+                                          device="cuda"))
+    w = [torch.randn((R, C), generator=g, device="cuda") for _ in range(2)]
+    n_cases = 0
+    for op in ("add", "sub", "mul"):
+        for x, y in ((a, b), (a, bh), (ah, b), (a, (b[0][0], b[1][0])),
+                     (ah[:, :1], b)):
+            grads = {}
+            for impl in ("jnp", "pallas"):
+                n0 = ew.elementwise.launches
+                grads[impl] = grad_bits(torch, ff, op, impl, x, y, w)
+                n = ew.elementwise.launches - n0
+                if n != (impl == "pallas"):
+                    raise AssertionError(f"{op} grad ({impl}): {n} "
+                                         f"elementwise launches")
+            torch.cuda.synchronize()
+            for p, q in zip(grads["pallas"], grads["jnp"]):
+                if not (p.shape == q.shape and same_nan(p, q)):
+                    raise AssertionError(f"{op} grad: kernel tier != plain "
+                                         f"tier")
+            n_cases += 1
+    for op, want in (("add", lambda bb: torch.full_like(bb, 2.0)),
+                     ("mul", lambda bb: 2.0 * bb)):
+        for impl in ("jnp", "pallas"):
+            ones = [torch.ones_like(ah), torch.ones_like(ah)]
+            d_hi, d_lo, _ = grad_bits(torch, ff, op, impl, a, bh, ones)
+            if not (torch.equal(d_hi, want(bh)) and not d_lo.any()):
+                raise AssertionError(f"{op} ({impl}): d/d a = ({d_hi}, "
+                                     f"{d_lo}), want (2{'b' * (op == 'mul')},"
+                                     f" 0)")
+    axpy = ff.fused(lambda s, x, y: s * x + y)
+    try:
+        axpy(1.5, ah, bh.detach().clone().requires_grad_())
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("ff.fused ran on a gradient-requiring operand")
+    log(f"add/sub/mul gradients: kernel tier == plain tier bit for bit in "
+        f"{n_cases} cases (FF and f32 operands, full and broadcast, "
+        f"{(R, C)}), d/d a = (2, 0) and (2 b, 0); ff.fused raises on a "
+        f"gradient-requiring CUDA operand")
+    del a, b, ah, bh, w
+    torch.cuda.synchronize()
+    return 0.0
+
+
+def flip_block_table(kv, slot, mode, rng):
+    """Corrupt one live block-table entry of ``slot`` (the draws of the
+    reference's ``ChaosMonkey.flip_block_table``): ``"oob"`` a page id past
+    the pool, ``"dup"`` another live slot's page, ``"free"`` a page on the
+    free list."""
+    idx = int(rng.integers(kv.pages_for(int(kv.seq_lens[slot]))))
+    if mode == "oob":
+        new = kv.num_pages + int(rng.integers(1, 9))
+    elif mode == "dup":
+        pages = [int(p) for s in range(kv.max_seqs) if s != slot
+                 for p in kv.block_table[s][:kv.pages_for(int(kv.seq_lens[s]))]
+                 if int(p) >= 0]
+        new = pages[int(rng.integers(len(pages)))]
+    else:
+        new = int(kv.free_pages[int(rng.integers(len(kv.free_pages)))])
+    kv.block_table[slot, idx] = new
+
+
+def poison_kv(kv, slot, n, rng):
+    """NaN in ``n`` distinct live K/V positions of ``slot`` (the draws of
+    the reference's ``ChaosMonkey.corrupt_kv_limbs``, repeated until
+    distinct).  Returns their (plane, layer, position, head, dim)."""
+    live, ps = int(kv.seq_lens[slot]), kv.page_size
+    coords = []
+    while len(coords) < n:
+        c = (("k", "v")[rng.integers(2)], int(rng.integers(kv.num_layers)),
+             int(rng.integers(live)), int(rng.integers(kv.num_kv_heads)),
+             int(rng.integers(kv.head_dim)))
+        if c in coords:
+            continue
+        base, layer, pos, head, dim = c
+        page = int(kv.block_table[slot, pos // ps])
+        kv.planes[base][layer, page, pos % ps, head, dim] = float("nan")
+        coords.append(c)
+    return coords
+
+
+def phase_serve_guard(torch, params, cfg):
+    """granite-3-2b at full width under ``policy("ff_reduce",
+    attention="pallas")``, GUARD_REQUESTS requests: (1) ``guard="check"``,
+    healthy: every status OK, the tokens of the same requests under
+    ``guard="off"``, every guard count 0, ``probe_kv()`` with the kernel
+    (``ff.use(guard_probe="pallas")``) equal to the jnp impl's; (2)
+    ``guard="degrade"`` with NaN written into 2 live K/V positions of slot
+    0 after one step: the kernel probe counts exactly 2 non-finite, every
+    request ends terminal, slot 0's DEGRADED; each DEGRADED row's tokens
+    are ``greedy_generate`` on the card under the engine's fast policy,
+    each OK row's those of run (1).  Returns the launch counts of the
+    check and degrade runs."""
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train.serve_step import greedy_generate
+    t0 = time.perf_counter()
+    reqs = serve_requests(np.random.default_rng(SEED + 5),
+                          cfg.vocab_size)[:GUARD_REQUESTS]
+
+    runs = {}
+
+    def serve(guard, inject=None):
+        with ff.policy("ff_reduce", attention="pallas"):
+            eng = ServeEngine(params, cfg, guard=guard, **GUARD_ENGINE)
+        t = time.perf_counter()
+        for r in reqs:
+            if eng.submit(Request(uid=r.uid, prompt=r.prompt,
+                                  max_new=GUARD_MAX_NEW)) != "QUEUED":
+                raise AssertionError(f"guarded serving: {r.uid} not queued")
+        if inject is not None:
+            eng.step()
+            inject(eng)
+        res = eng.run()
+        torch.cuda.synchronize()
+        # host clock: each prefill and decode step ends in a sync; the
+        # degrade run's wall includes the poison, its probe and the retries
+        runs[guard] = {"wall_s": time.perf_counter() - t,
+                       "prefills": len(eng.prefill_s),
+                       "decode_steps": eng.decode_steps,
+                       "prefill_ms": 1e3 * float(np.mean(eng.prefill_s)),
+                       "decode_step_ms": 1e3 * float(np.mean(eng.decode_s))}
+        return eng, res
+
+    off = serve("off")[1]
+    reset_launch_counts()
+    eng, checked = serve("check")
+    with ff.use(guard_probe="pallas"):
+        probe_k = [int(c) for c in eng.probe_kv()]
+    probe_j = [int(c) for c in eng.probe_kv()]
+    stats = dict(eng.guard_stats)
+    del eng
+    for r in reqs:
+        a, b = checked[r.uid], off[r.uid]
+        if a.status != "OK" or not np.array_equal(a.tokens, b.tokens):
+            raise AssertionError(f"guard=check uid {r.uid}: {a.status} "
+                                 f"{a.tokens} vs guard=off {b.tokens}")
+    if any(stats.values()) or probe_k != probe_j or any(probe_k[:2]):
+        raise AssertionError(f"guard=check: stats {stats}, probe_kv "
+                             f"kernel {probe_k} jnp {probe_j}")
+    log(f"guard=check at full width: {len(reqs)} requests OK, tokens == "
+        f"guard=off, guard_stats all 0; probe_kv kernel == jnp {probe_k}")
+
+    seen = {}
+
+    def inject(eng):
+        seen["coords"] = poison_kv(eng.kv, 0, 2, np.random.default_rng(
+            SEED + 6))
+        with ff.use(guard_probe="pallas"):
+            seen["probe"] = [int(c) for c in eng.probe_kv()]
+
+    eng, res = serve("degrade", inject)
+    launches = launch_counts()
+    stats, fast = dict(eng.guard_stats), eng._fast_policy()
+    slot0 = reqs[0].uid
+    # the whole-pool probe, host clock (it ends in the counts' sync)
+    with ff.use(guard_probe="pallas"):
+        probe_ms = {"pallas": host_ms(eng.probe_kv, 3)}
+    probe_ms["jnp"] = host_ms(eng.probe_kv, 3)
+    del eng
+    if seen["probe"][0] != 2:
+        raise AssertionError(f"poisoned pool: probe_kv {seen['probe']}")
+    statuses = {u: r.status for u, r in res.items()}
+    if sorted(res) != sorted(r.uid for r in reqs) or res[slot0].status \
+            != "DEGRADED" or not set(statuses.values()) <= {"OK",
+                                                             "DEGRADED"}:
+        raise AssertionError(f"guard=degrade: statuses {statuses}")
+    for r in reqs:
+        out = res[r.uid]
+        if out.status == "DEGRADED":
+            prompt = torch.as_tensor(r.prompt[None], dtype=torch.long,
+                                     device="cuda")
+            want = greedy_generate(params, cfg, prompt, GUARD_MAX_NEW,
+                                   cache_len=len(r.prompt) + GUARD_MAX_NEW,
+                                   policy=fast)[0].cpu().numpy()
+        else:
+            want = checked[r.uid].tokens
+        if not np.array_equal(out.tokens, want):
+            raise AssertionError(f"guard=degrade uid {r.uid} "
+                                 f"({out.status}): {out.tokens} != {want}")
+    if stats["quarantined"] < 1 or stats["flagged_rows"] < 1:
+        raise AssertionError(f"guard=degrade: guard_stats {stats}")
+    if launches["ff_guard"] < 2:
+        raise AssertionError(f"guarded serving launched ff_guard "
+                             f"{launches['ff_guard']} times")
+    wall = time.perf_counter() - t0
+    log(f"guarded serving runs: {json.dumps(runs)}; probe_kv host ms per "
+        f"call: {json.dumps(probe_ms)}")
+    log(f"guard=degrade at full width: NaN at {seen['coords']}, kernel "
+        f"probe {seen['probe']}; statuses {statuses}; DEGRADED tokens == "
+        f"greedy_generate under the fast policy, OK tokens == guard=check; "
+        f"guard_stats {stats}; launches {launches}; phase wall "
+        f"{wall:.1f} s")
+    return launches
+
+
+def guard_timing(torch, cfg, counts, err, clock_hz):
+    """The guard_flags kernel at (4096, 4096) and at the full-width pool
+    plane: kernel ms by CUDA-graph replay, the call's ms, the plain
+    version's ms, the bound.  No single PyTorch call computes the flag
+    plane, so there is no library time."""
+    from repro_torch.kernels import ff_guard as fg
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    rows = []
+    for shape in ((4096, 4096), pool_plane(cfg)):
+        hi, lo = guard_operands(torch, g, shape)
+        n = hi.numel()
+        rows.append(dict(shape=list(shape), **time_kernel(
+            lambda: fg.guard_flags(hi, lo), lambda: fg.guard_flags(hi, lo),
+            cuda_ms(lambda: fg.guard_flags_plain(hi, lo), 5), None,
+            GUARD_BYTES * n, GUARD_OPS * n, F32_LANES * clock_hz, 50)))
+        del hi, lo
+    for r in rows:
+        log(f"ff_guard {r['shape']}: kernel {r['ms']:.4f} ms (call "
+            f"{r['call_ms']:.4f}), plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library none")
+    return dict(name="ff_guard", route="cuda",
+                source="src/repro_torch/csrc/ff_guard.cu",
+                replaces="src/repro/kernels/ff_guard.py:79", **counts,
+                max_abs_err=err, **{k: rows[0][k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}, by_shape=rows)
+
+
 def serve_requests(rng, vocab: int):
     import numpy as np
     from repro_torch.serve import Request
@@ -1702,6 +2056,38 @@ def phase_small_engine(torch):
                                  f"card vs CPU {err:.2e} > 1e-4")
     log(f"reduced engine (2 layers, f32): card == CPU tokens for "
         f"{len(prompts)} requests")
+
+    # guard="degrade" with one block-table flip of slot 1 after one step,
+    # the same flip on both devices: the audit quarantines the untrusted
+    # rows (DEGRADED, the fast-tier retry) and rebuilds the free list
+    for mode in ("oob", "free", "dup"):
+        results, stats = {}, {}
+        for dev in ("cuda", "cpu"):
+            with ff.policy("ff_reduce", attention="pallas"):
+                eng = ServeEngine(to_device(params, dev), cfg, device=dev,
+                                  max_batch=2, page_size=16, max_ctx=64,
+                                  guard="degrade")
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new=4))
+            eng.step()
+            flip_block_table(eng.kv, 1, mode, np.random.default_rng(SEED + 7))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", ff.FFGuardWarning)
+                results[dev] = eng.run()
+            stats[dev] = dict(eng.guard_stats)
+            if eng.kv.check_integrity() != ([], set()) \
+                    or stats[dev]["integrity_rebuilds"] < 1:
+                raise AssertionError(f"{mode} flip on {dev}: {stats[dev]}, "
+                                     f"{eng.kv.check_integrity()}")
+        got = {u: (r.status, r.tokens.tolist())
+               for u, r in results["cuda"].items()}
+        want = {u: (r.status, r.tokens.tolist())
+                for u, r in results["cpu"].items()}
+        if got != want or "DEGRADED" not in {v[0] for v in got.values()}:
+            raise AssertionError(f"{mode} flip: card {got} vs CPU {want}")
+        log(f"reduced engine, guard=degrade, {mode} block-table flip: card "
+            f"== CPU statuses and tokens {[v[0] for v in got.values()]}; "
+            f"guard_stats {stats['cuda']}; metadata clean afterwards")
 
 
 def phase_serve(torch, card: str):
@@ -2263,9 +2649,16 @@ def main() -> int:
                                                           clock_mhz * 1e6)
     tune_launches, default_launches, ops_worst, ops_rows = phase_ops(
         torch, clock_mhz * 1e6)
+    from repro_torch.configs.granite_3_2b import CONFIG
+    guard_err = phase_guard_checks(torch, CONFIG)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_small_engine(torch)
     serve_launches, cfg, eng = phase_serve(torch, card)
     ff_math_launches = phase_serve_ff_math(torch, eng.params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    guard_launches = phase_serve_guard(torch, eng.params, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     phase_decode_profile(torch, eng, cfg)
@@ -2281,11 +2674,16 @@ def main() -> int:
     launches = {"serve": serve_launches, "train": train_launches,
                 "matmul": matmul_launches, "table": table_launches,
                 "tune": tune_launches, "default_calls": default_launches,
-                "serve_ff_math": ff_math_launches}
+                "serve_ff_math": ff_math_launches,
+                "serve_guard": guard_launches}
     kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
                + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
                + fused_kernel_entries(launches, fused_worst, fused_rows)
-               + ops_kernel_entries(launches, ops_worst, ops_rows))
+               + ops_kernel_entries(launches, ops_worst, ops_rows)
+               + [guard_timing(torch, cfg, path_counts(launches, "ff_guard"),
+                               guard_err, clock_mhz * 1e6)])
+    if len(kernels) != len(launch_fns()):
+        raise AssertionError(f"{len(kernels)} kernel entries")
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")
     torch.cuda.synchronize()
     print(card)

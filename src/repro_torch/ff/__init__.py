@@ -20,11 +20,16 @@
     with ff.policy("ff_full", matmul="ozaki"):
         C = ff.matmul(A, B)
 
-``sum``, ``logsumexp``, ``mean_sq``, ``matmul`` and ``attention`` carry
-their reference gradients (:mod:`repro_torch.ff.autodiff`); ``softmax``,
-``norm_stats``, ``div``, ``sqrt``, ``two_sum``, ``two_prod`` and the
-``ff.math`` functions are forward only; ``add``, ``sub``, ``mul`` and
-``fused`` have no gradient.
+    with ff.guard(mode="degrade") as g:      # count, repair, degrade
+        y = ff.log(x)
+    ff.guard_probe(x, impl="pallas")         # GuardCounts, one CUDA kernel
+
+``add``, ``sub``, ``mul``, ``sum``, ``logsumexp``, ``mean_sq``, ``matmul``
+and ``attention`` carry their reference gradients
+(:mod:`repro_torch.ff.autodiff`); ``softmax``, ``norm_stats``, ``div``,
+``sqrt``, ``two_sum``, ``two_prod``, the ``ff.math`` functions and
+``fused`` are forward only and raise on an input that requires a
+gradient.
 """
 
 from repro_torch.core.ff import FF
@@ -36,7 +41,11 @@ from repro_torch.ff.dispatch import (adamw_update, add, attention, div,
                                      resolve_opts, softmax, sqrt, sub, sum,
                                      two_prod, two_sum)
 from repro_torch.ff.fusion import fused
-from repro_torch.ff.guard import FFTuneWarning
+from repro_torch.ff.guard import (FFError, FFGuardWarning, FFNonFiniteError,
+                                  FFNormalizationError, FFResourceError,
+                                  FFTuneWarning, GuardCounts, assert_healthy,
+                                  current_guard, guard, guard_probe,
+                                  health_mask)
 from repro_torch.ff.math import (erf, exp, expm1, gelu, log, log1p, pow,
                                  sigmoid, silu, tanh)
 from repro_torch.ff.scope import current_policy, policy, resolve_policy, use
@@ -48,9 +57,12 @@ def to_f32(x):
     return x.to_f32() if isinstance(x, FF) else x
 
 
-__all__ = ["FF", "FFTuneWarning", "PrecisionPolicy",
-           "adamw_update", "add", "attention", "current_policy", "div",
-           "erf", "exp", "expm1", "fused", "fusion", "gelu", "impls", "log",
+__all__ = ["FF", "FFError", "FFGuardWarning", "FFNonFiniteError",
+           "FFNormalizationError", "FFResourceError", "FFTuneWarning",
+           "GuardCounts", "PrecisionPolicy", "adamw_update", "add",
+           "assert_healthy", "attention", "current_guard", "current_policy",
+           "div", "erf", "exp", "expm1", "fused", "fusion", "gelu", "guard",
+           "guard_probe", "health_mask", "impls", "log",
            "log1p", "logsumexp", "math", "matmul", "mean_sq", "mul",
            "norm_stats", "ops", "policy", "pow", "resolve_name",
            "resolve_opts", "resolve_policy", "sigmoid", "silu", "softmax",

@@ -19,7 +19,7 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.ff import FF, add12, add22
+from repro_torch.core.ff import FF, add12, add22, mul22, mul212
 from repro_torch.core.ffmatmul import _dot_f32
 from repro_torch.ff import tuning
 from repro_torch.kernels.ff_attention import flash_attention_fast
@@ -195,6 +195,72 @@ class Matmul(torch.autograd.Function):
             db = mm_any(ctx.base, _t(_operand(a_hi, a_lo)), gv)
             grads[2], grads[3] = db.hi, (None if b_lo is None else db.lo)
         return tuple(grads)
+
+
+def _limb_pair(x: Union[FF, Tensor]) -> Tuple[Tensor, Optional[Tensor]]:
+    return (x.hi, x.lo) if isinstance(x, FF) else (x, None)
+
+
+def broadcast2(a: Union[FF, Tensor], b: Union[FF, Tensor]):
+    """Both operands' limbs expanded to their broadcast shape, outside the
+    Functions, so that autograd sums the gradient over the broadcast
+    dimensions (``_broadcast2``).  Returns (a_hi, a_lo, b_hi, b_lo), a
+    ``lo`` None for an f32 operand."""
+    limbs = _limb_pair(a) + _limb_pair(b)
+    shape = torch.broadcast_shapes(limbs[0].shape, limbs[2].shape)
+    return tuple(t if t is None or t.shape == shape else t.expand(shape)
+                 for t in limbs)
+
+
+def _ff_mul_any(g: FF, x: Union[FF, Tensor]) -> FF:
+    return mul22(g, x) if isinstance(x, FF) else mul212(g, x)
+
+
+class Add(torch.autograd.Function):
+    """``ff.add`` (and ``sub``) -> FF limbs (hi, lo), each operand an f32
+    tensor (``lo`` None) or an FF pair of one shape.  Backward
+    (``repro/ff/autodiff.py:109-120``): the normalised FF cotangent ``gv =
+    Add12(g.hi, g.lo)`` to both operands, both limbs to an FF operand and
+    the hi limb to an f32 one."""
+
+    @staticmethod
+    def forward(ctx, a_hi: Tensor, a_lo: Optional[Tensor], b_hi: Tensor,
+                b_lo: Optional[Tensor], fn: Callable
+                ) -> Tuple[Tensor, Tensor]:
+        ctx.ff = (a_lo is not None, b_lo is not None)
+        r = fn(_operand(a_hi, a_lo), _operand(b_hi, b_lo))
+        return r.hi, r.lo
+
+    @staticmethod
+    def backward(ctx, g_hi: Tensor, g_lo: Tensor):
+        gv = add12(g_hi, g_lo)
+        a_ff, b_ff = ctx.ff
+        return (gv.hi, gv.lo if a_ff else None, gv.hi,
+                gv.lo if b_ff else None, None)
+
+
+class Mul(torch.autograd.Function):
+    """``ff.mul`` -> FF limbs (hi, lo).  Backward (``repro/ff/autodiff.py:
+    123-141``): with ``gv = Add12(g.hi, g.lo)``, ``gv * b`` to ``a`` and
+    ``gv * a`` to ``b`` (Mul22 by an FF operand, Mul212 by an f32 one),
+    both limbs to an FF operand and the hi limb to an f32 one."""
+
+    @staticmethod
+    def forward(ctx, a_hi: Tensor, a_lo: Optional[Tensor], b_hi: Tensor,
+                b_lo: Optional[Tensor], fn: Callable
+                ) -> Tuple[Tensor, Tensor]:
+        ctx.save_for_backward(a_hi, a_lo, b_hi, b_lo)
+        r = fn(_operand(a_hi, a_lo), _operand(b_hi, b_lo))
+        return r.hi, r.lo
+
+    @staticmethod
+    def backward(ctx, g_hi: Tensor, g_lo: Tensor):
+        a_hi, a_lo, b_hi, b_lo = ctx.saved_tensors
+        gv = add12(g_hi, g_lo)
+        da = _ff_mul_any(gv, _operand(b_hi, b_lo))
+        db = _ff_mul_any(gv, _operand(a_hi, a_lo))
+        return (da.hi, None if a_lo is None else da.lo, db.hi,
+                None if b_lo is None else db.lo, None)
 
 
 def needs_grad(*xs: Optional[Tensor]) -> bool:

@@ -12,14 +12,17 @@ Each op name maps to named implementations; a call resolves one:
       > per-device default ("cuda" / "cpu", else "*")
       > first registered implementation
 
+and then, inside an ``ff.guard(mode="degrade")`` scope that has recorded
+a violation of the op, ``guard.maybe_degrade`` swaps an accurate-class
+name for the op's fast class (source ``"guard_degraded"``).
+
 The tuning table (:mod:`repro_torch.ff.tuning`, ``ff.tune``) is keyed by
 the call's device where the reference keys it by JAX backend; a winner
 this build does not register falls through to the static default.
 ``resolve_opts`` gives the tuned block config of a resolved impl, which
 the calls merge under their explicit options.  Each resolution is
 counted in ``RESOLUTIONS`` by (op, impl, source, device, bucket), the
-reference's resolution telemetry.  Mesh and guard resolution are not
-ported yet.
+reference's resolution telemetry.  Mesh resolution is not ported yet.
 
 Implementation names are the reference's, so one policy string means the
 same in both packages: ``"pallas"`` (``"pallas_*"`` for matmul and sum)
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import importlib
 import warnings
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -72,7 +76,7 @@ _ACCURATE_FALLBACK: Dict[str, Tuple[str, ...]] = {
 # (op, impl, source, device, shape bucket) -> resolutions: which rule
 # picked each call's impl ("explicit", "scope", "policy", "tuned",
 # "tuned_accurate", "accurate_fallback", "tuned_default",
-# "static_default", "first_registered")
+# "static_default", "first_registered", "guard_degraded")
 RESOLUTIONS: collections.Counter = collections.Counter()
 
 
@@ -135,6 +139,12 @@ def resolve_name(op: str, impl: Optional[str] = None, device=None,
     if name not in _REGISTRY[op]:
         raise KeyError(f"ff op {op!r} has no implementation {name!r}; "
                        f"available: {impls(op)}")
+    # the guard scope's final say: inside ff.guard(mode="degrade"), an op
+    # with a recorded violation drops one accuracy class
+    final = importlib.import_module("repro_torch.ff.guard").maybe_degrade(
+        op, name)
+    if final != name:
+        name, src = final, "guard_degraded"
     RESOLUTIONS[(op, name, src, dev,
                  tuning.bucket_key(shape) if shape else "")] += 1
     return name
@@ -703,11 +713,19 @@ def _forward_only(op: str, *xs) -> None:
             f"item 3): call it on a tensor that needs no gradient")
 
 
+def _binary(grad_fn, fn: Callable, a, b) -> FF:
+    """``fn(a, b)``, through the autograd Function ``grad_fn`` when an
+    operand needs a gradient (its limbs broadcast outside the Function)."""
+    if not autodiff.needs_grad(*_limbs(a), *_limbs(b)):
+        return fn(a, b)
+    return FF(*grad_fn.apply(*autodiff.broadcast2(a, b), fn))
+
+
 def add(a, b, *, impl: Optional[str] = None, **opts) -> FF:
     """FF addition (paper Add22; Add212 where one operand is f32).
-    Accepts FF or f32 operands; no gradient."""
+    Accepts FF or f32 operands; differentiable (``autodiff.Add``)."""
     fn, (a, b) = _ew_call("add", impl, opts, a, b)
-    return fn(a, b)
+    return _binary(autodiff.Add, fn, a, b)
 
 
 def sub(a, b, *, impl: Optional[str] = None, **opts) -> FF:
@@ -718,9 +736,9 @@ def sub(a, b, *, impl: Optional[str] = None, **opts) -> FF:
 
 def mul(a, b, *, impl: Optional[str] = None, **opts) -> FF:
     """FF multiplication (paper Mul22; Mul212 where one operand is f32).
-    Accepts FF or f32 operands; no gradient."""
+    Accepts FF or f32 operands; differentiable (``autodiff.Mul``)."""
     fn, (a, b) = _ew_call("mul", impl, opts, a, b)
-    return fn(a, b)
+    return _binary(autodiff.Mul, fn, a, b)
 
 
 def div(a, b, *, impl: Optional[str] = None, **opts) -> FF:

@@ -27,7 +27,8 @@ reference's: ``+ - * /``, ``sqrt``, ``neg``, ``fma``, ``scale``,
 keep the f32 builtins), ``tanh``/``sigmoid`` (FF; f32 nodes are lifted),
 ``.hi``/``.lo``, ``pack``, and at most one trailing ``.sum()`` per output
 (f32-valued nodes only).  A fused callable is a forward kernel with no
-gradient.
+gradient, as in the reference (which has no rule for it): on either device
+an operand that requires a gradient raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -434,15 +435,22 @@ class FusedFn:
         """Trace the wrapped fn over ``operands`` and run it fused.
 
         ``operands``: positional leaves — ``FF``, f32 tensor, or scalar;
-        each is classified per call.  On CUDA operands: one launch of the
-        Program kernel (raises if it cannot launch); on CPU operands:
-        :func:`run_torch`.  Returns the wrapped fn's structure with FF for
-        ff-typed nodes and rowsums, f32 tensors otherwise.  The kernel
+        each is classified per call; one that requires a gradient raises.
+        On CUDA operands: one launch of the Program kernel (raises if it
+        cannot launch); on CPU operands: :func:`run_torch`.  Returns the
+        wrapped fn's structure with FF for ff-typed nodes and rowsums,
+        f32 tensors otherwise.  The kernel
         matches :func:`run_torch` bit for bit on elementwise chains and to
         the final rounding on rowsums (the lane order differs from
         ``ff_sum_blocked``'s fold)."""
         from repro_torch.kernels import ff_fused
 
+        if torch.is_grad_enabled() and any(
+                isinstance(t, Tensor) and t.requires_grad for x in operands
+                for t in ((x.hi, x.lo) if isinstance(x, FF) else (x,))):
+            raise NotImplementedError(
+                f"ff.fused({self.__name__}) has no gradient (nor has the "
+                f"reference's): call it on operands that need none")
         kinds = tuple(_classify(x) for x in operands)
         prog, multi = trace(self._fn, kinds)
         if operand_device(operands).type == "cpu":
@@ -464,5 +472,6 @@ def fused(fn: Callable) -> FusedFn:
     :func:`fma`/:func:`scale`/:func:`pack`, limb views ``.hi``/``.lo``,
     and at most one trailing ``.sum()`` row reduction per output.  Returns
     a :class:`FusedFn`: one kernel launch on the card, the bitwise
-    op-by-op replay on the CPU.  No gradient flows through it."""
+    op-by-op replay on the CPU.  Forward only: an operand that requires a
+    gradient raises on either device."""
     return FusedFn(fn)

@@ -14,9 +14,10 @@ Each function resolves per call like every other op: ``jnp`` (the
 default), ``pallas`` (the ``ff_math`` kernel), ``f64`` or ``fast``, by
 ``impl=``, an ``ff.use`` scope or the ``ff.tune`` table for the call's
 (device, (R, C) bucket).  Forward only: an input that requires a
-gradient raises (the FF gradients are not ported yet).  The reference
-routes each result through its ``ff.guard`` scope; the port has no guard
-scope yet, so ``_guard_protect`` is the identity.
+gradient raises (the FF gradients are not ported yet).  Each result
+passes through the ambient ``ff.guard`` scope (:func:`repro_torch.ff.
+guard.protect`): counted under ``check``, repaired and the op degraded
+one class under ``degrade``, untouched under ``off``.
 """
 
 from __future__ import annotations
@@ -25,22 +26,17 @@ from typing import Optional
 
 from repro_torch.core.ff import FF
 from repro_torch.ff import dispatch
+from repro_torch.ff.guard import protect
 
 UNARY = ("exp", "expm1", "log", "log1p", "tanh", "sigmoid", "erf", "gelu",
          "silu")
 __all__ = list(UNARY) + ["pow"]
 
 
-def _guard_protect(op: str, value: FF) -> FF:
-    """The ambient guard scope's check of an op result (identity: the
-    guard scope is not ported yet)."""
-    return value
-
-
 def _call(op: str, impl: Optional[str], opts: dict, *xs) -> FF:
     fn, xs = dispatch._ew_call(op, impl, opts, *xs)
     dispatch._forward_only(op, *xs)
-    return _guard_protect(op, fn(*xs))
+    return protect(op, fn(*xs))
 
 
 def exp(a, *, impl: Optional[str] = None, **opts) -> FF:

@@ -15,17 +15,32 @@ Scheduling model, as in the reference:
     feeding the per-row ``decode_attention``, argmax, and both scores
     (``token_logprob`` and the FF ``token_logprob_ff``);
   * after each step, rows that emitted EOS or reached ``max_new`` retire
-    (pages back to the free list) and waiting requests join.
+    (pages back to the free list) and waiting requests join;
+  * with ``guard="check"`` or ``"degrade"`` (or an ambient ``ff.guard``
+    scope), the decode step also returns a per-row health flag: non-finite
+    new K or V in any layer, a non-finite f32 score, or an FF score that
+    is non-finite or unnormalized.  A flagged row, or one whose prefill
+    score is non-finite, is quarantined: its pages are freed and the whole
+    request is retried on the fast f32 tier (``greedy_generate`` under
+    :meth:`ServeEngine._fast_policy`), ending ``DEGRADED``, or ``FAILED``
+    with its tokens withheld.  The paging metadata is audited
+    (:meth:`~repro_torch.serve.paged_kv.PagedKVCache.check_integrity`)
+    after every admission round and decode step: untrusted rows are
+    quarantined and the free list rebuilt.  The statuses are the
+    reference's, including its page-0 leak: a row's unused block-table
+    entries gather page 0, whose masked positions still reach ``p @ v``
+    (``0 * NaN``), so a NaN in page 0 flags every row.
 
-Not ported yet: guard probes, the journal, snapshot/restore, ``obs``,
-deadlines, ``reserve="prompt"`` (preemption) and ``sync_every`` (the port
-syncs the four (B,) result vectors after every step).
+Not ported yet: the journal, snapshot/restore, ``obs``, deadlines,
+``reserve="prompt"`` (preemption) and ``sync_every`` (the port syncs the
+five (B,) result vectors after every step).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -33,6 +48,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.ff.guard import (FFGuardWarning, GuardCounts, current_guard,
+                                  guard_probe, health_mask, report_violation)
 from repro_torch.ff.scope import resolve_policy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, decode_attention,
@@ -42,7 +59,8 @@ from repro_torch.models.model import (cast_params, check_supported,
                                       compute_dtype, init_cache, layer,
                                       prefill)
 from repro_torch.serve.paged_kv import PagedKVCache
-from repro_torch.train.serve_step import token_logprob, token_logprob_ff
+from repro_torch.train.serve_step import (greedy_generate, token_logprob,
+                                          token_logprob_ff)
 
 Tensor = torch.Tensor
 
@@ -50,9 +68,15 @@ Tensor = torch.Tensor
 OK = "OK"                  # ran to eos/max_new
 TIMEOUT = "TIMEOUT"        # deadline expired (deadlines not ported yet)
 REJECTED = "REJECTED"      # never admitted: bounded queue / impossible size
-DEGRADED = "DEGRADED"      # guard retry on the fast tier (not ported yet)
-FAILED = "FAILED"          # no result
+DEGRADED = "DEGRADED"      # guard quarantined the row; fast-tier retry OK
+FAILED = "FAILED"          # no healthy result on any tier
 STATUSES = (OK, TIMEOUT, REJECTED, DEGRADED, FAILED)
+
+#: the engine's guard and robustness event counts (``guard_stats``);
+#: ``preempted`` and ``snapshot_errors`` stay 0 until preemption and
+#: snapshots are ported
+GUARD_STAT_KEYS = ("flagged_rows", "quarantined", "preempted",
+                   "integrity_rebuilds", "snapshot_errors")
 
 
 class UnsupportedModelError(NotImplementedError):
@@ -113,7 +137,10 @@ class ServeEngine:
     ``max_ctx`` per-sequence ceiling (prompt + generated); ``num_pages``
     defaults to a full pool; ``eos_id`` enables per-sequence termination;
     ``kv_mode`` "bf16" (default) or "f32" page storage; ``max_queue``
-    bounds the wait queue.  The attention impl and the RMSNorm statistic
+    bounds the wait queue; ``guard`` ("off", "check" or "degrade"; None
+    inherits the ambient ``ff.guard`` mode at construction) switches the
+    per-step health probe, quarantine and the paging audit, counted in
+    ``guard_stats``.  The attention impl and the RMSNorm statistic
     follow the ambient ``ff.policy`` at construction.  ``device=None``
     means the CUDA card (raises without one); pass ``device="cpu"`` to run
     on the CPU.  ``params`` must lie on that device; the engine keeps one
@@ -127,8 +154,14 @@ class ServeEngine:
                  max_ctx: int = 256, num_pages: Optional[int] = None,
                  eos_id: Optional[int] = None, kv_mode: str = "bf16",
                  policy: Optional[PrecisionPolicy] = None,
-                 max_queue: Optional[int] = None, device=None):
+                 max_queue: Optional[int] = None,
+                 guard: Optional[str] = None, device=None):
         _check_cfg(cfg)
+        if guard is None:
+            guard = current_guard().mode
+        if guard not in ("off", "check", "degrade"):
+            raise ValueError(f"guard {guard!r}: 'off' | 'check' | 'degrade'")
+        self.guard_mode = guard
         self.device = resolve_device(device)
         self.cfg = cfg
         self.policy = resolve_policy(policy)
@@ -155,6 +188,8 @@ class ServeEngine:
         self._token_dev = torch.zeros((max_batch,), dtype=torch.long,
                                       device=self.device)
         self.decode_steps = 0
+        self.guard_stats: Dict[str, int] = dict.fromkeys(GUARD_STAT_KEYS, 0)
+        self._auditing = False
         self.prefill_s: List[float] = []
         self.decode_s: List[float] = []
 
@@ -163,25 +198,36 @@ class ServeEngine:
     def _decode(self, lens: np.ndarray, active: np.ndarray):
         """One token for every row.  lens: (B,) tokens already cached per
         row; active: (B,) bool.  Returns (next greedy token, its f32 score,
-        its FF score hi and lo), each (B,) on the device.  Per active row
-        the math is the dense decode body at that row's position."""
+        its FF score hi and lo, the guard flag), each (B,) on the device;
+        the flag is all False with the guard off.  Per active row the math
+        is the dense decode body at that row's position."""
         cfg, policy, kv, w = self.cfg, self.policy, self.kv, self._w
         dev, dt = self.device, compute_dtype(cfg)
         B = self.max_batch
         H, KVh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        ps, npg = kv.page_size, kv.max_pages
+        ps, npg, NP = kv.page_size, kv.max_pages, kv.num_pages
+        probe = self.guard_mode != "off"
         rows = np.nonzero(active)[0]
-        # the page/offset every active row writes its new K/V to; inactive
-        # rows write nothing (the reference scatters them to a drop page)
-        wpage = torch.as_tensor(kv.block_table[rows, lens[rows] // ps],
-                                dtype=torch.long, device=dev)
+        # the page/offset every active row writes its new K/V to.  Inactive
+        # rows write nothing, and neither does a row whose page id lies
+        # outside the pool (a corrupt block table, which the guard's audit
+        # repairs): the reference scatters both to a dropped page
+        # (``mode="drop"``, after numpy's wrap of a negative id)
+        wp = kv.block_table[rows, lens[rows] // ps].astype(np.int64)
+        wp = np.where(wp < 0, wp + NP, wp)
+        keep = (wp >= 0) & (wp < NP)
+        rows = rows[keep]
+        wpage = torch.as_tensor(wp[keep], dtype=torch.long, device=dev)
         woff = torch.as_tensor(lens[rows] % ps, dtype=torch.long, device=dev)
         rows_t = torch.as_tensor(rows, dtype=torch.long, device=dev)
-        # gather table (rows' unused entries read page 0: masked by lens)
-        gidx = torch.as_tensor(np.maximum(kv.block_table, 0),
+        # gather table: a row's unused entries (-1) read page 0, masked by
+        # lens; an id outside the pool clamps into it, as the reference's
+        # gather does
+        gidx = torch.as_tensor(np.clip(kv.block_table, 0, NP - 1),
                                dtype=torch.long, device=dev)
         lens_t = torch.as_tensor(lens, dtype=torch.int32, device=dev)
         posv = lens_t[:, None]
+        bad = torch.zeros((B,), dtype=torch.bool, device=dev)
 
         h = embed_apply(w["embed"], self._token_dev[:, None], dt)
         for i in range(cfg.num_layers):
@@ -194,6 +240,11 @@ class ServeEngine:
             v = (z @ ap["wv"]).reshape(B, 1, KVh, hd)
             q = apply_rope(q, posv, cfg.rope_theta)
             k = apply_rope(k, posv, cfg.rope_theta)
+            if probe:
+                # non-finite new K/V in this layer poisons the row's cache
+                # for every later step: flag it at the source
+                for new in (k, v):
+                    bad |= ~torch.isfinite(new.float()).flatten(1).all(1)
             gathered = {}
             for base, new in (("k", k), ("v", v)):
                 plane = kv.planes[base][i]           # (NP, ps, KV, hd) view
@@ -210,8 +261,13 @@ class ServeEngine:
         logits = unembed_apply(w["embed"], x, cfg,
                                ff_math=policy.ff_math)[:, 0]
         nxt = torch.argmax(logits, -1)
+        lp = token_logprob(logits, nxt, policy)
         lp_ff = token_logprob_ff(logits, nxt)
-        return nxt, token_logprob(logits, nxt, policy), lp_ff.hi, lp_ff.lo
+        if probe:
+            # score health: a non-finite f32 score, or an FF score pair
+            # that is non-finite or unnormalized
+            bad |= ~torch.isfinite(lp) | ~health_mask(lp_ff)
+        return nxt, lp, lp_ff.hi, lp_ff.lo, bad
 
     # -- request lifecycle -------------------------------------------------
 
@@ -237,7 +293,10 @@ class ServeEngine:
         return "QUEUED"
 
     def _admit(self) -> None:
-        """Join waiting requests into free rows while pages allow (FIFO)."""
+        """Join waiting requests into free rows while pages allow (FIFO).
+        Under a guard, a non-finite prefill score quarantines the row, and
+        an admission round ends with the paging audit."""
+        admitted = False
         while self.queue:
             req = self.queue[0]
             S = int(req.prompt.shape[0])
@@ -271,8 +330,14 @@ class ServeEngine:
                      "logprobs_ff": [(float(scores[1]), float(scores[2]))]}
             self._slots[slot] = state
             self._token_dev[slot] = tok
-            if self._finished(state):
+            admitted = True
+            if self.guard_mode != "off" and not (
+                    np.isfinite(scores[0]) and np.isfinite(scores[1])):
+                self._quarantine(slot, "non-finite prefill score")
+            elif self._finished(state):
                 self._retire(slot)
+        if admitted and self.guard_mode != "off":
+            self._audit_paging()
 
     def _finished(self, state: Dict[str, Any]) -> bool:
         if len(state["tokens"]) >= state["req"].max_new:
@@ -290,21 +355,114 @@ class ServeEngine:
         self.kv.free_slot(slot)
         self._slots[slot] = None
 
+    # -- the guard ----------------------------------------------------------
+
+    def _fast_policy(self) -> PrecisionPolicy:
+        """One accuracy class below the serving policy: fast f32 attention
+        and the f32 builtin transcendentals."""
+        return dataclasses.replace(self.policy, attention="fast",
+                                   ff_math=False)
+
+    def _quarantine(self, slot: int, why: str,
+                    trust_pages: bool = True) -> None:
+        """Evict a poisoned row and retry the whole request on the fast
+        tier (greedy decoding is deterministic, so the retry is the
+        request's fast-class answer).  A healthy retry ends ``DEGRADED``;
+        one that scores non-finite, or raises, ends ``FAILED`` with its
+        tokens withheld.  ``trust_pages=False`` drops the row's page ids
+        instead of freeing them (the caller rebuilds the free list)."""
+        state = self._slots[slot]
+        req = state["req"]
+        if trust_pages:
+            self.kv.free_slot(slot)
+        else:
+            self.kv.drop_slot(slot)
+        self._slots[slot] = None
+        self.guard_stats["quarantined"] += 1
+        report_violation("serve.decode", "nonfinite")
+        prompt = torch.as_tensor(np.asarray(req.prompt)[None],
+                                 dtype=torch.long, device=self.device)
+        try:
+            toks, lps = greedy_generate(
+                self._w, self.cfg, prompt, req.max_new,
+                cache_len=state["prompt_len"] + req.max_new,
+                policy=self._fast_policy(), return_logprobs=True,
+                eos_id=self.eos_id)
+        except Exception as e:   # a retry never takes the engine down
+            self.results[req.uid] = _empty_result(
+                req, FAILED, f"guard: {why}; fast-tier retry raised "
+                f"{type(e).__name__}: {e}")
+            return
+        toks = toks[0].cpu().numpy().astype(np.int32)
+        lps = lps[0].to(torch.float32).cpu().numpy()
+        if not np.all(np.isfinite(lps)):
+            self.results[req.uid] = _empty_result(
+                req, FAILED, f"guard: {why}; fast-tier retry still "
+                f"non-finite")
+            return
+        self.results[req.uid] = GenResult(
+            uid=req.uid, tokens=toks, logprobs=lps,
+            logprobs_ff=np.stack([lps, np.zeros_like(lps)], axis=1),
+            prompt_len=state["prompt_len"], status=DEGRADED,
+            detail=f"guard: {why}; retried on the fast tier")
+
+    def _audit_paging(self) -> None:
+        """The guard's audit of the paging metadata: quarantine every row
+        with an untrusted page list, then rebuild the free list."""
+        if self._auditing:
+            return
+        self._auditing = True
+        try:
+            problems, bad = self.kv.check_integrity()
+            if not problems:
+                return
+            warnings.warn("ServeEngine: paging metadata corrupt — "
+                          + "; ".join(problems[:4])
+                          + (f" (+{len(problems) - 4} more)"
+                             if len(problems) > 4 else ""),
+                          FFGuardWarning, stacklevel=2)
+            report_violation("serve.paging", "nonfinite", len(problems))
+            for slot in sorted(bad):
+                if self._slots[slot] is not None:
+                    self._quarantine(slot, "corrupt block table",
+                                     trust_pages=False)
+                else:
+                    self.kv.drop_slot(slot)
+            self.kv.rebuild_free_list()
+            self.guard_stats["integrity_rebuilds"] += 1
+        finally:
+            self._auditing = False
+
+    def probe_kv(self) -> GuardCounts:
+        """One :class:`~repro_torch.ff.guard.GuardCounts` over the whole
+        K and V pools (each plane read as f32 (hi, 0) pairs), through
+        ``guard_probe`` as resolved (``ff.use(guard_probe="pallas")``: the
+        ``guard_flags`` kernel).  A debug and chaos hook: the per-step
+        probe sees only the new K/V."""
+        tot = [0, 0, 0]
+        for base in ("k", "v"):
+            c = guard_probe(self.kv.planes[base].to(torch.float32))
+            tot = [t + int(n) for t, n in zip(tot, c)]
+        return GuardCounts(*(torch.tensor(t, dtype=torch.int32)
+                             for t in tot))
+
     def _step_decode(self) -> None:
-        """Advance every running row one token, sync the results, retire
-        finished rows."""
+        """Advance every running row one token, sync the results; under a
+        guard quarantine the flagged rows; retire finished rows; audit the
+        paging under a guard."""
         active = np.asarray([s is not None for s in self._slots])
         # tokens already cached: prompt + emitted - 1 (the latest token is
         # the step's input; the step writes its K/V)
         lens = np.asarray([s["prompt_len"] + len(s["tokens"]) - 1 if s
                            else 0 for s in self._slots], np.int32)
         t0 = time.perf_counter()
-        nxt, lp, lph, lpl = self._decode(lens, active)
+        nxt, lp, lph, lpl, bad = self._decode(lens, active)
         toks = nxt.cpu().numpy()
-        scores = torch.stack([lp, lph, lpl]).cpu().numpy()
+        scores = torch.stack([lp, lph, lpl, bad.to(lp.dtype)]).cpu().numpy()
         self.decode_s.append(time.perf_counter() - t0)
         self._token_dev = nxt
         self.decode_steps += 1
+        flagged = []
         for slot, state in enumerate(self._slots):
             if state is None:
                 continue
@@ -313,8 +471,16 @@ class ServeEngine:
             state["logprobs"].append(float(scores[0, slot]))
             state["logprobs_ff"].append((float(scores[1, slot]),
                                          float(scores[2, slot])))
-            if self._finished(state):
+            if scores[3, slot]:
+                flagged.append(slot)
+        self.guard_stats["flagged_rows"] += len(flagged)
+        for slot in flagged:
+            self._quarantine(slot, "per-step probe flagged the row")
+        for slot, state in enumerate(self._slots):
+            if state is not None and self._finished(state):
                 self._retire(slot)
+        if self.guard_mode != "off":
+            self._audit_paging()
 
     def step(self) -> bool:
         """One scheduler iteration: admit, decode one token for every

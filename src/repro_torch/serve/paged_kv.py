@@ -4,12 +4,14 @@
 
 KV lives in ``(L, num_pages, page_size, KV, hd)`` device tensors
 ("planes"), updated in place; the block table, lengths and free list are
-host-side numpy, as in the reference.
+host-side numpy, as in the reference, and so is their audit
+(:meth:`PagedKVCache.check_integrity`, ``drop_slot``,
+``rebuild_free_list``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Set, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +92,69 @@ class PagedKVCache:
         self.block_table[slot, :need] = ids
         self.seq_lens[slot] = length
         return ids
+
+    def check_integrity(self) -> Tuple[List[str], Set[int]]:
+        """Audit the host-side paging metadata (block table and free list).
+
+        Returns ``(problems, bad_slots)``: readable descriptions, and the
+        slots whose page lists can no longer be trusted (a page id out of
+        range, a page shared by two slots or with the free list, or a hole
+        below the live length).  A numpy scan of ``max_seqs * max_pages``
+        entries; the serve engine runs it per step under a guard and
+        decides what to do with the verdict."""
+        problems: List[str] = []
+        bad: Set[int] = set()
+        free = [int(p) for p in self.free_pages]
+        free_set = set(free)
+        if len(free_set) != len(free):
+            problems.append("free list contains duplicate page ids")
+        if any(not 0 <= p < self.num_pages for p in free_set):
+            problems.append("free list contains out-of-range page ids")
+        owner: Dict[int, int] = {}
+        for slot in range(self.max_seqs):
+            row = self.block_table[slot]
+            for pid in row:
+                pid = int(pid)
+                if pid == -1:
+                    continue
+                if not 0 <= pid < self.num_pages:
+                    problems.append(f"slot {slot}: page id {pid} out of "
+                                    f"range [0, {self.num_pages})")
+                    bad.add(slot)
+                    continue
+                if pid in free_set:
+                    problems.append(f"slot {slot}: page {pid} is also on "
+                                    f"the free list")
+                    bad.add(slot)
+                if pid in owner:
+                    problems.append(f"page {pid} referenced by slots "
+                                    f"{owner[pid]} and {slot}")
+                    bad.add(slot)
+                    bad.add(owner[pid])
+                else:
+                    owner[pid] = slot
+            live = self.pages_for(int(self.seq_lens[slot]))
+            if live and (row[:live] < 0).any():
+                problems.append(f"slot {slot}: missing page below live "
+                                f"length {int(self.seq_lens[slot])}")
+                bad.add(slot)
+        return problems, bad
+
+    def rebuild_free_list(self) -> None:
+        """Recompute the free list as every in-range page the block table
+        does not reference (the recovery after :meth:`check_integrity`
+        found corruption and the untrusted rows were cleared)."""
+        used = {int(p) for p in self.block_table.ravel()
+                if 0 <= int(p) < self.num_pages}
+        self.free_pages = [p for p in range(self.num_pages - 1, -1, -1)
+                           if p not in used]
+
+    def drop_slot(self, slot: int) -> None:
+        """Clear a slot's row WITHOUT returning its pages to the free list
+        (its page ids are untrusted): follow with
+        :meth:`rebuild_free_list` once every bad row is cleared."""
+        self.block_table[slot] = -1
+        self.seq_lens[slot] = 0
 
     def free_slot(self, slot: int) -> None:
         """Evict a sequence: return its pages to the free list (contents

@@ -41,7 +41,8 @@ new = {"repro_torch.core.ffmatmul", "repro_torch.kernels.ff_matmul",
        "repro_torch.kernels.ff_elementwise",
        "repro_torch.benchmarks.table_elementwise",
        "repro_torch.kernels.ff_reduce", "repro_torch.kernels.ff_math",
-       "repro_torch.ff.math", "repro_torch.ff.guard"}
+       "repro_torch.ff.math", "repro_torch.ff.guard",
+       "repro_torch.kernels.ff_guard"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
