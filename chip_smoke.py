@@ -37,13 +37,18 @@ Phases (any failed check raises, so the script exits non-zero):
   5. the paper's operators and ff.math: ``elementwise`` (Add22, Mul22,
      Div22, Sqrt22, TwoSum, TwoProd at scalar, row, column and full
      operands), ``ff_rowsum`` and ``math_elementwise`` (ten functions on
-     inputs that cover every branch) bit for bit their plain versions on
-     the card, and within their NUMERICS.md contracts of a float64
-     oracle; ``ff.tune`` for fifteen ops at four shapes into a temporary
-     sidecar (each bucket's µs per impl and its winners), with the launch
-     counts read around it; one call of each op with no ``impl=``,
+     inputs that cover every branch; erf and gelu also on the band-sorted
+     kernel's cases: bands interleaved, each band alone, ragged edges,
+     row and column planes) bit for bit their plain versions on the card,
+     and within their NUMERICS.md contracts of a float64 oracle; the
+     exact division by the erf series' integers against IEEE division for
+     every f32 dividend and each of the 68 divisors (0 mismatches);
+     ``ff.tune`` for fifteen ops at four shapes into a temporary sidecar
+     (each bucket's µs per impl and its winners), with the launch counts
+     read around it; one call of each op with no ``impl=``,
      resolving ``tuned_default`` and launching the winner's kernel; the
-     table cleared and the environment restored; each kernel timed;
+     table cleared and the environment restored; each kernel timed, erf
+     and gelu also on band-pure inputs;
   6. the guard: ``guard_flags`` bit for bit its plain version at
      (3, 130), (4096, 4096) and the full-width KV pool plane, with the
      IEEE codes of the adversarial limb classes (NaN and Inf in each
@@ -1204,6 +1209,10 @@ ERF_SMALL = MUL22 + 16 * (MUL22 + 2 * DIV22 + ADD22 + 2) + 2 * MUL22
 ERF_MID = MUL22 + 2 + 59 * (MUL22 + DIV22 + ADD22) + EXP22 + 3 * MUL22
 ERF_BIG = MUL22 + 1 + 24 + EXP22 + MUL212 + MUL22 + DIV22 + ADD212
 GELU_EXTRA = 2 * MUL22 + ADD212 + 5
+# the divisors of erf's series: n = 1..16, 2n + 1 = 3..119
+ERF_DIVISORS = list(range(1, 17)) + list(range(17, 120, 2))
+# erf's three bands of |x| (gelu's |x| / sqrt2), for band-pure timing rows
+ERF_BANDS = {"small": (0.0, 1.0), "mid": (1.0, 4.0), "big": (4.0, 8.0)}
 POW_OPS = LOG22_OPS + MUL22 + EXP22 + 6
 # NUMERICS.md's full-domain contracts of ff.math, with the ranges the CPU
 # tests sample (tests/test_torch_math.py)
@@ -1261,8 +1270,9 @@ def ff_limbs(torch, x64):
 
 def math_branch_inputs(torch, op, g):
     """Inputs on the card that cover each branch of ``op`` (erf's three
-    bands, log1p near and far, tanh's two forms, the identity bands, the
-    saturations, +-0, +-inf, nan) with normal limbs."""
+    bands, also interleaved element by element, log1p near and far,
+    tanh's two forms, the identity bands, the saturations, +-0, +-inf,
+    nan) with normal limbs."""
     def u(a, b, n=4096):
         return torch.rand(n, generator=g, device="cuda",
                           dtype=torch.float64) * (b - a) + a
@@ -1278,8 +1288,12 @@ def math_branch_inputs(torch, op, g):
                   tiny],
         "tanh": [u(-0.35, 0.35), u(-20, 20), tiny],
         "sigmoid": [u(-30, 30), u(-65, -30)],
-        "erf": [u(-1, 1), u(-4, 4), u(-8.2, 8.2), u(31, 1e6, 64)],
-        "gelu": [u(-1, 11.5), u(-8, -1), u(-0.5, 0.5)],
+        "erf": [u(-1, 1), u(-4, 4), u(-8.2, 8.2), u(31, 1e6, 64),
+                torch.stack([u(-1, 1, 2048), u(1, 4, 2048),
+                             u(4, 8.2, 2048)], -1).flatten()],
+        "gelu": [u(-1, 11.5), u(-8, -1), u(-0.5, 0.5),
+                 torch.stack([u(-1.4, 1.4, 2048), u(1.5, 5.6, 2048),
+                              u(5.7, 11.5, 2048)], -1).flatten()],
         "silu": [u(-30, 30), u(-65, 80)],
         "pow": [torch.exp(u(-3, 3))],
     }[op]
@@ -1293,6 +1307,41 @@ def math_branch_inputs(torch, op, g):
                          [-2.0, 0.0]], device="cuda")
     return (torch.cat([hi, edge[:, 0]]), torch.cat([lo, edge[:, 0] * 0]),
             torch.cat([bh, edge[:, 1]]), torch.cat([bl, edge[:, 1] * 0]))
+
+
+def band_schedule_inputs(torch, op, g):
+    """(name, planes) of erf or gelu for the band-sorted kernel, at
+    MATH_BIG: erf's argument (gelu's x / sqrt2) from the three bands
+    interleaved element by element, of either sign, with +-0, +-inf and
+    nan every 97th element; each band alone; ragged edges (a strided
+    (517, 8191) view, and (3, 130)); a row and a column operand plane."""
+    R, C = MATH_BIG
+    scale = 1.0 if op == "erf" else math.sqrt(2.0)
+
+    def band(b0, b1):
+        x = b0 + (b1 - b0) * (1.0 - torch.rand((R, C), generator=g,
+                                               device="cuda",
+                                               dtype=torch.float64))
+        neg = torch.rand((R, C), generator=g, device="cuda") < 0.5
+        return torch.where(neg, -x, x) * scale
+    parts = [band(b0, b1) for b0, b1 in ERF_BANDS.values()]
+    idx = torch.arange(R * C, device="cuda").reshape(R, C)
+    mixed = torch.where(idx % 3 == 0, parts[0],
+                        torch.where(idx % 3 == 1, parts[1], parts[2]))
+    spec = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan],
+                        device="cuda", dtype=torch.float64)
+    mixed = torch.where(idx % 97 == 0, spec[(idx // 97) % 5], mixed)
+    hi, lo = ff_limbs(torch, mixed)
+    cases = [("bands interleaved", (hi, lo))]
+    cases += [(f"{name} band alone", ff_limbs(torch, x))
+              for name, x in zip(ERF_BANDS, parts)]
+    cases += [("ragged strided (517, 8191)", (hi[:517, :8191],
+                                              lo[:517, :8191])),
+              ("ragged (3, 130)", (hi[:3, :130].contiguous(),
+                                   lo[:3, :130].contiguous())),
+              ("row lo plane", (hi, lo[:1])),
+              ("column hi plane", (hi[:, :1], lo))]
+    return cases
 
 
 def math_oracle(torch, op, x):
@@ -1311,7 +1360,8 @@ def phase_ops_checks(torch):
     and within its NUMERICS.md contract of a float64 oracle on the card:
     ``elementwise`` (six ops; scalar, row, column and full operands) at
     EW_SHAPES, ``ff_rowsum`` at ROWSUM_SHAPES, ``math_elementwise`` (ten
-    functions) on inputs that cover each branch and at (512, 8192).
+    functions) on inputs that cover each branch and at (512, 8192), erf
+    and gelu also on band_schedule_inputs; then int_division_check.
     Returns the largest kernel-vs-plain differences (0: bit for bit)."""
     from repro_torch.kernels import ff_elementwise as ew
     from repro_torch.kernels import ff_math as fm
@@ -1443,8 +1493,44 @@ def phase_ops_checks(torch):
             f"branch inputs, {MATH_BIG}); vs float64 2^"
             f"{math.log2(max(e, 1e-300)):.1f} (contract 2^"
             f"{math.log2(bound):.0f}{' x (1 + |b ln a|)' if op == 'pow' else ''})")
+    # erf and gelu: the band-sorted schedule, then the exact division
+    for op in ("erf", "gelu"):
+        for what, args in band_schedule_inputs(torch, op, g):
+            check("ff_math", f"{op} {what}", fm.math_elementwise(op, *args),
+                  fm.math_elementwise_plain(op, *args))
+        log(f"ff_math {op}: kernel == plain bit for bit on the band-sorted "
+            f"schedule's cases (bands interleaved with +-0/+-inf/nan, each "
+            f"band alone, ragged edges, row and column planes)")
+    int_division_check(torch)
     torch.cuda.synchronize()
     return worst
+
+
+def int_division_check(torch):
+    """ff_eft.cuh's exact division by the erf series' integers against
+    IEEE division on the card: div_int against __fdiv_rn and div22_int
+    against div22, for every f32 bit pattern as the dividend (hi; lo +-0
+    or a few ulps of hi) and each of the 68 divisors, each both as an
+    immediate and read at run time.  Both counts 0."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.entry("ff_math", "ff_math_div_check",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    bad = torch.zeros(2, dtype=torch.int64, device="cuda")
+    divisors = torch.tensor(ERF_DIVISORS, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    err = fn(bad.data_ptr(), divisors.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ff_math_div_check: CUDA error {err}")
+    torch.cuda.synchronize()
+    n_div, n_div22 = bad.tolist()
+    log(f"exact integer division: {n_div} div_int != __fdiv_rn and "
+        f"{n_div22} div22_int != div22 mismatches over 2^32 dividends x 68 "
+        f"divisors ({time.perf_counter() - t0:.1f} s)")
+    if n_div or n_div22:
+        raise AssertionError("the exact integer division differs from "
+                             "IEEE division")
 
 
 def tune_operands(torch, op, shape, g):
@@ -1625,9 +1711,29 @@ def phase_ops_timing(torch, clock_hz):
                 yard, nbytes, math_ops(op, h), peak_ops, iters),
                 library=f"float64 {op}"))
         del h, lo, ph, pl, x64, p64
+    # band-pure rows: erf's argument (gelu's x / sqrt2) uniform in one band
+    for op in ("erf", "gelu"):
+        scale = 1.0 if op == "erf" else math.sqrt(2.0)
+        f64_fn = f64[op] if op in f64 else getattr(torch, op)
+        for band, (b0, b1) in ERF_BANDS.items():
+            x = b0 + (b1 - b0) * (1.0 - torch.rand((R, C), generator=g,
+                                                   device="cuda",
+                                                   dtype=torch.float64))
+            h = (x * scale).float()
+            lo = h * 1e-8 * torch.randn((R, C), generator=g, device="cuda")
+            x64 = h.double() + lo.double()
+            rows["ff_math"].append(dict(op=op, band=band, shape=[R, C],
+                                        **time_kernel(
+                lambda: fm.math_elementwise(op, h, lo),
+                lambda: fm.math_elementwise(op, h, lo),
+                cuda_ms(lambda: fm.math_elementwise_plain(op, h, lo), 1),
+                lambda: f64_fn(x64), 16 * h.numel(), math_ops(op, h),
+                peak_ops, 3), library=f"float64 {op}"))
+            del x, h, lo, x64
     for name, recs in rows.items():
         for r in recs:
-            log(f"{name} {r.get('op', '')} {r['shape']}: kernel "
+            band = f" band {r['band']}" if "band" in r else ""
+            log(f"{name} {r.get('op', '')}{band} {r['shape']}: kernel "
                 f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}), plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms")

@@ -104,6 +104,144 @@ __device__ __forceinline__ ff2 div22(ff2 a, ff2 b) {
   return fast_two_sum(ch, cl);
 }
 
+// ---------------------------------------------------------------------------
+// Division by a small integer d (the erf series' n and 2n+1) without the
+// IEEE division: __fdiv_rn is a reciprocal on the SFU (MUFU), FMAs, a range
+// check (FCHK) and a branch to a slow path.  For odd d, with zh = RN(1/d)
+// from the table below,
+//
+//   q0 = RN(a zh),  r = a - q0 d (one FMA, exact),  q = RN(q0 + r zh)
+//
+// is RN(a / d): q0 + r zh = a/d + e delta with e = a/d - q0 and |delta| <=
+// 2^-24 (zh's error), so q is off a/d by ~2^-47 |a/d| (or ~2^-174 on the
+// subnormal grid), while a/d lies at least ulp/(2d) from every rounding
+// midpoint: a/d = A 2^j / d with A an integer, and a midpoint would need
+// A 2^(j+1) = d (2M + 1), impossible for odd d.  r is computed as
+// -(q0 d - a), so that a == -0 gives -0 (the FMA of opposite zeros is +0);
+// a == +-inf gives q0 = +-inf (kept), NaN stays NaN.  An even d = m 2^k
+// divides by m, then scales (div_int).  chip_smoke.py holds div_int and
+// div22_int against __fdiv_rn and div22 for every f32 dividend and every
+// divisor of the series; tests/test_torch_math_div.py emulates them
+// exactly.
+// ---------------------------------------------------------------------------
+
+constexpr int kDivLimit = 120;          // divisors 1 .. 119
+constexpr float kSplitSafe = 0x1p+100f;   // Dekker's split overflows ~2^116
+
+// RN(1/d) for d = 1 .. 119 (entry 0 unused)
+__constant__ float kRecip[kDivLimit] = {
+    0.0f, 0x1p+0f, 0x1p-1f, 0x1.555556p-2f, 0x1p-2f, 0x1.99999ap-3f,
+    0x1.555556p-3f, 0x1.24924ap-3f, 0x1p-3f, 0x1.c71c72p-4f, 0x1.99999ap-4f,
+    0x1.745d18p-4f, 0x1.555556p-4f, 0x1.3b13b2p-4f, 0x1.24924ap-4f,
+    0x1.111112p-4f, 0x1p-4f, 0x1.e1e1e2p-5f, 0x1.c71c72p-5f, 0x1.af286cp-5f,
+    0x1.99999ap-5f, 0x1.861862p-5f, 0x1.745d18p-5f, 0x1.642c86p-5f,
+    0x1.555556p-5f, 0x1.47ae14p-5f, 0x1.3b13b2p-5f, 0x1.2f684cp-5f,
+    0x1.24924ap-5f, 0x1.1a7b96p-5f, 0x1.111112p-5f, 0x1.08421p-5f, 0x1p-5f,
+    0x1.f07c2p-6f, 0x1.e1e1e2p-6f, 0x1.d41d42p-6f, 0x1.c71c72p-6f,
+    0x1.bacf92p-6f, 0x1.af286cp-6f, 0x1.a41a42p-6f, 0x1.99999ap-6f,
+    0x1.8f9c18p-6f, 0x1.861862p-6f, 0x1.7d05f4p-6f, 0x1.745d18p-6f,
+    0x1.6c16c2p-6f, 0x1.642c86p-6f, 0x1.5c9882p-6f, 0x1.555556p-6f,
+    0x1.4e5e0ap-6f, 0x1.47ae14p-6f, 0x1.414142p-6f, 0x1.3b13b2p-6f,
+    0x1.3521dp-6f, 0x1.2f684cp-6f, 0x1.29e412p-6f, 0x1.24924ap-6f,
+    0x1.1f7048p-6f, 0x1.1a7b96p-6f, 0x1.15b1e6p-6f, 0x1.111112p-6f,
+    0x1.0c9714p-6f, 0x1.08421p-6f, 0x1.041042p-6f, 0x1p-6f, 0x1.f81f82p-7f,
+    0x1.f07c2p-7f, 0x1.e9131ap-7f, 0x1.e1e1e2p-7f, 0x1.dae608p-7f,
+    0x1.d41d42p-7f, 0x1.cd8568p-7f, 0x1.c71c72p-7f, 0x1.c0e07p-7f,
+    0x1.bacf92p-7f, 0x1.b4e81cp-7f, 0x1.af286cp-7f, 0x1.a98ef6p-7f,
+    0x1.a41a42p-7f, 0x1.9ec8eap-7f, 0x1.99999ap-7f, 0x1.948b1p-7f,
+    0x1.8f9c18p-7f, 0x1.8acb9p-7f, 0x1.861862p-7f, 0x1.818182p-7f,
+    0x1.7d05f4p-7f, 0x1.78a4c8p-7f, 0x1.745d18p-7f, 0x1.702e06p-7f,
+    0x1.6c16c2p-7f, 0x1.681682p-7f, 0x1.642c86p-7f, 0x1.605816p-7f,
+    0x1.5c9882p-7f, 0x1.58ed24p-7f, 0x1.555556p-7f, 0x1.51d07ep-7f,
+    0x1.4e5e0ap-7f, 0x1.4afd6ap-7f, 0x1.47ae14p-7f, 0x1.446f86p-7f,
+    0x1.414142p-7f, 0x1.3e22ccp-7f, 0x1.3b13b2p-7f, 0x1.381382p-7f,
+    0x1.3521dp-7f, 0x1.323e34p-7f, 0x1.2f684cp-7f, 0x1.2c9fb4p-7f,
+    0x1.29e412p-7f, 0x1.27350cp-7f, 0x1.24924ap-7f, 0x1.21fb78p-7f,
+    0x1.1f7048p-7f, 0x1.1cf06ap-7f, 0x1.1a7b96p-7f, 0x1.181182p-7f,
+    0x1.15b1e6p-7f, 0x1.135c82p-7f};
+
+__device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
+
+// div22 itself for a dividend beyond kSplitSafe, out of line: it runs only
+// off the series' range, and inlined at each division of an unrolled
+// series it would double the kernel's code.
+__device__ __noinline__ ff2 div22_far(ff2 a, float d) {
+  return div22(a, {d, 0.0f});
+}
+
+// RN(a / d) for an odd integer d = df >= 3 with zh = kRecip[d] and every
+// f32 a: q0 + (a - q0 d) zh, keeping q0 = +-inf.  kFinite: for finite a
+// only, without that test.
+template <bool kFinite = false>
+__device__ __forceinline__ float div_odd(float a, float df, float zh) {
+  const float q0 = mul(a, zh);
+  const float q = __fmaf_rn(-__fmaf_rn(q0, df, -a), zh, q0);
+  return kFinite || fabsf(q0) != inf32() ? q : q0;
+}
+
+// RN(a / d) for an integer 1 <= d < kDivLimit and every f32 a.  With
+// d = m 2^k (m odd): a itself for d = 1, an exact multiply for m = 1,
+// div_odd for k = 0; else q = RN(q1 2^-k) of q1 = RN(a/m).  That second
+// rounding is exact unless q is subnormal, and no float lies strictly
+// between q1 and a/m, so q is RN(a/d) unless q1 2^-k is exactly a
+// midpoint of the subnormal grid (e = q1 - q 2^k = +-2^(k-150)) while a/m
+// is not q1: then RN(a/d) is the neighbour on a/m's side, the sign of
+// r1 = a - q1 m.  The tests on d fold away where d is a constant (an
+// unrolled loop).  kFinite: for finite a only.
+template <bool kFinite = false>
+__device__ __forceinline__ float div_int(float a, int d) {
+  if (d == 1) return a;
+  const int k = __ffs(d) - 1, m = d >> k;
+  const float scale = kRecip[1 << k];                       // 2^-k
+  if (m == 1) return mul(a, scale);
+  const float mf = static_cast<float>(m);
+  const float q1 = div_odd<kFinite>(a, mf, kRecip[m]);
+  if (k == 0) return q1;
+  const float q = mul(q1, scale);
+  const float e = __fmaf_rn(-q, static_cast<float>(1 << k), q1);
+  if (fabsf(e) == __int_as_float(1 << (k - 1))) {           // 2^(k-150)
+    const float r1 = -__fmaf_rn(q1, mf, -a);
+    if (r1 != 0.0f && (r1 > 0.0f) == (e > 0.0f))
+      return __fmaf_rn(e, 2.0f * scale, q);
+  }
+  return q;
+}
+
+// div22(a, {d, 0}) bit for bit, `div` an exact x -> RN(x / d) for both of
+// its divisions: the same quotient ch, then t = two_prod_fma(ch, d).
+// Dekker's two_prod(ch, d) has the same exact value below kSplitSafe (d
+// needs 7 bits, so no partial product rounds); only a zero t.lo may
+// differ in sign.  x1 = a.hi - t.hi is never -0 (a.hi == -0 gives t.hi ==
+// -0), so x2 = x1 - t.lo is the same for either zero and never -0, x3 =
+// x2 + a.lo is never -0, and div22's x3 - ch * b.lo (b.lo = 0, ch finite)
+// is x3: that step is dropped.  Beyond kSplitSafe (and for inf or NaN) it
+// is div22 itself.  kBounded: for finite limbs with |a.hi| < kSplitSafe
+// only (erf's series on normalised arguments), without those tests.
+template <bool kBounded, typename Div>
+__device__ __forceinline__ ff2 div22_by(ff2 a, float df, Div div) {
+  const float ch = div(a.hi);
+  if (!kBounded && !(fabsf(ch) < kSplitSafe)) return div22_far(a, df);
+  const ff2 t = two_prod_fma(ch, df);
+  const float cl = div(add(sub(sub(a.hi, t.hi), t.lo), a.lo));
+  return fast_two_sum(ch, cl);
+}
+
+// div22(a, {d, 0}) for an integer 1 <= d < kDivLimit.
+template <bool kBounded = false>
+__device__ __forceinline__ ff2 div22_int(ff2 a, int d) {
+  return div22_by<kBounded>(a, static_cast<float>(d), [=](float x) {
+    return div_int<kBounded>(x, d);
+  });
+}
+
+// div22(a, {d, 0}) for an odd d = df >= 3, zh = kRecip[d].
+template <bool kBounded = false>
+__device__ __forceinline__ ff2 div22_odd(ff2 a, float df, float zh) {
+  return div22_by<kBounded>(a, df, [=](float x) {
+    return div_odd<kBounded>(x, df, zh);
+  });
+}
+
 // FF square root: one Newton correction of the correctly rounded f32 root.
 __device__ __forceinline__ ff2 sqrt22(ff2 a) {
   float ch = __fsqrt_rn(a.hi);
@@ -183,8 +321,6 @@ __device__ __forceinline__ ff2 fold_lanes(const LaneSum& ln, float* sh) {
 // The reference evaluates every branch and selects with jnp.where; these
 // branch, and return the value its selection picks.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float inf32() { return __int_as_float(0x7f800000); }
 
 constexpr float kExpClipLo = -105.0f, kExpClipHi = 89.0f;
 constexpr float kIdentity = 0x1p-45f;   // f(x) == x at FF precision below
@@ -405,31 +541,43 @@ __device__ __forceinline__ ff2 log1p22(float xh, float xl) {
 constexpr float kTwoOverSqrtPiH = 0x1.20dd76p+0f, kTwoOverSqrtPiL =
     -0x1.f7ac92p-25f;
 
+constexpr int kErfAltTerms = 17;   // n = 1..16 after the n = 0 seed
+constexpr int kErfPosTerms = 60;   // n = 1..59 after the n = 0 seed
+
 // erf on |x| <= 1: the alternating Maclaurin sum (2/sqrt pi) x sum_n
-// (-1)^n (x^2)^n / (n! (2n+1)), every term update in FF.
-__device__ __noinline__ ff2 erf_small(float xh, float xl) {
+// (-1)^n (x^2)^n / (n! (2n+1)), every term update in FF; each division by
+// n and by 2n+1 an exact div22_int.  kBounded: |xl| <= |xh|, so every
+// term stays below 2^4 (see erf22).
+template <bool kBounded>
+__device__ __forceinline__ ff2 erf_small(float xh, float xl) {
   ff2 x = {xh, xl};
   ff2 z = mul22(x, x);
   ff2 u = {1.0f, 0.0f}, a = {1.0f, 0.0f};
-  for (int n = 1; n < 17; ++n) {
+#pragma unroll
+  for (int n = 1; n < kErfAltTerms; ++n) {
     u = mul22(u, z);
-    u = div22(u, {static_cast<float>(n), 0.0f});          // z^n / n!
-    ff2 t = div22(u, {static_cast<float>(2 * n + 1), 0.0f});
+    u = div22_int<kBounded>(u, n);                        // z^n / n!
+    ff2 t = div22_int<kBounded>(u, 2 * n + 1);
     a = add22(a, (n & 1) ? ff2{-t.hi, -t.lo} : t);
   }
   return mul22(mul22(x, a), {kTwoOverSqrtPiH, kTwoOverSqrtPiL});
 }
 
 // erf on 1 < x <= 4: the positive (Kummer) series (2x/sqrt pi) e^{-x^2}
-// sum_n (2x^2)^n / (2n+1)!!.
-__device__ __noinline__ ff2 erf_mid(float axh, float axl) {
+// sum_n (2x^2)^n / (2n+1)!!; each division by 2n+1 an exact div22_odd.
+// kBounded: |axl| <= axh, so every term stays below 2^85 (see erf22).
+template <bool kBounded>
+__device__ __forceinline__ ff2 erf_mid(float axh, float axl) {
   ff2 ax = {axh, axl};
   ff2 z = mul22(ax, ax);
   ff2 v = {mul(2.0f, z.hi), mul(2.0f, z.lo)};    // exact
   ff2 t = {1.0f, 0.0f}, a = {1.0f, 0.0f};
-  for (int n = 1; n < 60; ++n) {
+  float d = 1.0f;
+#pragma unroll 4
+  for (int n = 1; n < kErfPosTerms; ++n) {
+    d = add(d, 2.0f);                                      // 2n + 1, exact
     t = mul22(t, v);
-    t = div22(t, {static_cast<float>(2 * n + 1), 0.0f});
+    t = div22_odd<kBounded>(t, d, kRecip[2 * n + 1]);
     a = add22(a, t);
   }
   ff2 e = exp22(-z.hi, -z.lo);
@@ -437,9 +585,17 @@ __device__ __noinline__ ff2 erf_mid(float axh, float axl) {
   return mul22(g, {kTwoOverSqrtPiH, kTwoOverSqrtPiL});
 }
 
+// The series for any limbs (a lo limb larger than hi), out of line.
+__device__ __noinline__ ff2 erf_small_any(float xh, float xl) {
+  return erf_small<false>(xh, xl);
+}
+__device__ __noinline__ ff2 erf_mid_any(float axh, float axl) {
+  return erf_mid<false>(axh, axl);
+}
+
 // erf on x > 4: 1 - e^{-x^2} A(w) / (x sqrt pi), w = 1/(2x^2), A the
 // asymptotic erfc series by an f32 Horner.
-__device__ __noinline__ ff2 erf_big(float axh, float axl) {
+__device__ __forceinline__ ff2 erf_big(float axh, float axl) {
   const float ASY[13] = {0x1p+0f, -0x1p+0f, 0x1.8p+1f, -0x1.ep+3f,
                          0x1.a4p+6f, -0x1.d88p+9f, 0x1.44d8p+13f,
                          -0x1.07ef8p+17f, 0x1.eee11p+20f, -0x1.06e79p+25f,
@@ -468,9 +624,25 @@ __device__ __forceinline__ ff2 erf22(float xh, float xl) {
   float axh = mul(sgn, xh), axl = mul(sgn, xl);
   if (axh > 30.0f) axl = 0.0f;
   axh = fminf(axh, 30.0f);
-  if (axh <= 1.0f) return erf_small(xh, xl);   // odd: sign built in
-  ff2 r = axh <= 4.0f ? erf_mid(axh, axl) : erf_big(axh, axl);
+  // |xl| <= |xh| (a normalised argument) bounds every term of the series:
+  // |x| <= 2 on the small band, <= 8 on the mid band
+  const bool bounded = fabsf(xl) <= fabsf(xh);
+  if (axh <= 1.0f)                                // odd: sign built in
+    return bounded ? erf_small<true>(xh, xl) : erf_small_any(xh, xl);
+  ff2 r = axh > 4.0f ? erf_big(axh, axl)
+                     : (bounded ? erf_mid<true>(axh, axl)
+                                : erf_mid_any(axh, axl));
   return {mul(sgn, r.hi), mul(sgn, r.lo)};
+}
+
+// The bands of erf22 and gelu22, in the order the ff_math kernel runs them
+// (the costliest first): which series an argument takes.
+enum ErfBand : int { kErfMid, kErfSmall, kErfBig, kErfRest, kErfBands };
+
+__device__ __forceinline__ int erf_band(float xh) {
+  const float a = fabsf(xh);
+  if (!(a > 0.0f)) return kErfRest;               // nan, +-0
+  return a <= 1.0f ? kErfSmall : (a <= 4.0f ? kErfMid : kErfBig);
 }
 
 // FF exact-form GELU, 0.5 x (1 + erf(x / sqrt2)); gelu(+-0) = +-0,
@@ -484,6 +656,12 @@ __device__ __forceinline__ ff2 gelu22(float xh, float xl) {
   ff2 o = add212(erf22(v.hi, v.lo), 1.0f);
   ff2 r = mul22(x, o);
   return {mul(0.5f, r.hi), mul(0.5f, r.lo)};               // exact
+}
+
+// erf_band of gelu22's erf argument x / sqrt2; its rails in kErfRest.
+__device__ __forceinline__ int gelu_band(float xh, float xl) {
+  if (xh == 0.0f || fabsf(xh) == inf32()) return kErfRest;
+  return erf_band(mul22({xh, xl}, {0x1.6a09e6p-1f, 0x1.9fcef4p-27f}).hi);
 }
 
 // FF SiLU, x * sigmoid(x), with gelu22's rules at +-0 and +-inf.

@@ -177,8 +177,12 @@ def test_cuda_constants_match_port():
     assert f32(port_math._INV_SQRT2) <= floats("ff2 gelu22(")
     assert f32(port_math._LOG1P_NEAR) <= floats("ff2 log1p22(")
     assert "fminf(axh, 30.0f)" in src and port_math._ERF_CLAMP == 30.0
-    assert "n < 17" in src and port_math._ERF_ALT_TERMS == 17
-    assert "n < 60" in src and port_math._ERF_POS_TERMS == 60
+    # the series' term counts (n = 1..16 and 1..59 after the n = 0 seed):
+    # compile-time constants that bound the unrolled terms
+    assert "kErfAltTerms = 17;" in src and "n < kErfAltTerms" in src
+    assert port_math._ERF_ALT_TERMS == 17
+    assert "kErfPosTerms = 60;" in src and "n < kErfPosTerms" in src
+    assert port_math._ERF_POS_TERMS == 60
 
 
 # -- the f64 and fast tiers ----------------------------------------------------
