@@ -19,11 +19,16 @@ Phases (any failed check raises, so the script exits non-zero):
      and bit for bit on integer operands, hybrid and Dot2 bit for bit on
      transposed views) and within each one's bound of a float64 GEMM on
      the card, at the CPU tests' shapes and granite-3-2b's (512 tokens
-     through w_gate, w_down and the unembedding); then
+     through w_gate, w_down and the unembedding); the Ozaki kernel (its
+     SASS must hold HGMMA) also bit for bit on budget-edge integers at
+     beta 8 and 12 (and equal to float64), at beta 9-11, slices=5,
+     block_k=300 and 2^+-40 rows and columns, with the outputs of tiny
+     rows outside its bit contract counted; then
      ``repro_torch.ff.matmul`` at those three shapes through every impl,
      the ``policy(matmul=...)`` route, an FF operand and a forward and
      backward per kernel impl, with the launch counts read around that
-     run; each kernel timed there; the ``table_ffmatmul`` matrix;
+     run; each kernel timed there (the Ozaki call also part by part);
+     the ``table_ffmatmul`` matrix;
   4. the fused-composite path: ``ff_softmax`` (both modes, both
      classes), ``ff_norm_stats`` and the ``ff.fusion`` Program kernel
      against their plain versions on the card (bit for bit; the fast
@@ -43,8 +48,9 @@ Phases (any failed check raises, so the script exits non-zero):
      and within their NUMERICS.md contracts of a float64 oracle; the
      exact division by the erf series' integers against IEEE division for
      every f32 dividend and each of the 68 divisors (0 mismatches);
-     ``ff.tune`` for fifteen ops at four shapes into a temporary sidecar
-     (each bucket's µs per impl and its winners), with the launch counts
+     ``ff.tune`` for fifteen ops at four shapes and for matmul at (512,
+     2048, 8192) into a temporary sidecar (each bucket's µs per impl and
+     its winners), with the launch counts
      read around it; one call of each op with no ``impl=``,
      resolving ``tuned_default`` and launching the winner's kernel; the
      table cleared and the environment restored; each kernel timed, erf
@@ -98,6 +104,8 @@ outside a checkout, the script exits non-zero and prints no result.
 import gc
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -153,6 +161,7 @@ U32 = 2.0 ** -24
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak memory rate
 F32_LANES = 132 * 128            # SMs x f32 lanes; one instruction / cycle
+TC_F16_FLOPS = 132 * 4096        # SMs x dense fp16 tensor-core FLOP / cycle
 
 
 def attention_ops(B, Sq, Skv, H, hd, causal, bf16, scale) -> int:
@@ -324,6 +333,16 @@ def phase_build(torch):
         info = [ln.strip() for ln in (out / f"lib{name}.log").read_text()
                 .splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: " + " | ".join(info))
+    # the Ozaki kernel's pair products run on the tensor cores
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    sass = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass",
+                           str(out / "libff_matmul_ozaki.so")],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    log(f"  ff_matmul_ozaki: {hgmma} HGMMA instructions in its SASS")
+    if not hgmma:
+        raise AssertionError("ff_matmul_ozaki.cu compiled without HGMMA")
 
 
 def phase_kernel_checks(torch):
@@ -435,7 +454,7 @@ def ozaki_error_split(torch, A, B, exact, scale):
     pa, ra = ffmatmul.extract_slices(A, 1, n, beta)
     pb, rb = ffmatmul.extract_slices(B, 0, n, beta)
     pairs = km.ozaki_pairs(n, max_order)
-    oh, ol = km.ozaki_accumulate(torch.stack(pa), torch.stack(pb), pairs, bk)
+    oh, ol = km.ozaki_accumulate(km.ozaki_operands(A, B, n, beta, bk), pairs)
     kept = sum(pa[i].double() @ sum(pb[j].double() for i2, j in pairs
                                     if i2 == i)
                for i in sorted({i for i, _ in pairs}))
@@ -451,6 +470,106 @@ def ozaki_error_split(torch, A, B, exact, scale):
              "final_fold": fh.double() + fl.double() - acc - res.double()}
     return {k: math.log2(max(float((v.abs() / scale).max()), 2.0 ** -80))
             for k, v in parts.items()}
+
+
+def ozaki_flagged(torch, A, B, slices=0, bk=512):
+    """Outputs outside the Ozaki kernel's bit contract: a row or column
+    with a flushed slice (``2^g`` below 2^-149: ``_sigma`` flushed, the
+    slice is the unrounded remainder) or a kept pair whose products' quantum
+    ``2^(ga + gb)`` is below 2^-149 (the plain version's f32 products round
+    there).  Returns the (M, N) mask."""
+    from repro_torch.core import ffmatmul
+    from repro_torch.kernels import ff_matmul as km
+    n, beta, bk, max_order = ffmatmul.ozaki_params(
+        A.shape[1], slices=slices, block_k=bk)
+    ops = km.ozaki_operands(A, B, n, beta, bk)
+    flag = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.bool,
+                       device=A.device)
+    for i, j in km.ozaki_pairs(n, max_order):
+        ga, gb = ops.ga[i][:, None], ops.gb[j][None, :]
+        flag |= (ga < -149) | (gb < -149) | (ga + gb < -149)
+    return flag
+
+
+def phase_ozaki_cases(torch):
+    """The Ozaki kernel bit for bit its plain version on the inputs where
+    its integer form is at an edge: budget-edge operands (every slice
+    integer 2^(beta-1), one sign, or alternating signs with positive
+    products) at beta 8 (bk 512) and 12 (K = 2), also equal to float64
+    (the tensor cores' f32 sums of those integers exact); beta 9, 10, 11
+    (K = 100, 64, 16); slices=5 and 9; block_k=300 on K = 1000 (a K-block edge
+    inside a K tile of the plain K); rows of A and columns of B spread over
+    2^+-40; and rows near 2^-100..2^-120 (slices below the normal range,
+    ``ozaki_flagged``), where the mismatching outputs are counted and must
+    all be flagged.  Returns the largest kernel-vs-plain difference."""
+    from repro_torch.kernels import ff_matmul as km
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def ones(M, K, N, alternate):
+        A = torch.ones((M, K), device="cuda")
+        B = torch.ones((K, N), device="cuda")
+        if alternate:
+            A[:, 1::2] = -1.0
+            B[1::2, :] = -1.0
+        return A, B
+
+    def randn(M, K, N):
+        return (torch.randn((M, K), generator=g, device="cuda"),
+                torch.randn((K, N), generator=g, device="cuda"))
+
+    def pow2(shape, lo, hi):
+        return torch.randint(lo, hi + 1, shape, generator=g,
+                             device="cuda").float().exp2()
+
+    def spread(M, K, N):
+        A, B = randn(M, K, N)
+        return A * pow2((M, 1), -40, 40), B * pow2((1, N), -40, 40)
+
+    cases = [("budget edge beta 8, one sign", ones(256, 2048, 256, False),
+              {}),
+             ("budget edge beta 8, alternating", ones(256, 2048, 256, True),
+              {}),
+             ("budget edge beta 12 (K = 2), one sign", ones(256, 2, 256, False),
+              {}),
+             ("budget edge beta 12 (K = 2), alternating",
+              ones(256, 2, 256, True), {}),
+             ("beta 9 (K = 100)", randn(300, 100, 200), {}),
+             ("beta 10 (K = 64)", randn(300, 64, 200), {}),
+             ("beta 11 (K = 16)", randn(300, 16, 200), {}),
+             ("slices=5", randn(300, 1000, 200), {"slices": 5}),
+             # more slices than a block stages exponents for (kExpSlices)
+             ("slices=9", randn(300, 100, 200), {"slices": 9}),
+             ("block_k=300 on K = 1000", randn(300, 1000, 200), {"bk": 300}),
+             ("rows and columns over 2^+-40", spread(512, 2048, 1024), {})]
+    worst = 0.0
+    for what, (A, B), kw in cases:
+        got = km.ff_matmul_ozaki(A, B, **kw)
+        want = km.ff_matmul_ozaki_plain(A, B, **kw)
+        if not same_bits(got, want):
+            raise AssertionError(f"ozaki kernel != plain: {what}")
+        note = ""
+        if what.startswith("budget"):
+            if not torch.equal(got[0].double() + got[1].double(),
+                               A.double() @ B.double()):
+                raise AssertionError(f"ozaki not exact: {what}")
+            note = " and == float64"
+        worst = max(worst, float((got[0] - want[0]).abs().max()))
+        log(f"ozaki {what} {tuple(A.shape)} x {tuple(B.shape)}: kernel == "
+            f"plain bit for bit{note}")
+    # tiny rows: slices below the normal range, the FTZ policy's band
+    A, B = randn(512, 2048, 1024)
+    A[::2] *= pow2((256, 1), -120, -100)
+    got, want = km.ff_matmul_ozaki(A, B), km.ff_matmul_ozaki_plain(A, B)
+    bad = (got[0] != want[0]) | (got[1] != want[1])
+    flag = ozaki_flagged(torch, A, B)
+    log(f"ozaki rows near 2^-100..2^-120 (512, 2048, 1024): "
+        f"{int(flag.sum())} outputs outside the bit contract (a slice or a "
+        f"pair's quantum below 2^-149), {int(bad.sum())} differ from the "
+        f"plain version, {int((bad & ~flag).sum())} of them elsewhere")
+    if bool((bad & ~flag).any()):
+        raise AssertionError("ozaki kernel != plain outside the flagged "
+                             "outputs")
+    return worst
 
 
 def phase_matmul_checks(torch):
@@ -534,6 +653,7 @@ def phase_matmul_checks(torch):
         f"float64 bit for bit; lo non-zero in {carried} of "
         f"{got[1].numel()} outputs")
     del Ai, Bi, got, want
+    worst["ozaki"] = max(worst["ozaki"], phase_ozaki_cases(torch))
     torch.cuda.synchronize()
     return worst, plain_ms
 
@@ -668,21 +788,69 @@ def phase_matmul_path(torch):
     return launches
 
 
-def matmul_ops(name, M, K, N, npairs=0, nk=0, vec=8) -> int:
+def matmul_ops(name, M, K, N, nk=0, vec=8) -> int:
     """f32 instructions the kernel's function needs on these inputs (FMA
     counted once): hybrid M N K FMAs and one fold (Add212) per output and
-    K-block; Ozaki the same per kept pair; Dot2 per slab of vec products
-    each product's TwoProd and the add of its error, the tree's vec - 1
-    TwoSums, the adds of their errors and of each level's sum, the cascade
-    (two TwoSums, two adds), and per output the final Fast2Sum and add."""
+    K-block; Dot2 per slab of vec products each product's TwoProd and the
+    add of its error, the tree's vec - 1 TwoSums, the adds of their errors
+    and of each level's sum, the cascade (two TwoSums, two adds), and per
+    output the final Fast2Sum and add."""
     if name == "hybrid":
         return M * N * K + M * N * nk * ADD212
-    if name == "ozaki":
-        return npairs * (M * N * K + M * N * nk * ADD212)
     levels = (vec - 1).bit_length()                  # ceil(log2 vec)
     slab = (vec * (TWO_PROD + 1) + (vec - 1) * (TWO_SUM + 1) + levels
             + CASCADE + 1)
     return M * N * (-(-K // vec) * slab + 1 + FAST_TWO_SUM)
+
+
+def ozaki_bound(ops, M, K, N, npairs, clock_hz):
+    """The Ozaki kernel's least time on ``ozaki_operands``' outputs ``ops``,
+    s, and what sets it: the pair products, 2 npairs M N K FLOP on the
+    fp16 tensor cores; the fold, Add212 and its two scalings per output,
+    K-block and pair on the f32 lanes; or the bytes (the fp16 operands and
+    exponents read, both outputs written)."""
+    nkb = -(-K // ops.bk)
+    times = {"tensor cores": 2 * npairs * M * N * K / (TC_F16_FLOPS * clock_hz),
+             "fold": npairs * nkb * M * N * (ADD212 + 2) / (F32_LANES
+                                                            * clock_hz),
+             "bytes": (2 * (ops.qa.numel() + ops.qb.numel())
+                       + 4 * (ops.ga.numel() + ops.gb.numel())
+                       + 8 * M * N) / HBM_BYTES_PER_S}
+    what = max(times, key=times.get)
+    return times[what], what, times
+
+
+def ozaki_call_parts(torch, A, B):
+    """ms of each part of one ``ff_matmul_ozaki`` call: the slicing (both
+    operands' ``extract_slices``), ``ozaki_operands`` (the slicing
+    included), the kernel (CUDA-graph replay), the residual GEMM with its
+    concatenations, the final fold, and the whole call."""
+    from repro_torch.core import ffmatmul
+    from repro_torch.core import transforms as T
+    from repro_torch.kernels import ff_matmul as km
+    n, beta, bk, max_order = ffmatmul.ozaki_params(A.shape[1], block_k=512)
+    pairs = km.ozaki_pairs(n, max_order)
+    ops = km.ozaki_operands(A, B, n, beta, bk)
+    oh, ol = km.ozaki_accumulate(ops, pairs)
+
+    def residual():
+        return torch.matmul(torch.cat([ops.ra, A - ops.ra], 1),
+                            torch.cat([B, ops.rb], 0))
+
+    res = residual()
+
+    def final():
+        sh, sl = T.two_sum(oh, res)
+        return T.fast_two_sum(sh, sl + ol)
+
+    return {"slicing": cuda_ms(lambda: (ffmatmul.extract_slices(
+                A, 1, n, beta), ffmatmul.extract_slices(B, 0, n, beta)), 3),
+            "ozaki_operands": cuda_ms(
+                lambda: km.ozaki_operands(A, B, n, beta, bk), 3),
+            "kernel": graph_ms(lambda: km.ozaki_accumulate(ops, pairs), 3),
+            "residual_gemm": cuda_ms(residual, 3),
+            "final_fold": cuda_ms(final, 3),
+            "call": cuda_ms(lambda: km.ff_matmul_ozaki(A, B), 3)}
 
 
 def phase_matmul_timing(torch, plain_ms, clock_hz):
@@ -691,7 +859,8 @@ def phase_matmul_timing(torch, plain_ms, clock_hz):
     version's ms (phase_matmul_checks), the bound, and the PyTorch
     yardstick: an f32 torch.matmul (TF32 off) for hybrid, an f64
     torch.matmul on f64 copies (the same function at FF quality, before
-    its rounding to FF) for Ozaki and Dot2."""
+    its rounding to FF) for Ozaki and Dot2.  The Ozaki kernel runs on
+    ``ozaki_operands``' outputs; its call is also timed part by part."""
     from repro_torch.core import ffmatmul
     from repro_torch.kernels import ff_matmul as km
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -704,43 +873,52 @@ def phase_matmul_timing(torch, plain_ms, clock_hz):
         nk = -(-K // 512)
         n, beta, bk, max_order = ffmatmul.ozaki_params(K, block_k=512)
         pairs = km.ozaki_pairs(n, max_order)
-        pa, _ = ffmatmul.extract_slices(A, 1, n, beta)
-        pb, _ = ffmatmul.extract_slices(B, 0, n, beta)
-        As, Bs = torch.stack(pa), torch.stack(pb)
-        del pa, pb
+        ops = km.ozaki_operands(A, B, n, beta, bk)
         io = (M * K + K * N) * 4 + 2 * M * N * 4
+
+        def f32_bound(byts, count):
+            t_b, t_o = byts / HBM_BYTES_PER_S, count / peak_ops
+            return (max(t_b, t_o), "bytes" if t_b >= t_o else "f32 lanes",
+                    {"bytes": t_b, "f32 lanes": t_o})
+
         spec = {
             "hybrid": (lambda: km.ff_matmul(A, B),
-                       lambda: km.ff_matmul(A, B), io,
-                       matmul_ops("hybrid", M, K, N, nk=nk),
+                       lambda: km.ff_matmul(A, B),
+                       f32_bound(io, matmul_ops("hybrid", M, K, N, nk=nk)),
                        lambda: torch.matmul(A, B)),
-            "ozaki": (lambda: km.ozaki_accumulate(As, Bs, pairs, bk),
+            "ozaki": (lambda: km.ozaki_accumulate(ops, pairs),
                       lambda: km.ff_matmul_ozaki(A, B),
-                      n * (M * K + K * N) * 4 + 2 * M * N * 4,
-                      matmul_ops("ozaki", M, K, N, npairs=len(pairs),
-                                 nk=-(-K // bk)),
+                      ozaki_bound(ops, M, K, N, len(pairs), clock_hz),
                       lambda: torch.matmul(A64, B64)),
             "dot2": (lambda: km.ff_matmul_dot2(A, B),
-                     lambda: km.ff_matmul_dot2(A, B), io,
-                     matmul_ops("dot2", M, K, N), lambda: torch.matmul(
-                         A64, B64))}
-        for name, (kern, call, byts, ops, lib) in spec.items():
-            t_b, t_o = byts / HBM_BYTES_PER_S, ops / peak_ops
+                     lambda: km.ff_matmul_dot2(A, B),
+                     f32_bound(io, matmul_ops("dot2", M, K, N)),
+                     lambda: torch.matmul(A64, B64))}
+        for name, (kern, call, (t, what, times), lib) in spec.items():
             rows[name].append(dict(
                 shape=list(mkn), ms=graph_ms(kern, 3),
                 call_ms=cuda_ms(call, 3),
                 plain_ms=plain_ms[name][str(list(mkn))],
-                bound_ms=1e3 * max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
+                bound_ms=1e3 * t,
+                bound_by="bytes" if what == "bytes" else "operations",
+                bound_of=what,
+                bound_parts_ms={k: 1e3 * v for k, v in times.items()},
                 library_ms=cuda_ms(lib, 5)))
-        del A, B, A64, B64, As, Bs
+        del ops
+        rows["ozaki"][-1]["call_parts_ms"] = ozaki_call_parts(torch, A, B)
+        del A, B, A64, B64
         torch.cuda.empty_cache()
     for name, recs in rows.items():
         for r in recs:
             log(f"{name} {r['shape']}: kernel {r['ms']:.4f} ms (call "
                 f"{r['call_ms']:.4f}), plain {r['plain_ms']:.3f} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-                f"{r['library_ms']:.4f} ms")
+                f"{r['bound_ms']:.4f} ms ({r['bound_of']}; "
+                + ", ".join(f"{k} {v:.4f}" for k, v in
+                            r["bound_parts_ms"].items())
+                + f"), library {r['library_ms']:.4f} ms"
+                + ("; call parts ms: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in r["call_parts_ms"].items())
+                   if "call_parts_ms" in r else ""))
     return rows
 
 
@@ -749,7 +927,7 @@ def matmul_kernel_entries(launches, worst, rows):
     as in :func:`path_counts`; the numbers of the first granite shape,
     every shape under ``by_shape``."""
     src = {"hybrid": ("ff_matmul_hybrid", "ff_matmul.cu", 89),
-           "ozaki": ("ff_matmul_ozaki", "ff_matmul.cu", 163),
+           "ozaki": ("ff_matmul_ozaki", "ff_matmul_ozaki.cu", 163),
            "dot2": ("ff_matmul_dot2", "ff_matmul_dot2.cu", 287)}
     out = []
     for name, (label, cu, line) in src.items():
@@ -1587,6 +1765,17 @@ def phase_tune(torch):
                 f"{rec['fast']['opts'] or ''}, accurate "
                 f"{rec.get('accurate', {}).get('impl')}")
         log(f"tune {op}: {time.perf_counter() - t1:.1f} s")
+    # the matmul impls at granite-3-2b's w_gate shape: the Ozaki kernel's
+    # call against f64, Dot2 and the hybrid
+    t1 = time.perf_counter()
+    out = ff.tune("matmul", shapes=(MM_GRANITE[0],), device="cuda")
+    for key, rec in out["table"].items():
+        per = ", ".join(f"{n} {r['us']:.1f}" for n, r in
+                        sorted(rec["impls"].items(),
+                               key=lambda kv: kv[1]["us"]))
+        log(f"tune matmul {key}: us {per}; fast {rec['fast']['impl']}, "
+            f"accurate {rec.get('accurate', {}).get('impl')} "
+            f"({time.perf_counter() - t1:.1f} s)")
     torch.cuda.synchronize()
     tune_launches = launch_counts()
     log(f"tuning run: {time.perf_counter() - t0:.1f} s, launches "

@@ -203,8 +203,14 @@ def _ceil_log2(mu: Tensor) -> Tensor:
     return torch.where(m > 0.5, e, e - 1).to(torch.int32)
 
 
-def extract_slices(x: Tensor, axis: int, n: int, beta: int
-                   ) -> Tuple[List[Tensor], Tensor]:
+def slice_exponent(x: Tensor, axis: int) -> Tensor:
+    """The slices' alignment ``ie = ceil(log2 max|x|)`` along ``axis``
+    (kept as a dimension of size 1), int32, exactly (``_ceil_log2``)."""
+    return _ceil_log2(torch.amax(x.abs(), dim=axis, keepdim=True))
+
+
+def extract_slices(x: Tensor, axis: int, n: int, beta: int,
+                   ie: Tensor = None) -> Tuple[List[Tensor], Tensor]:
     """``n`` exponent-aligned slices of at most ``beta`` bits each, plus
     the residual (the reference's ``extract_slices``, bit for bit on
     normal-range inputs).
@@ -215,10 +221,11 @@ def extract_slices(x: Tensor, axis: int, n: int, beta: int
     ``r - w`` is exact.  The reference takes ``e`` from an f32 log2 and
     repairs it with an exact power-of-two compare; here it comes exactly
     from ``frexp``, and the powers of two from the exponent bits.  A zero
-    row or column gives zero slices.
+    row or column gives zero slices.  ``ie``: ``slice_exponent(x, axis)``,
+    when the caller has it already.
     """
-    mu = torch.amax(x.abs(), dim=axis, keepdim=True)
-    ie = _ceil_log2(mu)
+    if ie is None:
+        ie = slice_exponent(x, axis)
     parts = []
     r = x
     for i in range(n):

@@ -1,41 +1,30 @@
-// FF matrix products that fold f32 block products into a float-float
-// accumulator: the hybrid scheme and the Ozaki slice-pair scheme.
+// FF matrix product that folds f32 block products into a float-float
+// accumulator: the hybrid scheme.  (The Ozaki slice-pair scheme runs on the
+// tensor cores: ff_matmul_ozaki.cu.)
 //
-// Replaces the TPU kernels src/repro/kernels/ff_matmul.py::ff_matmul
-// (_ff_matmul_kernel) and ::ff_matmul_ozaki (_ff_matmul_ozaki_kernel).
-//
-//   hybrid  (ff_matmul_f32):       for each K-block of bk, the f32 block
-//           product p = A[:, k-block] @ B[k-block, :], folded once into
-//           (hi, lo): TwoSum(hi, p), lo' = sl + lo, Fast2Sum (Add212).
-//   Ozaki   (ff_matmul_ozaki_f32): for each K-block, for each kept slice
-//           pair (i, j) in the table's order, the block product of slice i
-//           of A and slice j of B, folded the same way.  The slices'
-//           exactness budget (2*beta + ceil(log2 bk) <= 26) makes every
-//           partial sum of a pair block an integer multiple of the slice
-//           quantum below 2^24 quanta: exact in any order, so the block can
-//           be tiled freely.  The fold order over (k-block, pair) sets the
-//           accumulator's bits and is the TPU kernel's (k outer, p inner).
+// Replaces the TPU kernel src/repro/kernels/ff_matmul.py::ff_matmul
+// (_ff_matmul_kernel): for each K-block of bk, the f32 block product
+// p = A[:, k-block] @ B[k-block, :], folded once into (hi, lo):
+// TwoSum(hi, p), lo' = sl + lo, Fast2Sum (Add212).
 //
 // The block products multiply-add with explicit __fmaf_rn (the build's
-// --fmad=false forbids contraction elsewhere): for Ozaki FMA and mul+add
-// give the same exact bits; for hybrid FMA sets the f32 rounding of each
-// block product, which has no reference bits (the TPU sums it in 6-pass
-// bf16, cuBLAS in its own order).  The folds use ff_eft.cuh's explicitly
-// rounded add212.
+// --fmad=false forbids contraction elsewhere): FMA sets the f32 rounding of
+// each block product, which has no reference bits (the TPU sums it in
+// 6-pass bf16, cuBLAS in its own order).  The folds use ff_eft.cuh's
+// explicitly rounded add212.
 //
-// What bounds it on this card: a GEMM's 2*M*N*K f32 operations (per pair
-// for Ozaki), against 67 TFLOP/s of f32 FMA outside the tensor cores; the
-// fold adds 10 operations per output per K-block and pair.  The operands
-// are read once per 64-wide output tile, so at the shapes of the path it is
-// bound by operations, not bytes.  Design: a shared-memory tiled SIMT GEMM,
-// simple and right first: 64 x 64 output tile per block of 256 threads,
-// each thread 4 x 4 outputs (rows ty + 16 i, columns tx + 16 j, so the
-// shared-memory reads are broadcasts or consecutive), a K depth of 16 per
-// shared tile, the block product and the FF accumulator in registers.  The
-// TPU's sequential K (and pair) grid axes become loops inside the block.
-// The operands are read through their strides, so the transposed views of
-// the backward pass are not copied.  wgmma/TMA, and tensor-core passes over
-// Ozaki's narrow slices, are left for later.
+// What bounds it on this card: a GEMM's 2*M*N*K f32 operations against 67
+// TFLOP/s of f32 FMA outside the tensor cores; the fold adds 10 operations
+// per output per K-block.  The operands are read once per 64-wide output
+// tile, so at the shapes of the path it is bound by operations, not bytes.
+// Design: a shared-memory tiled SIMT GEMM, simple and right first: 64 x 64
+// output tile per block of 256 threads, each thread 4 x 4 outputs (rows
+// ty + 16 i, columns tx + 16 j, so the shared-memory reads are broadcasts
+// or consecutive), a K depth of 16 per shared tile, the block product and
+// the FF accumulator in registers.  The TPU's sequential K grid axis
+// becomes a loop inside the block.  The operands are read through their
+// strides, so the transposed views of the backward pass are not copied.
+// wgmma/TMA are left for later.
 
 #include "ff_eft.cuh"
 
@@ -45,17 +34,10 @@ constexpr int kTile = 64;       // output rows and columns per block
 constexpr int kTk = 16;         // K depth of one shared-memory tile
 constexpr int kSide = 16;       // threads per side; each 4 x 4 outputs
 constexpr int kThreads = kSide * kSide;
-constexpr int kMaxPairs = 256;  // = OZAKI_MAX_PAIRS in kernels/ff_matmul.py
 
 struct Operand {
   const float* p;
   long long s0, s1;             // element (r, c) at p[r * s0 + c * s1]
-};
-
-// The slice-pair table, passed by value with the launch (the TPU kernel
-// scalar-prefetches it): pair q multiplies slice si[q] of A by sj[q] of B.
-struct PairTable {
-  unsigned char si[kMaxPairs], sj[kMaxPairs];
 };
 
 // acc[i][j] += A[m0 + ty + 16 i, k] * B[k, n0 + tx + 16 j] for k in [k0, k1),
@@ -106,14 +88,12 @@ __device__ __forceinline__ void block_product(
   }
 }
 
-// kOzaki = false: the hybrid kernel (one "pair": the operands themselves);
-// true: the Ozaki kernel over the pair table, a (n, M, K) and b (n, K, N)
-// contiguous slice stacks.
-template <bool kOzaki>
-__global__ void __launch_bounds__(kThreads)
-fold_gemm_kernel(Operand a, Operand b, PairTable pairs, int npairs,
-                 float* __restrict__ out_hi, float* __restrict__ out_lo,
-                 int M, int N, int K, int bk) {
+// The hybrid kernel: per K-block, the f32 block product folded into the
+// FF accumulator.  Two blocks an SM (<= 128 registers a thread): left to
+// itself the compiler takes 164 and one block an SM, 15% slower.
+__global__ void __launch_bounds__(kThreads, 2)
+fold_gemm_kernel(Operand a, Operand b, float* __restrict__ out_hi,
+                 float* __restrict__ out_lo, int M, int N, int K, int bk) {
   __shared__ float As[kTk][kTile + 1];
   __shared__ float Bs[kTk][kTile + 1];
   const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
@@ -126,21 +106,14 @@ fold_gemm_kernel(Operand a, Operand b, PairTable pairs, int npairs,
 
   for (int k0 = 0; k0 < K; k0 += bk) {
     const int k1 = min(K, k0 + bk);
-    for (int q = 0; q < (kOzaki ? npairs : 1); ++q) {
-      Operand aq = a, bq = b;
-      if (kOzaki) {
-        aq.p += static_cast<long long>(pairs.si[q]) * M * K;
-        bq.p += static_cast<long long>(pairs.sj[q]) * K * N;
-      }
-      block_product(aq, bq, M, N, m0, n0, k0, k1, As, Bs, p);
+    block_product(a, b, M, N, m0, n0, k0, k1, As, Bs, p);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ffk::ff2 r = ffk::add212({hi[i][j], lo[i][j]}, p[i][j]);
-          hi[i][j] = r.hi;
-          lo[i][j] = r.lo;
-        }
+      for (int j = 0; j < 4; ++j) {
+        ffk::ff2 r = ffk::add212({hi[i][j], lo[i][j]}, p[i][j]);
+        hi[i][j] = r.hi;
+        lo[i][j] = r.lo;
       }
     }
   }
@@ -173,32 +146,8 @@ extern "C" int ff_matmul_f32(const float* a, long long sa0, long long sa1,
                              float* out_hi, float* out_lo, int M, int N,
                              int K, int bk, cudaStream_t stream) {
   if (M > 0 && N > 0) {
-    fold_gemm_kernel<false><<<grid_for(M, N), dim3(kSide, kSide), 0,
-                              stream>>>({a, sa0, sa1}, {b, sb0, sb1},
-                                        PairTable{}, 1, out_hi, out_lo, M, N,
-                                        K, bk);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// as (n, M, K) and bs (n, K, N) contiguous f32 slice stacks; si, sj: host
-// arrays of the npairs (<= 256) kept pairs in fold order.  Returns the CUDA
-// error of the launch (0 on success).
-extern "C" int ff_matmul_ozaki_f32(const float* as, const float* bs,
-                                   const unsigned char* si,
-                                   const unsigned char* sj, int npairs,
-                                   float* out_hi, float* out_lo, int M, int N,
-                                   int K, int bk, cudaStream_t stream) {
-  if (npairs < 1 || npairs > kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
-  PairTable pairs{};
-  for (int q = 0; q < npairs; ++q) {
-    pairs.si[q] = si[q];
-    pairs.sj[q] = sj[q];
-  }
-  if (M > 0 && N > 0) {
-    fold_gemm_kernel<true><<<grid_for(M, N), dim3(kSide, kSide), 0,
-                             stream>>>({as, K, 1}, {bs, N, 1}, pairs, npairs,
-                                       out_hi, out_lo, M, N, K, bk);
+    fold_gemm_kernel<<<grid_for(M, N), dim3(kSide, kSide), 0, stream>>>(
+        {a, sa0, sa1}, {b, sb0, sb1}, out_hi, out_lo, M, N, K, bk);
   }
   return static_cast<int>(cudaGetLastError());
 }
