@@ -23,7 +23,11 @@ Phases (any failed check raises, so the script exits non-zero):
      SASS must hold HGMMA) also bit for bit on budget-edge integers at
      beta 8 and 12 (and equal to float64), at beta 9-11, slices=5,
      block_k=300 and 2^+-40 rows and columns, with the outputs of tiny
-     rows outside its bit contract counted; then
+     rows outside its bit contract counted; the Dot2 kernel (its
+     registers, spills and main loop's instructions per product logged at
+     the build) also bit for bit at K of every slab width, M and N off its
+     block tile, exponents over 2^+-40 with alternating signs and signed
+     zeros, contiguous and transposed; then
      ``repro_torch.ff.matmul`` at those three shapes through every impl,
      the ``policy(matmul=...)`` route, an FF operand and a forward and
      backward per kernel impl, with the launch counts read around that
@@ -54,7 +58,8 @@ Phases (any failed check raises, so the script exits non-zero):
      read around it; one call of each op with no ``impl=``,
      resolving ``tuned_default`` and launching the winner's kernel; the
      table cleared and the environment restored; each kernel timed, erf
-     and gelu also on band-pure inputs;
+     and gelu also on band-pure inputs; tanh bit for bit at its band
+     edges and on mixed bands, and timed there and on band-pure inputs;
   6. the guard: ``guard_flags`` bit for bit its plain version at
      (3, 130), (4096, 4096) and the full-width KV pool plane, with the
      IEEE codes of the adversarial limb classes (NaN and Inf in each
@@ -343,6 +348,17 @@ def phase_build(torch):
     log(f"  ff_matmul_ozaki: {hgmma} HGMMA instructions in its SASS")
     if not hgmma:
         raise AssertionError("ff_matmul_ozaki.cu compiled without HGMMA")
+    # the Dot2 kernel's vec = 8 instance: registers, spills and its main
+    # loop's instructions per product
+    from repro_torch.benchmarks import dot2_variants as dv
+    lib = str(out / "libff_matmul_dot2.so")
+    ptx = dv.ptxas_info((out / "libff_matmul_dot2.log").read_text())
+    split = dv.sass_split(lib, dv.tile_of("shipped"))
+    log(f"  ff_matmul_dot2 (vec 8): {ptx}; main loop per product: f32 "
+        f"{split['f32_per_product']:.4f}, other "
+        f"{split['other_per_product']:.4f} ({split['loop_instructions']} "
+        f"instructions, {split['products_a_pass']} products a pass; other: "
+        f"{split['other_ops']})")
 
 
 def phase_kernel_checks(torch):
@@ -654,8 +670,51 @@ def phase_matmul_checks(torch):
         f"{got[1].numel()} outputs")
     del Ai, Bi, got, want
     worst["ozaki"] = max(worst["ozaki"], phase_ozaki_cases(torch))
+    phase_dot2_cases(torch)
     torch.cuda.synchronize()
     return worst, plain_ms
+
+
+# the Dot2 kernel's edges: K of every slab width (dot2_vec: K = 1..7 give
+# vec = K, 11 gives 1, 9 gives 3, 14 gives 7, 300 gives 8), M and N off its
+# 64 x 64 block tile
+DOT2_SLAB_K = (1, 2, 3, 4, 5, 6, 7, 11, 9, 14, 300)
+DOT2_MN = tuple((m, n) for m in (1, 63, 65, 257) for n in (1, 5, 129))
+
+
+def phase_dot2_cases(torch):
+    """The Dot2 kernel bit for bit (signs of zero included) its plain
+    version on the card, and within its float64 bound: K of every slab
+    width, each with one (M, N) off the block tile, and every such (M, N)
+    at K = 14 and 300; on operands whose exponents spread over 2^+-40, with
+    signs alternating along K and signed zeros
+    (``dot2_variants.spread_operands``: the sums cancel), contiguous and as
+    transposed views."""
+    from repro_torch.benchmarks import dot2_variants as dv
+    from repro_torch.kernels import ff_matmul as km
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    cases = ([(DOT2_MN[i % len(DOT2_MN)][0], k, DOT2_MN[i % len(DOT2_MN)][1])
+              for i, k in enumerate(DOT2_SLAB_K)]
+             + [(m, k, n) for k in (14, 300) for m, n in DOT2_MN])
+    worst = -math.inf
+    for mkn in cases:
+        A, B = dv.spread_operands(mkn, g)
+        want = km.ff_matmul_dot2_plain(A, B)
+        for what, (a, b) in (("", (A, B)), (" (transposed views)", (
+                A.T.contiguous().T, B.T.contiguous().T))):
+            got = km.ff_matmul_dot2(a, b)
+            if not dv.same_bits(got, want):
+                raise AssertionError(f"dot2 kernel != plain at {mkn}{what}")
+        worst = max(worst, mm_bound_ok(
+            "dot2", got, A.double() @ B.double(),
+            A.double().abs() @ B.double().abs(), mkn[1]))
+    vecs = sorted({km.dot2_vec(k, 128, 8) for k in DOT2_SLAB_K})
+    if vecs != list(range(1, 9)):
+        raise AssertionError(f"dot2 cases cover vec {vecs}")
+    log(f"dot2 edge cases: kernel == plain bit for bit at {len(cases)} "
+        f"shapes (vec {vecs}; M, N off the 64 x 64 tile; exponents over "
+        f"2^+-40, alternating signs, signed zeros), contiguous and "
+        f"transposed; vs float64 2^{worst:.1f} of S at worst")
 
 
 def launch_fns():
@@ -1380,6 +1439,7 @@ LOG1P_NEAR = ADD212 + DIV22 + ATANH + MUL22 + 2 + 4
 LOG1P_FAR = TWO_SUM + 1 + FAST_TWO_SUM + LOG22_OPS + 4
 TANH_SMALL = MUL22 + 10 + 6 * (MUL22 + ADD22) + MUL22 + 4
 TANH_LARGE = 3 + EXPM1_OPS + ADD212 + DIV22 + 2 + 4
+TANH_IDENTITY = 2                        # |x| and the band test
 SIGMOID_OPS = 3 + EXP22 + ADD212 + DIV22 + 2
 SILU_OPS = SIGMOID_OPS + MUL22 + 3
 ERF_PRO = 6                              # sign, |x|, clamp, band selects
@@ -1413,8 +1473,10 @@ def math_ops(op, x) -> int:
         near = int(((x >= -0.2928932) & (x <= 0.41421354)).sum())
         return near * LOG1P_NEAR + (n - near) * LOG1P_FAR
     if op == "tanh":
-        small = int((a <= 0.35).sum())
-        return small * TANH_SMALL + (n - small) * TANH_LARGE
+        ident = int((a < 2.0 ** -45).sum())
+        small = int((a <= 0.35).sum()) - ident
+        return (ident * TANH_IDENTITY + small * TANH_SMALL
+                + (n - small - ident) * TANH_LARGE)
     if op in ("erf", "gelu"):
         v = a if op == "erf" else a * 0.70710677
         small = int((v <= 1.0).sum())
@@ -1679,6 +1741,19 @@ def phase_ops_checks(torch):
         log(f"ff_math {op}: kernel == plain bit for bit on the band-sorted "
             f"schedule's cases (bands interleaved with +-0/+-inf/nan, each "
             f"band alone, ragged edges, row and column planes)")
+    # tanh: only the branch an element takes runs, the plain version
+    # evaluates both and selects; the band edges and mixed bands
+    from repro_torch.benchmarks.math_variants import tanh_edges
+    edges = tanh_edges("cuda")
+    x = torch.rand((512, 8192), generator=g, device="cuda") * 2 - 1
+    mixed = (x, x * 1e-8 * torch.randn(x.shape, generator=g, device="cuda"))
+    for what, args in (("band edges", edges), ("uniform (-1, 1)", mixed)):
+        check("ff_math", f"tanh {what}", fm.math_elementwise("tanh", *args),
+              fm.math_elementwise_plain("tanh", *args))
+    log(f"ff_math tanh: kernel == plain bit for bit at the band edges "
+        f"({edges[0].numel()} inputs: 0.35 and 2^-45 with their neighbours, "
+        f"17-20, both signs, lo 0/-0/+-hi 2^-25, +-0, +-inf, nan) and on x "
+        f"uniform in (-1, 1) at (512, 8192)")
     int_division_check(torch)
     torch.cuda.synchronize()
     return worst
@@ -1919,6 +1994,25 @@ def phase_ops_timing(torch, clock_hz):
                 lambda: f64_fn(x64), 16 * h.numel(), math_ops(op, h),
                 peak_ops, 3), library=f"float64 {op}"))
             del x, h, lo, x64
+    # tanh on mixed bands (x uniform in (-1, 1): about 35% in the small
+    # band) and uniform in each of its series' bands alone
+    from repro_torch.benchmarks.math_variants import TANH_BANDS
+    tanh_rows = {"uniform (-1, 1)": (-1.0, 1.0), **TANH_BANDS}
+    for band, (b0, b1) in tanh_rows.items():
+        x = b0 + (b1 - b0) * (1.0 - torch.rand((R, C), generator=g,
+                                               device="cuda",
+                                               dtype=torch.float64))
+        h = x.float()
+        lo = h * 1e-8 * torch.randn((R, C), generator=g, device="cuda")
+        x64 = h.double() + lo.double()
+        rows["ff_math"].append(dict(op="tanh", band=band, shape=[R, C],
+                                    **time_kernel(
+            lambda: fm.math_elementwise("tanh", h, lo),
+            lambda: fm.math_elementwise("tanh", h, lo),
+            cuda_ms(lambda: fm.math_elementwise_plain("tanh", h, lo), 1),
+            lambda: torch.tanh(x64), 16 * h.numel(), math_ops("tanh", h),
+            peak_ops, 10), library="float64 tanh"))
+        del x, h, lo, x64
     for name, recs in rows.items():
         for r in recs:
             band = f" band {r['band']}" if "band" in r else ""

@@ -1,5 +1,5 @@
-"""The ``ff_math`` kernel's erf and gelu design, one choice at a time, on
-the card::
+"""The ``ff_math`` kernel's erf, gelu and tanh design, one choice at a
+time, on the card::
 
     python -m repro_torch.benchmarks.math_variants [NAME ...] [--sass] \\
         [--out rows.json]
@@ -7,14 +7,18 @@ the card::
 Each variant is a copy of ``csrc/`` with one design choice undone (a text
 edit of the sources, ``VARIANTS``), built with the port's ``nvcc`` flags
 into ``build/variants/<name>/`` (all at once), then swapped in for the
-``ff_math`` library: erf and gelu are checked bit for bit against their
-plain versions at (512, 8192), and timed by CUDA-graph replay at
-(4096, 4096) and (512, 8192) on ``|N(0,1)| + 0.5`` (the operators phase's
-input) and at (4096, 4096) on erf's argument uniform in each band.
+``ff_math`` library: erf, gelu and tanh are checked bit for bit against
+their plain versions at (512, 8192) and tanh also on its band edges and
+a mixed tile, and timed by CUDA-graph replay at (4096, 4096) and (512,
+8192) on ``|N(0,1)| + 0.5`` (the operators phase's input), erf at (4096,
+4096) on its argument uniform in each band, and tanh at (4096, 4096) on
+x uniform in (-1, 1) (about 35% in its small band) and uniform in each
+band.  Each row also lists the kernels whose SASS differs from
+``shipped``'s (``cuobjdump -sass``, addresses and encodings dropped).
 ``shipped`` is the sources as they are.  ``--sass`` also prints the
-loops of each variant's erf kernel (``cuobjdump -sass``: instructions and
-opcodes per loop).  Needs a CUDA card and a checkout (the variants build
-into its ``build/``).
+loops of each variant's erf kernel (instructions and opcodes per loop).
+Needs a CUDA card and a checkout (the variants build into its
+``build/``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import argparse
 import collections
 import ctypes
 import json
+import math
 import os
 import re
 import shutil
@@ -37,6 +42,17 @@ from repro_torch.kernels import ff_math as fm
 
 # name: ((file, text, replacement), ...); every text must occur once
 Edit = Tuple[str, str, str]
+# tanh through the band-sorted kernel (tanh_band's three bands fit its four)
+TANH_SORTED: Tuple[Edit, ...] = (
+    ("ff_math.cu", "  if constexpr (OP == ERF) return ffk::erf_band(h);\n",
+     "  if constexpr (OP == ERF) return ffk::erf_band(h);\n"
+     "  else if constexpr (OP == TANH) return ffk::tanh_band(h);\n"),
+    ("ff_math.cu",
+     "  if (t.op == GELU) return launch_bands<GELU>(t, n, stream);\n",
+     "  if (t.op == GELU) return launch_bands<GELU>(t, n, stream);\n"
+     "  if (t.op == TANH) return launch_bands<TANH>(t, n, stream);\n"),
+    ("ff_math.cu", "    case TANH: return launch<TANH>(t, grid, stream);\n",
+     ""))
 VARIANTS: Dict[str, Tuple[Edit, ...]] = {
     "shipped": (),
     # one thread an element in the grid-stride kernel: warps straddle bands
@@ -81,9 +97,29 @@ VARIANTS: Dict[str, Tuple[Edit, ...]] = {
          "#pragma unroll 4\n  for (int n = 1; n < kErfAltTerms"),),
     "tiles of 1024": (
         ("ff_math.cu", "constexpr int kPer = 8;", "constexpr int kPer = 4;"),),
+    # tanh's elements sorted by band, 32 consecutive a warp, as erf's
+    "tanh band sort": TANH_SORTED,
+    # the earlier tanh: both branches on every element, then the
+    # selection
+    "tanh both branches": (
+        ("ff_eft.cuh", "expm122<true>(", "expm122("),
+        ("ff_eft.cuh",
+         "  switch (tanh_band(xh)) {\n"
+         "    case kTanhIdentity: return {xh, xl};\n"
+         "    case kTanhSmall: return tanh_small(xh, xl);\n"
+         "    default: return tanh_large(xh, xl);\n"
+         "  }\n",
+         "  const ff2 sm = tanh_small(xh, xl);\n"
+         "  const ff2 lg = tanh_large(xh, xl);\n"
+         "  ff2 r = fabsf(xh) <= 0x1.666666p-2f ? sm : lg;\n"
+         "  if (fabsf(xh) < kIdentity) return {xh, xl};\n"
+         "  return r;\n")),
 }
 
 BANDS = {"small": (0.0, 1.0), "mid": (1.0, 4.0), "big": (4.0, 8.0)}
+# tanh's two series' bands of |x| (the identity band below 2^-45 is empty
+# at these sizes)
+TANH_BANDS = {"small": (0.0, 0.35), "large": (0.3501, 8.0)}
 
 
 def graph_ms(fn, iters: int = 5) -> float:
@@ -164,6 +200,55 @@ def sass_loops(lib) -> List[dict]:
     return loops
 
 
+def sass_functions(lib) -> Dict[str, str]:
+    """Each function of the library's SASS (``cuobjdump -sass``), keyed by
+    its name without the anonymous namespace's per-file tag, its body
+    without addresses and encodings."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+                           str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        name = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", name.strip())
+        out[name] = "\n".join(
+            re.sub(r"/\*[0-9a-fx]+\*/|/\* 0x[0-9a-f]+ \*/", "", ln).strip()
+            for ln in body.splitlines()
+            if ln.strip() and "/* 0x" not in ln.strip()[:6])
+    return out
+
+
+def registers(log: str) -> Dict[str, int]:
+    """Registers of each band-sorted and grid-stride kernel instance, by
+    its op code (``-Xptxas -v``)."""
+    out = {}
+    for block in log.split("Compiling entry function")[1:]:
+        m = re.search(r"(band_kernel|math_kernel)ILi(\d+)E",
+                      block.split("\n", 1)[0])
+        regs = re.search(r"Used (\d+) registers", block)
+        if m and regs:
+            out[f"{m.group(1)}<{m.group(2)}>"] = int(regs.group(1))
+    return out
+
+
+def tanh_edges(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tanh's band edges as FF limbs: 0.35 (0x1.666666p-2) and 2^-45, each
+    with its f32 neighbours, and 17 to 20, of both signs, each with lo 0,
+    -0 and +-hi 2^-25; then +-0, +-inf and nan (lo 0)."""
+    f = dict(dtype=torch.float32, device=device)
+    e = torch.tensor([float.fromhex("0x1.666666p-2"), 2.0 ** -45], **f)
+    h = torch.cat([e, torch.nextafter(e, torch.full_like(e, math.inf)),
+                   torch.nextafter(e, torch.zeros_like(e)),
+                   torch.tensor([17.0, 17.5, 18.0, 19.0, 20.0], **f)])
+    h = torch.cat([h, -h])
+    z = torch.zeros_like(h)
+    spec = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan], **f)
+    return (torch.cat([h, h, h, h, spec]),
+            torch.cat([z, -z, h * 2.0 ** -25, -h * 2.0 ** -25,
+                       torch.zeros_like(spec)]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", default=list(VARIANTS))
@@ -177,12 +262,15 @@ def main(argv=None) -> int:
     unknown = set(args.names) - set(VARIANTS)
     if unknown:
         raise KeyError(f"variants {sorted(unknown)}; known: {list(VARIANTS)}")
-    logs = build_variants(args.names)
+    names = ["shipped"] + [n for n in args.names if n != "shipped"]
+    logs = build_variants(names)
+    lib_of = {n: build.ROOT / "build" / "variants" / n.replace(" ", "_")
+              / "libff_math.so" for n in names}
     if args.sass:
         for name in args.names:
-            d = build.ROOT / "build" / "variants" / name.replace(" ", "_")
-            for loop in sass_loops(d / "libff_math.so"):
+            for loop in sass_loops(lib_of[name]):
                 print(json.dumps({"variant": name, **loop}), flush=True)
+    base_sass = sass_functions(lib_of["shipped"])
     g = torch.Generator(device="cuda").manual_seed(5)
 
     def limbs(h):
@@ -196,36 +284,49 @@ def main(argv=None) -> int:
         u = torch.rand(shape, generator=g, device="cuda", dtype=torch.float64)
         return limbs((b0 + (b1 - b0) * (1.0 - u)).float())
 
+    uniform = limbs(torch.rand((4096, 4096), generator=g, device="cuda") * 2
+                    - 1)
     inputs = {"4096x4096": mixed((4096, 4096)), "512x8192": mixed((512, 8192)),
               **{f"{k} band": band(*v) for k, v in BANDS.items()}}
+    tanh_inputs = {"4096x4096": inputs["4096x4096"],
+                   "512x8192": inputs["512x8192"],
+                   "uniform (-1, 1)": uniform,
+                   **{f"{k} band": band(*v) for k, v in TANH_BANDS.items()}}
     check = mixed((512, 8192))
-    want = {op: fm.math_elementwise_plain(op, *check)
-            for op in ("erf", "gelu")}
+    checks = {op: [check] for op in ("erf", "gelu")}
+    checks["tanh"] = [check, tanh_edges("cuda"),
+                      tuple(x[:512] for x in uniform)]
+    want = {op: [fm.math_elementwise_plain(op, *c) for c in cs]
+            for op, cs in checks.items()}
     key = ("ff_math", "ff_math_f32")
     shipped = build.entry(*key, [ctypes.c_void_p, ctypes.c_void_p])
     card = torch.cuda.get_device_name(0)
     rows = []
     try:
         for name in args.names:
-            d = build.ROOT / "build" / "variants" / name.replace(" ", "_")
-            fn = ctypes.CDLL(str(d / "libff_math.so")).ff_math_f32
+            fn = ctypes.CDLL(str(lib_of[name])).ff_math_f32
             fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], \
                 ctypes.c_int
             build._ENTRIES[key] = fn     # math_elementwise launches this one
-            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                       for op in ("erf", "gelu")
-                       for a, b in zip(fm.math_elementwise(op, *check),
-                                       want[op]))
+            same = all(same_bits(a, b)
+                       for op, cs in checks.items()
+                       for c, w in zip(cs, want[op])
+                       for a, b in zip(fm.math_elementwise(op, *c), w))
+            sass = sass_functions(lib_of[name])
             row = {"variant": name, "bits_equal": same, "card": card,
-                   "registers": [ln.split("Used ")[1].split(" ")[0]
-                                 for ln in logs[name].splitlines()
-                                 if "Used" in ln][-3:]}
+                   "registers": registers(logs[name]),
+                   "sass_differs_from_shipped": sorted(
+                       k for k in set(sass) | set(base_sass)
+                       if sass.get(k) != base_sass.get(k))}
             for what, (h, lo) in inputs.items():
                 for op in ("erf", "gelu"):
                     if what.endswith("band") and op == "gelu":
                         continue
                     row[f"{op} {what}"] = graph_ms(
                         lambda: fm.math_elementwise(op, h, lo))
+            for what, (h, lo) in tanh_inputs.items():
+                row[f"tanh {what}"] = graph_ms(
+                    lambda: fm.math_elementwise("tanh", h, lo))
             rows.append(row)
             print(json.dumps(row), flush=True)
             if not same:
@@ -236,6 +337,14 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
     return 0
+
+
+def same_bits(a, b) -> bool:
+    """The same bits; a NaN matches any NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and (
+        (a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32))
+        | na).all())
 
 
 if __name__ == "__main__":

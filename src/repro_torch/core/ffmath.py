@@ -181,9 +181,22 @@ def expm122(xh: Tensor, xl: Tensor) -> Limb:
     return torch.where(nan, xh, oh), torch.where(nan, xh, ol)
 
 
-def tanh22(xh: Tensor, xl: Tensor) -> Limb:
-    """FF tanh: the odd Maclaurin kernel on |x| <= 0.35, -t/(2+t) with
-    t = expm1(-2|x|) beyond, x itself below 2^-45."""
+# tanh's bands, the costliest first: the codes of tanh_band (the CUDA
+# kernel's tanh22 runs only its element's band's branch)
+TANH_LARGE, TANH_SMALL, TANH_IDENTITY = 0, 1, 2
+
+
+def tanh_band(xh: Tensor) -> Tensor:
+    """The branch tanh22 takes for each hi limb: TANH_IDENTITY below 2^-45,
+    TANH_SMALL (the Maclaurin kernel) to 0.35, TANH_LARGE beyond, where
+    nan and +-inf also go."""
+    a = torch.abs(xh)
+    return torch.where(a < _IDENTITY, TANH_IDENTITY,
+                       torch.where(a <= _TANH_SMALL, TANH_SMALL, TANH_LARGE))
+
+
+def tanh_small22(xh: Tensor, xl: Tensor) -> Limb:
+    """tanh's Maclaurin branch, x p(x^2) (its band: |x| <= 0.35)."""
     x = FF(xh, xl)
     z = core_ff.mul22(x, x)
     t = _TANH_C_F32[-1]
@@ -195,14 +208,29 @@ def tanh22(xh: Tensor, xl: Tensor) -> Limb:
         p = core_ff.add22(p, FF(torch.full_like(xh, ch),
                                 torch.full_like(xh, cl)))
     sm = core_ff.mul22(x, p)
+    return sm.hi, sm.lo
+
+
+def tanh_large22(xh: Tensor, xl: Tensor) -> Limb:
+    """tanh's branch beyond 0.35: sgn(x) (-t / (2 + t)), t = expm1(-2|x|)."""
     sgn = torch.where(xh < 0, -1.0, 1.0)
     th, tl = expm122(-2.0 * sgn * xh, -2.0 * sgn * xl)
     d = core_ff.add212(FF(th, tl), 2.0)
     q = core_ff.div22(FF(-th, -tl), d)
-    small = torch.abs(xh) <= _TANH_SMALL
-    rh = torch.where(small, sm.hi, sgn * q.hi)
-    rl = torch.where(small, sm.lo, sgn * q.lo)
-    idt = torch.abs(xh) < _IDENTITY
+    return sgn * q.hi, sgn * q.lo
+
+
+def tanh22(xh: Tensor, xl: Tensor) -> Limb:
+    """FF tanh: the odd Maclaurin kernel on |x| <= 0.35, -t/(2+t) with
+    t = expm1(-2|x|) beyond, x itself below 2^-45: both branches
+    evaluated, each element's selected by ``tanh_band``."""
+    sh, sl = tanh_small22(xh, xl)
+    qh, ql = tanh_large22(xh, xl)
+    band = tanh_band(xh)
+    small = band == TANH_SMALL
+    rh = torch.where(small, sh, qh)
+    rl = torch.where(small, sl, ql)
+    idt = band == TANH_IDENTITY
     return torch.where(idt, xh, rh), torch.where(idt, xl, rl)
 
 

@@ -399,7 +399,11 @@ __device__ __forceinline__ ff2 exp_poly(ff2 r) {
 }
 
 // FF expm1: the exp kernel without the +1 where k == 0, exp(x) - 1
-// beyond; x itself below 2^-45.
+// beyond; x itself below 2^-45.  kNonZeroK: for a caller whose xh is
+// below -0.7 (or nan): the reduction's k = rint(xh / ln2) is then at most
+// -1 (nan is clamped to -105 first, and returns early), so the k == 0
+// select is dropped (tanh's large band: xh = -2|x| < -0.7).
+template <bool kNonZeroK = false>
 __device__ __forceinline__ ff2 expm122(float xh, float xl) {
   int k;
   ff2 r = exp_reduce(xh, xl, &k);
@@ -408,7 +412,8 @@ __device__ __forceinline__ ff2 expm122(float xh, float xl) {
   ff2 e = scale2k(p.hi, p.lo, k);
   ff2 g = add212(e, -1.0f);
   bool ovf = e.hi == inf32();
-  ff2 o = (k == 0) ? s : ff2{ovf ? e.hi : g.hi, ovf ? 0.0f : g.lo};
+  ff2 o = (!kNonZeroK && k == 0) ? s
+                                 : ff2{ovf ? e.hi : g.hi, ovf ? 0.0f : g.lo};
   if (fabsf(xh) < kIdentity) o = {xh, xl};
   bool big = xh > kExpClipHi;
   bool tiny = xh < kExpClipLo;
@@ -475,9 +480,18 @@ __device__ __forceinline__ ff2 log22(float xh, float xl) {
   return {rh, rl};
 }
 
-// FF tanh: odd Maclaurin kernel on |x| <= 0.35, -t/(2+t) with
-// t = expm1(-2|x|) beyond; x itself below 2^-45.
-__device__ __forceinline__ ff2 tanh22(float xh, float xl) {
+// tanh's bands, the costliest first (the order a band sort runs them):
+// which branch tanh22 takes.
+enum TanhBand : int { kTanhLarge, kTanhSmall, kTanhIdentity, kTanhBands };
+
+// The band of hi limb xh: nan goes to the large band, as in tanh22.
+__device__ __forceinline__ int tanh_band(float xh) {
+  if (fabsf(xh) < kIdentity) return kTanhIdentity;
+  return fabsf(xh) <= 0x1.666666p-2f ? kTanhSmall : kTanhLarge;   // 0.35
+}
+
+// tanh's Maclaurin branch, x p(x^2), on |x| <= 0.35.
+__device__ __forceinline__ ff2 tanh_small(float xh, float xl) {
   const float C_F32[6] = {0x1.d6d3dp-9f, -0x1.7da364p-10f, 0x1.355824p-11f,
                           -0x1.f57d78p-13f, 0x1.967e18p-14f,
                           -0x1.497d8ep-15f};
@@ -496,16 +510,29 @@ __device__ __forceinline__ ff2 tanh22(float xh, float xl) {
     p = mul22(p, z);
     p = add22(p, {C_H[j], C_L[j]});
   }
-  ff2 sm = mul22(x, p);
+  return mul22(x, p);
+}
+
+// tanh's branch beyond 0.35 (nan and +-inf too): sgn(x) (-t / (2 + t)),
+// t = expm1(-2|x|); -2|x| < -0.7 there, so expm1's k is never 0.
+__device__ __forceinline__ ff2 tanh_large(float xh, float xl) {
   float sgn = xh < 0.0f ? -1.0f : 1.0f;
   float m2 = mul(-2.0f, sgn);
-  ff2 th = expm122(mul(m2, xh), mul(m2, xl));
+  ff2 th = expm122<true>(mul(m2, xh), mul(m2, xl));
   ff2 d = add212(th, 2.0f);
   ff2 q = div22({-th.hi, -th.lo}, d);
-  ff2 r = fabsf(xh) <= 0x1.666666p-2f ? sm
-                                        : ff2{mul(sgn, q.hi), mul(sgn, q.lo)};
-  if (fabsf(xh) < kIdentity) return {xh, xl};
-  return r;
+  return {mul(sgn, q.hi), mul(sgn, q.lo)};
+}
+
+// FF tanh: odd Maclaurin kernel on |x| <= 0.35, -t/(2+t) with
+// t = expm1(-2|x|) beyond; x itself below 2^-45.  Only the branch the
+// element takes is evaluated: the value the reference's selection picks.
+__device__ __forceinline__ ff2 tanh22(float xh, float xl) {
+  switch (tanh_band(xh)) {
+    case kTanhIdentity: return {xh, xl};
+    case kTanhSmall: return tanh_small(xh, xl);
+    default: return tanh_large(xh, xl);
+  }
 }
 
 // FF logistic sigmoid, u / (1 + z), z = exp(-|x|), u = 1 for x >= 0 and

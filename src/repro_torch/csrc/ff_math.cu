@@ -16,9 +16,13 @@
 //
 // Design: one kernel per function (a template instance: each carries only
 // its own live set).  The device twins of ff_eft.cuh branch where the
-// reference selects.  Eight functions run one thread per element in a
-// grid-stride loop over strided operand planes (ff_planes.cuh): their
-// branches are short.  erf and gelu branch into series of very different
+// reference selects, so an element runs only the branch it takes (tanh:
+// the identity, the Maclaurin kernel or the expm1 form, by tanh_band).
+// Eight functions run one thread per element in a grid-stride loop over
+// strided operand planes (ff_planes.cuh): their branches are short.  For
+// tanh the band sort below is faster on mixed bands (x uniform in (-1, 1))
+// but more than 5% slower on band-pure input, so tanh stays in this loop
+// (repro_torch.benchmarks.math_variants "tanh band sort").  erf and gelu branch into series of very different
 // lengths (erf22's bands: the alternating series on |x| <= 1, the positive
 // series to 4, the asymptotic form beyond), and a warp whose elements
 // straddle a band edge would run two series.  Their kernel (band_kernel)

@@ -565,7 +565,8 @@ def test_table_elementwise_runs_on_cpu(capsys):
 
 def test_cuda_ffmath_constants_match_port():
     """The device log22 and tanh22 constants (hex floats in
-    csrc/ff_eft.cuh) are the f32 roundings of the port's Python ones."""
+    csrc/ff_eft.cuh; tanh's series in its Maclaurin branch, tanh_small)
+    are the f32 roundings of the port's Python ones."""
     src = (CSRC / "ff_eft.cuh").read_text()
 
     def floats(fn, name):
@@ -582,10 +583,10 @@ def test_cuda_ffmath_constants_match_port():
         [c[1] for c in port_math._LOG_S_FF])
     assert floats("ff2 log_core(", "LN2_H") == f32([port_math._LN2_H])
     assert floats("ff2 log_core(", "LN2_L") == f32([port_math._LN2_L])
-    assert floats("ff2 tanh22(", "C_F32") == f32(port_math._TANH_C_F32)
-    assert floats("ff2 tanh22(", "C_H") == f32(
+    assert floats("ff2 tanh_small(", "C_F32") == f32(port_math._TANH_C_F32)
+    assert floats("ff2 tanh_small(", "C_H") == f32(
         [c[0] for c in port_math._TANH_C_FF])
-    assert floats("ff2 tanh22(", "C_L") == f32(
+    assert floats("ff2 tanh_small(", "C_L") == f32(
         [c[1] for c in port_math._TANH_C_FF])
     assert "mh > 0x1.6a09e6p+0f" in src          # _SQRT2_F32
     assert float.fromhex("0x1.6a09e6p+0") == f32([port_math._SQRT2_F32])[0]

@@ -8,7 +8,9 @@ and ``ff.tune`` in the port, against the reference.
     (ROADMAP's FTZ policy), so those inputs are left out;
   * ``math_elementwise_plain`` (the CUDA kernel's plain version) is
     bitwise the reference's Pallas kernel in interpret mode, for the ten
-    functions;
+    functions; tanh evaluated branch by branch (each element only on the
+    branch ``tanh_band`` picks, as the kernel does) is ``tanh22``'s and
+    the reference's bits;
   * the ``f64`` tier is within each function's NUMERICS.md contract of
     numpy's float64, the ``fast`` tier within 2^-20 (the f32 builtins);
   * the public calls are bitwise the reference's jnp impls; the
@@ -152,6 +154,68 @@ def test_math_plain_matches_reference_kernel(op):
     assert _same(wh, ph) and _same(wl, pl)
     assert port_kmath.math_elementwise.launches == n0
     assert port_kmath.DEFAULT_BLOCK == ref_kmath.DEFAULT_BLOCK
+
+
+def _tanh_inputs(kind: str, rng):
+    """tanh's band edges (0.35 = 0x1.666666p-2 and 2^-45 with their f32
+    neighbours, 17-20, both signs, lo 0, -0 or +-hi 2^-25, then +-0,
+    +-inf, nan), x uniform in (-1, 1) (about 35% in the small band), or
+    the branch inputs."""
+    if kind == "branches":
+        return _limbs(_branch_inputs("tanh", rng))
+    if kind == "uniform":
+        return _limbs(rng.uniform(-1, 1, 2000))
+    e = np.array([0.35, 2.0 ** -45], np.float32)
+    h = np.concatenate([e, np.nextafter(e, np.float32(np.inf)),
+                        np.nextafter(e, np.float32(0)),
+                        np.array([17, 17.5, 18, 19, 20], np.float32)])
+    h = np.concatenate([h, -h])
+    z = np.zeros_like(h)
+    spec = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], np.float32)
+    return (np.concatenate([h, h, h, h, spec]),
+            np.concatenate([z, -z, h * np.float32(2.0 ** -25),
+                            -h * np.float32(2.0 ** -25), np.zeros(5,
+                                                                  np.float32)]))
+
+
+@pytest.mark.parametrize("kind", ["edges", "uniform", "branches"])
+def test_tanh_branch_only_matches_tanh22_and_reference(kind):
+    """The ff_math kernel's tanh evaluates only the branch each element
+    takes (its band by tanh_band: identity, the Maclaurin kernel, the
+    expm1 form): that branch-only evaluation in torch, each branch run on
+    its band's elements alone, is ffmath.tanh22's bits (both branches,
+    then the selection) and the reference's tanh22's."""
+    xh, xl = (T(p) for p in _tanh_inputs(kind, np.random.default_rng(107)))
+    band = port_math.tanh_band(xh)
+    assert set(band.unique().tolist()) <= {
+        port_math.TANH_LARGE, port_math.TANH_SMALL, port_math.TANH_IDENTITY}
+    gh, gl = torch.empty_like(xh), torch.empty_like(xl)
+    for code, branch in ((port_math.TANH_LARGE, port_math.tanh_large22),
+                         (port_math.TANH_SMALL, port_math.tanh_small22),
+                         (port_math.TANH_IDENTITY, lambda h, lo: (h, lo))):
+        sel = band == code
+        if sel.any():
+            gh[sel], gl[sel] = branch(xh[sel], xl[sel])
+    ph, pl = port_math.tanh22(xh, xl)
+    rh, rl = ref_math.tanh22(jnp.asarray(xh.numpy()), jnp.asarray(xl.numpy()))
+    assert _same(ph, gh) and _same(pl, gl)
+    # the reference's bits, but where a limb is subnormal (tanh's Maclaurin
+    # lo near 2^-45), which XLA:CPU may flush to zero (ROADMAP's FTZ policy)
+    tiny = np.finfo(np.float32).tiny
+    for r, g in ((rh, gh), (rl, gl)):
+        r, g = np.asarray(r), g.numpy()
+        sub = (g != 0) & (np.abs(g) < tiny)
+        assert _same(r[~sub], g[~sub])
+        assert np.all((r[sub] == 0) | (r[sub] == g[sub]))
+    if kind == "edges":       # each edge on its side, nan in the large band
+        a, edge = xh.abs(), float(np.float32(0.35))
+        want = torch.where(a < 2.0 ** -45, port_math.TANH_IDENTITY,
+                           torch.where(a <= edge, port_math.TANH_SMALL,
+                                       port_math.TANH_LARGE))
+        assert torch.equal(band, want)
+        assert set(band.tolist()) == {port_math.TANH_LARGE,
+                                      port_math.TANH_SMALL,
+                                      port_math.TANH_IDENTITY}
 
 
 def test_cuda_constants_match_port():
