@@ -60,6 +60,9 @@ Phases (any failed check raises, so the script exits non-zero):
      table cleared and the environment restored; each kernel timed, erf
      and gelu also on band-pure inputs; tanh bit for bit at its band
      edges and on mixed bands, and timed there and on band-pure inputs;
+     sigmoid and silu (their FMA TwoProd path) bit for bit on its edge
+     classes, a strided view, a row and a column plane, and timed also
+     on x uniform in (-30, 30) against their bounds;
   6. the guard: ``guard_flags`` bit for bit its plain version at
      (3, 130), (4096, 4096) and the full-width KV pool plane, with the
      IEEE codes of the adversarial limb classes (NaN and Inf in each
@@ -1512,7 +1515,10 @@ def math_branch_inputs(torch, op, g):
     """Inputs on the card that cover each branch of ``op`` (erf's three
     bands, also interleaved element by element, log1p near and far,
     tanh's two forms, the identity bands, the saturations, +-0, +-inf,
-    nan) with normal limbs."""
+    nan) with normal limbs; for sigmoid and silu also the edge classes of
+    their FMA path (``math_variants.sigmoid_edges``: subnormal z, k ln2
+    cancelled by lo, |x| from 2^-150, signed-zero and subnormal limbs,
+    exact products, lo beyond hi, non-finite limbs)."""
     def u(a, b, n=4096):
         return torch.rand(n, generator=g, device="cuda",
                           dtype=torch.float64) * (b - a) + a
@@ -1539,6 +1545,11 @@ def math_branch_inputs(torch, op, g):
     }[op]
     x = torch.cat(parts + ([] if op == "pow" else [spec]))
     hi, lo = ff_limbs(torch, x)
+    if op in ("sigmoid", "silu"):        # the FMA path's edge classes
+        from repro_torch.benchmarks.math_variants import sigmoid_edges
+        edges = sigmoid_edges("cuda", seed=SEED)
+        return (torch.cat([hi] + [h for h, _ in edges.values()]),
+                torch.cat([lo] + [e for _, e in edges.values()]))
     if op != "pow":
         return (hi, lo)
     bh, bl = ff_limbs(torch, u(-8, 8, x.numel()))
@@ -1754,6 +1765,27 @@ def phase_ops_checks(torch):
         f"({edges[0].numel()} inputs: 0.35 and 2^-45 with their neighbours, "
         f"17-20, both signs, lo 0/-0/+-hi 2^-25, +-0, +-inf, nan) and on x "
         f"uniform in (-1, 1) at (512, 8192)")
+    # sigmoid and silu: the FMA path's edge classes one by one, the flat
+    # loop (contiguous planes) and for_each_element (a strided view, a row
+    # and a column plane) at MATH_BIG
+    from repro_torch.benchmarks.math_variants import sigmoid_edges
+    t0 = time.perf_counter()
+    edges = sigmoid_edges("cuda", seed=SEED + 1)
+    x = torch.rand(MATH_BIG, generator=g, device="cuda") * 60 - 30
+    xl = x * 1e-8 * torch.randn(x.shape, generator=g, device="cuda")
+    layouts = {"contiguous": (x, xl), "strided view": (x[:, 1::3],
+                                                      xl[:, 1::3]),
+               "row lo plane": (x, xl[:1]), "column hi plane": (x[:, :1], xl)}
+    for op in ("sigmoid", "silu"):
+        for what, args in list(edges.items()) + list(layouts.items()):
+            check("ff_math", f"{op} {what}", fm.math_elementwise(op, *args),
+                  fm.math_elementwise_plain(op, *args))
+    log(f"ff_math sigmoid, silu: kernel == plain bit for bit on the FMA "
+        f"path's edge classes ("
+        + ", ".join(f"{k} {v[0].numel()}" for k, v in edges.items())
+        + f") and, x uniform in (-30, 30), {MATH_BIG} contiguous, a strided "
+        f"view, a row lo plane and a column hi plane "
+        f"({time.perf_counter() - t0:.1f} s)")
     int_division_check(torch)
     torch.cuda.synchronize()
     return worst
@@ -1995,23 +2027,28 @@ def phase_ops_timing(torch, clock_hz):
                 peak_ops, 3), library=f"float64 {op}"))
             del x, h, lo, x64
     # tanh on mixed bands (x uniform in (-1, 1): about 35% in the small
-    # band) and uniform in each of its series' bands alone
+    # band) and uniform in each of its series' bands alone; sigmoid and
+    # silu on x uniform in (-30, 30) (both signs: z = exp(-|x|) to e^-30)
     from repro_torch.benchmarks.math_variants import TANH_BANDS
-    tanh_rows = {"uniform (-1, 1)": (-1.0, 1.0), **TANH_BANDS}
-    for band, (b0, b1) in tanh_rows.items():
+    banded = [("tanh", band, b) for band, b in
+              {"uniform (-1, 1)": (-1.0, 1.0), **TANH_BANDS}.items()]
+    banded += [(op, "uniform (-30, 30)", (-30.0, 30.0))
+               for op in ("sigmoid", "silu")]
+    for op, band, (b0, b1) in banded:
         x = b0 + (b1 - b0) * (1.0 - torch.rand((R, C), generator=g,
                                                device="cuda",
                                                dtype=torch.float64))
         h = x.float()
         lo = h * 1e-8 * torch.randn((R, C), generator=g, device="cuda")
         x64 = h.double() + lo.double()
-        rows["ff_math"].append(dict(op="tanh", band=band, shape=[R, C],
+        yard = f64.get(op, torch.tanh)
+        rows["ff_math"].append(dict(op=op, band=band, shape=[R, C],
                                     **time_kernel(
-            lambda: fm.math_elementwise("tanh", h, lo),
-            lambda: fm.math_elementwise("tanh", h, lo),
-            cuda_ms(lambda: fm.math_elementwise_plain("tanh", h, lo), 1),
-            lambda: torch.tanh(x64), 16 * h.numel(), math_ops("tanh", h),
-            peak_ops, 10), library="float64 tanh"))
+            lambda: fm.math_elementwise(op, h, lo),
+            lambda: fm.math_elementwise(op, h, lo),
+            cuda_ms(lambda: fm.math_elementwise_plain(op, h, lo), 1),
+            lambda: yard(x64), 16 * h.numel(), math_ops(op, h),
+            peak_ops, 10), library=f"float64 {op}"))
         del x, h, lo, x64
     for name, recs in rows.items():
         for r in recs:
@@ -2020,6 +2057,12 @@ def phase_ops_timing(torch, clock_hz):
                 f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}), plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms")
+    log("ff_math sigmoid / silu (FMA TwoProd): kernel / bound "
+        + "; ".join(f"{r['op']}{' ' + r['band'] if 'band' in r else ''} "
+                    f"{r['shape']} {r['ms']:.4f} / {r['bound_ms']:.4f} ms "
+                    f"= {r['ms'] / r['bound_ms']:.2f}x"
+                    for r in rows["ff_math"]
+                    if r["op"] in ("sigmoid", "silu")))
     return rows
 
 
@@ -3027,22 +3070,33 @@ def main() -> int:
 
     global T0
     T0 = time.perf_counter()
+    marks = [("start", T0)]
+
+    def mark(name):                      # a phase ends: its wall seconds
+        marks.append((name, time.perf_counter()))
+
     card = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     log(f"card: {card}; max SM clock {clock_mhz:.0f} MHz")
     phase_build(torch)
+    mark("build")
     errs = phase_kernel_checks(torch)
+    mark("kernel checks")
     matmul_launches, matmul_worst, matmul_rows = phase_matmul(
         torch, clock_mhz * 1e6)
+    mark("matmul")
     table_launches, fused_worst, fused_rows = phase_fused(torch,
                                                           clock_mhz * 1e6)
+    mark("fused")
     tune_launches, default_launches, ops_worst, ops_rows = phase_ops(
         torch, clock_mhz * 1e6)
+    mark("operators and math")
     from repro_torch.configs.granite_3_2b import CONFIG
     guard_err = phase_guard_checks(torch, CONFIG)
     gc.collect()
     torch.cuda.empty_cache()
     phase_small_engine(torch)
+    mark("guard checks, small engine")
     serve_launches, cfg, eng = phase_serve(torch, card)
     ff_math_launches = phase_serve_ff_math(torch, eng.params, cfg)
     gc.collect()
@@ -3056,10 +3110,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"serving engine freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
         f"GB still allocated")
+    mark("serving")
     phase_small_train(torch)
     train_launches = phase_train(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("training")
     launches = {"serve": serve_launches, "train": train_launches,
                 "matmul": matmul_launches, "table": table_launches,
                 "tune": tune_launches, "default_calls": default_launches,
@@ -3071,6 +3127,10 @@ def main() -> int:
                + ops_kernel_entries(launches, ops_worst, ops_rows)
                + [guard_timing(torch, cfg, path_counts(launches, "ff_guard"),
                                guard_err, clock_mhz * 1e6)])
+    mark("timing")
+    log("phase seconds: " + ", ".join(
+        f"{name} {t - t0:.1f}" for (_, t0), (name, t) in zip(marks,
+                                                            marks[1:])))
     if len(kernels) != len(launch_fns()):
         raise AssertionError(f"{len(kernels)} kernel entries")
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all")

@@ -1,24 +1,30 @@
-"""The ``ff_math`` kernel's erf, gelu and tanh design, one choice at a
-time, on the card::
+"""The ``ff_math`` kernel's erf, gelu, tanh, sigmoid and silu design, one
+choice at a time, on the card::
 
-    python -m repro_torch.benchmarks.math_variants [NAME ...] [--sass] \\
-        [--out rows.json]
+    python -m repro_torch.benchmarks.math_variants [NAME ...] \\
+        [--ops OP ...] [--baseline CSRC] [--sass] [--out rows.json]
 
 Each variant is a copy of ``csrc/`` with one design choice undone (a text
 edit of the sources, ``VARIANTS``), built with the port's ``nvcc`` flags
 into ``build/variants/<name>/`` (all at once), then swapped in for the
-``ff_math`` library: erf, gelu and tanh are checked bit for bit against
-their plain versions at (512, 8192) and tanh also on its band edges and
-a mixed tile, and timed by CUDA-graph replay at (4096, 4096) and (512,
-8192) on ``|N(0,1)| + 0.5`` (the operators phase's input), erf at (4096,
-4096) on its argument uniform in each band, and tanh at (4096, 4096) on
-x uniform in (-1, 1) (about 35% in its small band) and uniform in each
-band.  Each row also lists the kernels whose SASS differs from
-``shipped``'s (``cuobjdump -sass``, addresses and encodings dropped).
-``shipped`` is the sources as they are.  ``--sass`` also prints the
-loops of each variant's erf kernel (instructions and opcodes per loop).
-Needs a CUDA card and a checkout (the variants build into its
-``build/``).
+``ff_math`` library: each function of ``--ops`` (default all five) is
+checked bit for bit against its plain version at (512, 8192), tanh also
+on its band edges and a mixed tile, sigmoid and silu also on
+``sigmoid_edges``, a strided view and a row plane, and timed by
+CUDA-graph replay at (4096, 4096) and (512, 8192) on ``|N(0,1)| + 0.5``
+(the operators phase's input); erf also at (4096, 4096) on its argument
+uniform in each band, tanh on x uniform in (-1, 1) (about 35% in its
+small band) and uniform in each band, sigmoid and silu on x uniform in
+(-30, 30) at both shapes.  Each row also lists each kernel's registers
+and spill bytes (``-Xptxas -v``), the kernels whose SASS differs from
+``shipped``'s (``cuobjdump -sass``, addresses and encodings dropped), and
+the loops of the sigmoid and silu kernels with their f32 (FADD, FMUL,
+FFMA) and other instructions: one element a pass.  ``shipped`` is the
+sources as they are; ``--baseline`` builds another ``csrc/`` directory
+(the parent commit's, say) as a row named ``baseline``, so that two
+versions compare in one call.  ``--sass`` also prints the loops of each
+variant's erf kernel.  Needs a CUDA card and a checkout (the variants
+build into its ``build/``).
 """
 
 from __future__ import annotations
@@ -33,10 +39,15 @@ import re
 import shutil
 import subprocess
 import sys
-from typing import Dict, List, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 import torch
 
+from repro_torch.core import ffmath
+from repro_torch.core import transforms as T
 from repro_torch.kernels import build
 from repro_torch.kernels import ff_math as fm
 
@@ -53,8 +64,91 @@ TANH_SORTED: Tuple[Edit, ...] = (
      "  if (t.op == TANH) return launch_bands<TANH>(t, n, stream);\n"),
     ("ff_math.cu", "    case TANH: return launch<TANH>(t, grid, stream);\n",
      ""))
+# sigmoid and silu on Dekker's TwoProd everywhere (the FMA twins unused)
+SIGMOID_DEKKER: Tuple[Edit, ...] = (
+    ("ff_math.cu", "return sigmoid22_fma(h, l);", "return sigmoid22(h, l);"),
+    ("ff_math.cu", "return silu22_fma(h, l);", "return silu22(h, l);"))
+NO_FLAT: Tuple[Edit, ...] = (
+    ("ff_math.cu", "constexpr bool kFlat = OP == SIGMOID || OP == SILU;",
+     "constexpr bool kFlat = false;"),)
+# the flat loop of sigmoid and silu, and two alternatives to it
+FLAT_LOOP = """      for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+           i < n; i += stride) {
+        const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
+        t.out_hi[i] = v.hi;
+        t.out_lo[i] = v.lo;
+      }
+"""
+FLAT_32 = """      if (n < (1LL << 31)) {
+        for (int i = blockIdx.x * blockDim.x + threadIdx.x;
+             i < static_cast<int>(n); i += static_cast<int>(stride)) {
+          const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
+          t.out_hi[i] = v.hi;
+          t.out_lo[i] = v.lo;
+        }
+        return;
+      }
+""" + FLAT_LOOP
+FLAT_TWO = """      for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+           i < n; i += 2 * stride) {
+        const long long j = i + stride < n ? i + stride : i;
+        const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
+        const ff2 w = apply<OP>(t.in[0][j], t.in[1][j], 0.0f, 0.0f);
+        t.out_hi[i] = v.hi;
+        t.out_lo[i] = v.lo;
+        t.out_hi[j] = w.hi;
+        t.out_lo[j] = w.lo;
+      }
+"""
 VARIANTS: Dict[str, Tuple[Edit, ...]] = {
     "shipped": (),
+    # sigmoid and silu as they were: Dekker's TwoProd, the strided loop
+    "dekker": SIGMOID_DEKKER + NO_FLAT,
+    # each TwoProd of sigmoid and silu checks its own product, operands and
+    # zero error, and runs Dekker's out of line otherwise, in place of the
+    # element's test on its reduced argument (a test of the product alone
+    # is not enough: on lo limbs far beyond hi an operand's split
+    # overflows under a product below 2^100)
+    "per-product guard": (
+        ("ff_eft.cuh", "// Mul22 and Div22 on two_prod_fma.\n",
+         "__device__ __noinline__ ff2 two_prod_far(float a, float b) {\n"
+         "  return two_prod(a, b);\n}\n"
+         "__device__ __forceinline__ ff2 two_prod_guarded(float a, "
+         "float b) {\n"
+         "  ff2 t = two_prod_fma(a, b);\n"
+         "  const float ax = fabsf(t.hi);\n"
+         "  if (!(ax >= 0x1p-100f && ax < 0x1p+100f &&\n"
+         "        fmaxf(fabsf(a), fabsf(b)) < 0x1p+100f) || t.lo == 0.0f)\n"
+         "    t = two_prod_far(a, b);\n"
+         "  return t;\n}\n\n"
+         "// Mul22 and Div22 on two_prod_fma.\n"),
+        ("ff_eft.cuh", "  ff2 t = two_prod_fma(a.hi, b.hi);\n  float u",
+         "  ff2 t = two_prod_guarded(a.hi, b.hi);\n  float u"),
+        ("ff_eft.cuh", "  ff2 t = two_prod_fma(ch, b.hi);\n",
+         "  ff2 t = two_prod_guarded(ch, b.hi);\n"),
+        ("ff_eft.cuh", "const ff2 t = two_prod_fma(xh, s.hi);",
+         "const ff2 t = two_prod_guarded(xh, s.hi);"),
+        ("ff_eft.cuh",
+         "  *ok = ar <= 0.5f && (ar >= 0x1p-48f || ar == 0.0f);\n",
+         "  *ok = true;\n"),
+        ("ff_eft.cuh",
+         "  if (!(ok && at >= 0x1p-100f && at < 0x1p+100f && u != 0.0f))\n",
+         "  if (!ok)\n")),
+    # the contiguous planes through for_each_element, as strided ones
+    "no contiguous fast path": NO_FLAT,
+    # the flat loop with a 32-bit index where the extent fits
+    "flat 32-bit index": (("ff_math.cu", FLAT_LOOP, FLAT_32),),
+    # two elements a thread and pass, for instruction-level parallelism
+    "two elements a thread": (("ff_math.cu", FLAT_LOOP, FLAT_TWO),),
+    # the FMA twins in exp_poly only: Dekker's TwoProd in the division and
+    # in silu's last product (where the remaining time goes)
+    "fma in exp_poly only": (
+        ("ff_eft.cuh", "  ff2 t = two_prod_fma(ch, b.hi);\n",
+         "  ff2 t = two_prod(ch, b.hi);\n"),
+        ("ff_eft.cuh", "const ff2 t = two_prod_fma(xh, s.hi);",
+         "const ff2 t = two_prod(xh, s.hi);")),
     # one thread an element in the grid-stride kernel: warps straddle bands
     "no band sort": (
         ("ff_math.cu",
@@ -85,7 +179,8 @@ VARIANTS: Dict[str, Tuple[Edit, ...]] = {
     "fallbacks inline": tuple(
         ("ff_eft.cuh", f"__device__ __noinline__ ff2 {fn}(",
          f"__device__ __forceinline__ ff2 {fn}(")
-        for fn in ("div22_far", "erf_small_any", "erf_mid_any")),
+        for fn in ("div22_far", "erf_small_any", "erf_mid_any",
+                   "sigmoid22_far", "silu22_far")),
     "mid series unrolled": (
         ("ff_eft.cuh", "#pragma unroll 4\n  for (int n = 1; n < kErfPosTerms",
          "#pragma unroll\n  for (int n = 1; n < kErfPosTerms"),),
@@ -120,6 +215,10 @@ BANDS = {"small": (0.0, 1.0), "mid": (1.0, 4.0), "big": (4.0, 8.0)}
 # tanh's two series' bands of |x| (the identity band below 2^-45 is empty
 # at these sizes)
 TANH_BANDS = {"small": (0.0, 0.35), "large": (0.3501, 8.0)}
+OPS = ("erf", "gelu", "tanh", "sigmoid", "silu")
+F32_OPS = ("FADD", "FMUL", "FFMA")
+# the kernel instances whose loops are counted: sigmoid's and silu's
+COUNTED = {"sigmoid": "math_kernelILi5E", "silu": "math_kernelILi8E"}
 
 
 def graph_ms(fn, iters: int = 5) -> float:
@@ -145,14 +244,22 @@ def graph_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_variants(names) -> Dict[str, str]:
-    """Build each variant's libff_math.so; returns name -> nvcc log."""
+def variant_dir(name: str) -> Path:
+    return build.ROOT / "build" / "variants" / name.replace(" ", "_")
+
+
+def build_variants(names, baseline: Optional[str] = None) -> Dict[str, str]:
+    """Build each variant's libff_math.so (and ``baseline``'s, from that
+    csrc/ directory as it is); returns name -> nvcc log."""
     nvcc, procs = build._nvcc(), {}
-    for name in names:
-        d = build.ROOT / "build" / "variants" / name.replace(" ", "_")
+    sources = {name: (build.CSRC, VARIANTS[name]) for name in names}
+    if baseline:
+        sources["baseline"] = (Path(baseline), ())
+    for name, (src, edits) in sources.items():
+        d = variant_dir(name)
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(build.CSRC, d)
-        for fname, old, new in VARIANTS[name]:
+        shutil.copytree(src, d)
+        for fname, old, new in edits:
             text = (d / fname).read_text()
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name!r}: {old!r} not found "
@@ -172,42 +279,70 @@ def build_variants(names) -> Dict[str, str]:
     return logs
 
 
-def sass_loops(lib) -> List[dict]:
-    """The loops of the erf kernel's SASS (``cuobjdump -sass``), found by
-    their backward branches: each one's address range, instruction count
-    and opcode counts."""
+def cuobjdump_sass(lib) -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+    return subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
                            str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    name = ("band_kernelILi6E" if "band_kernelILi6E" in sass
-            else "math_kernelILi6E")                        # ERF's instance
-    body = sass[sass.index(name):]
-    body = body[:body.find("Function :")] if "Function :" in body else body
-    ins = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
+
+
+def sass_instructions(body: str) -> List[Tuple[int, str, str]]:
+    """(address, opcode, operands) of each instruction of a function's
+    SASS."""
+    return [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)([^;]*);",
         body)]
-    loops = []
+
+
+def loops(ins, least: int = 1) -> List[dict]:
+    """The loops of one function's SASS, found by their backward branches:
+    each one's address range, instruction count and opcode counts, with
+    the f32 arithmetic (FADD, FMUL, FFMA) apart from the rest."""
+    out = []
     for addr, op, rest in ins:
         t = re.search(r"0x([0-9a-f]+)", rest)
         if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
             lo = int(t.group(1), 16)
             ops = collections.Counter(o.split(".")[0] for a, o, _ in ins
                                       if lo <= a <= addr)
-            loops.append({"from": hex(lo), "to": hex(addr),
-                          "instructions": sum(ops.values()),
-                          "ops": dict(ops.most_common(8))})
-    return loops
+            n = sum(ops.values())
+            if n < least:
+                continue
+            f32 = sum(ops[o] for o in F32_OPS)
+            out.append({"from": hex(lo), "to": hex(addr), "instructions": n,
+                        "f32": f32, "other": n - f32,
+                        "ops": dict(ops.most_common(8)),
+                        "other_ops": dict(collections.Counter(
+                            {o: c for o, c in ops.items()
+                             if o not in F32_OPS}).most_common(8))})
+    return out
 
 
-def sass_functions(lib) -> Dict[str, str]:
-    """Each function of the library's SASS (``cuobjdump -sass``), keyed by
-    its name without the anonymous namespace's per-file tag, its body
-    without addresses and encodings."""
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    sass = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
-                           str(lib)], capture_output=True, text=True,
-                          check=True).stdout
+def function_body(sass: str, name: str) -> str:
+    body = sass[sass.index(name):]
+    return body[:body.find("Function :")] if "Function :" in body else body
+
+
+def sass_loops(lib) -> List[dict]:
+    """The loops of the erf kernel's SASS."""
+    sass = cuobjdump_sass(lib)
+    name = ("band_kernelILi6E" if "band_kernelILi6E" in sass
+            else "math_kernelILi6E")                        # ERF's instance
+    return loops(sass_instructions(function_body(sass, name)))
+
+
+def element_loops(sass: str) -> Dict[str, List[dict]]:
+    """The loops of the sigmoid and silu kernels (one element a pass; the
+    flat loop over contiguous planes and for_each_element's two) of at
+    least 64 instructions."""
+    return {op: loops(sass_instructions(function_body(sass, name)), 64)
+            for op, name in COUNTED.items()}
+
+
+def sass_functions(sass: str) -> Dict[str, str]:
+    """Each function of the library's SASS, keyed by its name without the
+    anonymous namespace's per-file tag, its body without addresses and
+    encodings."""
     out = {}
     for part in sass.split("Function : ")[1:]:
         name, body = part.split("\n", 1)
@@ -219,16 +354,21 @@ def sass_functions(lib) -> Dict[str, str]:
     return out
 
 
-def registers(log: str) -> Dict[str, int]:
-    """Registers of each band-sorted and grid-stride kernel instance, by
-    its op code (``-Xptxas -v``)."""
+def registers(log: str) -> Dict[str, dict]:
+    """Registers and spill bytes of each band-sorted and grid-stride kernel
+    instance, by its op code (``-Xptxas -v``)."""
     out = {}
     for block in log.split("Compiling entry function")[1:]:
         m = re.search(r"(band_kernel|math_kernel)ILi(\d+)E",
                       block.split("\n", 1)[0])
         regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
         if m and regs:
-            out[f"{m.group(1)}<{m.group(2)}>"] = int(regs.group(1))
+            out[f"{m.group(1)}<{m.group(2)}>"] = {
+                "registers": int(regs.group(1)),
+                "spill_bytes": (int(spill.group(1)) + int(spill.group(2))
+                                if spill else None)}
     return out
 
 
@@ -249,9 +389,103 @@ def tanh_edges(device) -> Tuple[torch.Tensor, torch.Tensor]:
                        torch.zeros_like(spec)]))
 
 
+def cancelling_lo(yh: torch.Tensor) -> torch.Tensor:
+    """For exp22's argument hi limbs ``yh``, the lo limb near RN(k L3 -
+    s.hi), s the reduction's TwoSum of yh - k L1 and -k L2: the reduced
+    argument r = add212(s, RN(lo - k L3)) then cancels to s.lo, or to 0
+    where that TwoSum is exact."""
+    xc = yh.clamp(ffmath._EXP_CLIP_LO, ffmath._EXP_CLIP_HI)
+    kf = torch.round(xc * ffmath._INV_LN2)
+    sh, _ = T.two_sum(xc - kf * ffmath._EXP_L1, -(kf * ffmath._EXP_L2))
+    return ((kf * ffmath._EXP_L3).double() - sh.double()).float()
+
+
+def sigmoid_edges(device, seed: int = 0) -> Dict[str, Tuple[torch.Tensor,
+                                                             torch.Tensor]]:
+    """The edge classes of sigmoid22 and silu22 on the FMA TwoProd, as FF
+    limbs (hi, lo) by class: where z = exp(-|x|) turns subnormal (x in
+    (-110, -60)); FF x = +-k ln2 (k = 1..100, hi and its neighbours) with a
+    lo that cancels the reduced argument to 0 or to a few ulps of the
+    reduction's grid, and its neighbours, and for k = 0 hi + lo = +-2^-120
+    to 2^-43; |x| from 2^-150 to 2^-40; lo
+    limbs +0, -0 and +-hi 2^-25 on x uniform in (-30, 30); exact products
+    (hi = m 2^e, m odd below 64, lo +-0: errors that are zeros of either
+    sign); subnormal limbs; lo limbs beyond hi (up to hi 2^130, inf);
+    +-0, +-inf and nan with lo +-0, and non-finite lo limbs.  Every class
+    but the non-finite one also has lo +-0 and +-hi 2^-25 where that
+    applies."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def lo4(h):
+        h = np.asarray(h, f32)
+        s = (h * f32(2.0 ** -25)).astype(f32)
+        z = np.zeros_like(h)
+        return (np.concatenate([h, h, h, h]),
+                np.concatenate([z, -z, s, -s]))
+
+    out = {"z subnormal": lo4(rng.uniform(-110, -60, 512))}
+    y = torch.tensor([-k * math.log(2.0) for k in range(1, 101)],
+                     dtype=torch.float32)
+    y = torch.cat([y, torch.nextafter(y, torch.full_like(y, -math.inf)),
+                   torch.nextafter(y, torch.zeros_like(y))])
+    base = cancelling_lo(y)
+    ys, ls = [y], [base]
+    for d in (1, 2):
+        up = down = base
+        for _ in range(d):
+            up = torch.nextafter(up, torch.full_like(up, math.inf))
+            down = torch.nextafter(down, torch.full_like(down, -math.inf))
+        ys += [y, y]
+        ls += [up, down]
+    # k = 0: hi = 2^e, lo = -(hi - 2^(e-23)), so r = 2^(e-23), to 2^-120
+    e = np.arange(-97, -20, dtype=np.float64)
+    ys.append(torch.from_numpy(np.exp2(e).astype(f32)))
+    ls.append(torch.from_numpy((-(np.exp2(e) - np.exp2(e - 23))).astype(f32)))
+    yh, yl = torch.cat(ys).numpy(), torch.cat(ls).numpy()
+    # x < 0 is y itself, x > 0 is -y (sigmoid's argument is -|x|)
+    out["k ln2 cancelling"] = (np.concatenate([yh, -yh]),
+                               np.concatenate([yl, -yl]))
+    e = rng.integers(-150, -39, 512)
+    tiny = np.ldexp(rng.uniform(1, 2, 512), e) * rng.choice([-1, 1], 512)
+    out["tiny |x|"] = lo4(tiny.astype(f32))
+    out["lo signed zeros"] = lo4(rng.uniform(-30, 30, 2048))
+    m = np.arange(1, 64, 2, dtype=np.float64)
+    r = (m[:, None] * 2.0 ** np.arange(-20, 7)[None, :]).ravel()
+    r = np.concatenate([r, -r]).astype(f32)
+    out["exact products"] = (np.concatenate([r, r]),
+                             np.concatenate([np.zeros_like(r),
+                                             -np.zeros_like(r)]))
+    sub = np.ldexp(rng.uniform(1, 2, 128), rng.integers(-149, -126, 128))
+    sub = (sub * rng.choice([-1, 1], 128)).astype(f32)
+    hn = rng.uniform(-30, 30, 128).astype(f32)
+    out["subnormal limbs"] = (np.concatenate([sub, hn, hn]),
+                              np.concatenate([np.zeros_like(sub), sub, -sub]))
+    h = rng.uniform(-30, 30, 256).astype(f32)
+    with np.errstate(over="ignore"):
+        lo = np.concatenate([(h * f32(2.0 ** k)).astype(f32)
+                             for k in (-10, 0, 10, 60, 130)])
+    hh = np.tile(h, 5)
+    out["lo beyond hi"] = (np.concatenate([hh, hh]),
+                           np.concatenate([lo, -lo]))
+    spec = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], f32)
+    fin = np.array([1.0, -2.0, 30.0], f32)
+    bad = np.array([np.inf, -np.inf, np.nan], f32)
+    out["non-finite"] = (np.concatenate([spec, spec, fin, fin, fin]),
+                         np.concatenate([np.zeros(5, f32), -np.zeros(5, f32),
+                                         bad, -bad, bad[::-1]]))
+    return {k: (torch.from_numpy(np.ascontiguousarray(a, f32)).to(device),
+                torch.from_numpy(np.ascontiguousarray(b, f32)).to(device))
+            for k, (a, b) in out.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--ops", nargs="+", choices=OPS, default=list(OPS),
+                    help="the functions to check and time (default all)")
+    ap.add_argument("--baseline", help="another csrc/ directory, built and "
+                    "timed as the row 'baseline'")
     ap.add_argument("--out", help="write the rows as JSON here")
     ap.add_argument("--sass", action="store_true",
                     help="also print the loops of each erf kernel's SASS")
@@ -263,14 +497,14 @@ def main(argv=None) -> int:
     if unknown:
         raise KeyError(f"variants {sorted(unknown)}; known: {list(VARIANTS)}")
     names = ["shipped"] + [n for n in args.names if n != "shipped"]
-    logs = build_variants(names)
-    lib_of = {n: build.ROOT / "build" / "variants" / n.replace(" ", "_")
-              / "libff_math.so" for n in names}
+    logs = build_variants(names, args.baseline)
+    rows_of = list(args.names) + (["baseline"] if args.baseline else [])
+    lib_of = {n: variant_dir(n) / "libff_math.so" for n in logs}
     if args.sass:
-        for name in args.names:
+        for name in rows_of:
             for loop in sass_loops(lib_of[name]):
                 print(json.dumps({"variant": name, **loop}), flush=True)
-    base_sass = sass_functions(lib_of["shipped"])
+    base_sass = sass_functions(cuobjdump_sass(lib_of["shipped"]))
     g = torch.Generator(device="cuda").manual_seed(5)
 
     def limbs(h):
@@ -284,18 +518,32 @@ def main(argv=None) -> int:
         u = torch.rand(shape, generator=g, device="cuda", dtype=torch.float64)
         return limbs((b0 + (b1 - b0) * (1.0 - u)).float())
 
+    ops = args.ops
     uniform = limbs(torch.rand((4096, 4096), generator=g, device="cuda") * 2
                     - 1)
-    inputs = {"4096x4096": mixed((4096, 4096)), "512x8192": mixed((512, 8192)),
-              **{f"{k} band": band(*v) for k, v in BANDS.items()}}
-    tanh_inputs = {"4096x4096": inputs["4096x4096"],
-                   "512x8192": inputs["512x8192"],
-                   "uniform (-1, 1)": uniform,
-                   **{f"{k} band": band(*v) for k, v in TANH_BANDS.items()}}
+    wide = {s: limbs(torch.rand(s, generator=g, device="cuda") * 60 - 30)
+            for s in ((4096, 4096), (512, 8192))}
+    inputs = {"4096x4096": mixed((4096, 4096)), "512x8192": mixed((512, 8192))}
+    timed = {op: dict(inputs) for op in ops}
+    if "erf" in ops:
+        timed["erf"].update({f"{k} band": band(*v) for k, v in BANDS.items()})
+    if "tanh" in ops:
+        timed["tanh"].update({"uniform (-1, 1)": uniform, **{
+            f"{k} band": band(*v) for k, v in TANH_BANDS.items()}})
+    for op in {"sigmoid", "silu"} & set(ops):
+        timed[op].update({f"uniform (-30, 30) {s[0]}x{s[1]}": v
+                          for s, v in wide.items()})
     check = mixed((512, 8192))
-    checks = {op: [check] for op in ("erf", "gelu")}
-    checks["tanh"] = [check, tanh_edges("cuda"),
-                      tuple(x[:512] for x in uniform)]
+    checks = {op: [check] for op in ops}
+    if "tanh" in ops:
+        checks["tanh"] += [tanh_edges("cuda"),
+                           tuple(x[:512] for x in uniform)]
+    edges = sigmoid_edges("cuda")
+    eh = torch.cat([h for h, _ in edges.values()])
+    el = torch.cat([lo for _, lo in edges.values()])
+    wh, wl = wide[(512, 8192)]
+    for op in {"sigmoid", "silu"} & set(ops):
+        checks[op] += [(eh, el), (wh[:, ::3], wl[:, ::3]), (wh, wl[:1])]
     want = {op: [fm.math_elementwise_plain(op, *c) for c in cs]
             for op, cs in checks.items()}
     key = ("ff_math", "ff_math_f32")
@@ -303,7 +551,7 @@ def main(argv=None) -> int:
     card = torch.cuda.get_device_name(0)
     rows = []
     try:
-        for name in args.names:
+        for name in rows_of:
             fn = ctypes.CDLL(str(lib_of[name])).ff_math_f32
             fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], \
                 ctypes.c_int
@@ -312,21 +560,18 @@ def main(argv=None) -> int:
                        for op, cs in checks.items()
                        for c, w in zip(cs, want[op])
                        for a, b in zip(fm.math_elementwise(op, *c), w))
-            sass = sass_functions(lib_of[name])
+            text = cuobjdump_sass(lib_of[name])
+            sass = sass_functions(text)
             row = {"variant": name, "bits_equal": same, "card": card,
                    "registers": registers(logs[name]),
                    "sass_differs_from_shipped": sorted(
                        k for k in set(sass) | set(base_sass)
-                       if sass.get(k) != base_sass.get(k))}
-            for what, (h, lo) in inputs.items():
-                for op in ("erf", "gelu"):
-                    if what.endswith("band") and op == "gelu":
-                        continue
+                       if sass.get(k) != base_sass.get(k)),
+                   "element_loops": element_loops(text)}
+            for op in ops:
+                for what, (h, lo) in timed[op].items():
                     row[f"{op} {what}"] = graph_ms(
                         lambda: fm.math_elementwise(op, h, lo))
-            for what, (h, lo) in tanh_inputs.items():
-                row[f"tanh {what}"] = graph_ms(
-                    lambda: fm.math_elementwise("tanh", h, lo))
             rows.append(row)
             print(json.dumps(row), flush=True)
             if not same:

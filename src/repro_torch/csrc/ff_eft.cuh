@@ -717,4 +717,157 @@ __device__ __forceinline__ ff2 pow22(float ah, float al, float bh,
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// sigmoid22 and silu22 bit for bit, on the FMA TwoProd (the ff_math kernel's
+// SIGMOID and SILU instances).  Dekker's two_prod costs 17 instructions,
+// two_prod_fma 2, and where Dekker's is exact both give the same (x, y)
+// value; these paths run ten of them an element.  The twins below are named
+// *_fma rather than a template parameter of mul22, div22 and exp_poly: the
+// Dekker forms that every other kernel calls stay as they are.
+//
+// Exactness.  Dekker's two_prod(a, b) is exact when neither split overflows
+// (|a|, |b| < 2^115) and no partial product underflows: a_lo b_lo is a
+// multiple of 2^(ea + eb - 46) (ea, eb the exponents), on the f32 grid for
+// ea + eb >= -103, which |a b| >= 2^-100 ensures.  The products, for an
+// element whose reduced argument r = exp_reduce(-|x|) has |r.hi| <= 1/2:
+//   - exp_poly's Horner, w.hi r.hi: w.hi in [2^-16, 1] (W's coefficients
+//     and |r| <= 1/2), so |r.hi| >= 2^-48 gives >= 2^-64;
+//   - r.hi r.hi >= 2^-96, and z.hi w.hi >= 2^-98 (w.hi ~ W(r) >= 0.4);
+//   - div22's ch d.hi, d = 1 + z, z = exp(-|x|) in [0, 1.65]: d.hi == 1
+//     where z.hi < 2^-25, and Dekker's split of 1 is (1, 0), so its
+//     partial products are ch's halves themselves, exact for any ch,
+//     subnormal too; else ch d.hi ~ n.hi >= z.hi >= 2^-25;
+//   - silu's x.hi s.hi: tested on its rounded product, 2^-100 <= |t.hi| <
+//     2^100.  Then both operands are normal and below 2^115: s.hi <= 1;
+//     for x > 0, s.hi >= 0.37, so |x.hi| < 2^102; for x < 0, s > 0 only
+//     above x = -105, so s.hi >= 2^-100 / 105.
+// r.hi == 0 (x = +-0, or an FF x that cancels k ln2) makes those products
+// zero: exact too.  So an element takes this path where |r.hi| <= 1/2 and
+// (|r.hi| >= 2^-48 or r.hi == 0), and for silu where t.hi passes its test;
+// nan and +-inf pass through the same selections as in exp22 and sigmoid22
+// (their r comes from the clamped argument).  Every other element runs
+// sigmoid22 / silu22 itself, out of line (like div22_far): |x| below
+// 2^-48 (where r is x), r.hi cancelled below 2^-48, silu's |x s| below
+// 2^-100 (x below ~-73.6), limbs that break |r.hi| <= 1/2.
+//
+// Signed zeros.  Where the exact product is an f32, two_prod_fma gives
+// y = +0, while Dekker's y = a_lo b_lo - err3 is -0 when one split low half
+// is +0 (a_lo == a - a_hi is never -0) and the other negative.  At a Mul22
+// that zero enters u = y + (a.hi b.lo + a.lo b.hi), which differs only if
+// the sum of the cross products is -0, and then only in the sign of the
+// output's lo limb.  Where each such lo limb goes:
+//   - Horner steps: into add22(w, {W_H[j], W_L[j]}), whose w.lo + W_L[j] is
+//     W_L[j] for j > 0, and +0 for W_L[0] == +0: gone;
+//   - r r: a square's split halves are equal, so Dekker's y is +0: none;
+//   - z w: into add22(r, q), then into exp22's add212(em1, 1), whose
+//     TwoSum with 1 has an error of +0 or nonzero, so the lo limb's sum with
+//     it drops the sign: gone;
+//   - div22: x1 = a.hi - t.hi is never -0, so x1 - t.lo is the same for
+//     either zero (as in div22_by): gone;
+//   - silu's x s: its lo limb is the output's.  There u == 0 sends the
+//     element to silu22 (one test; no input found that reaches it, but
+//     the operands {-(1 + 2^-23), -0} and {0.5, +0} show the pattern).
+// tests/test_torch_math_fma.py emulates this path exactly on the CPU and
+// holds it to sigmoid22 and silu22 on these inputs' classes.
+// ---------------------------------------------------------------------------
+
+// Mul22 and Div22 on two_prod_fma.
+__device__ __forceinline__ ff2 mul22_fma(ff2 a, ff2 b) {
+  ff2 t = two_prod_fma(a.hi, b.hi);
+  float u = add(t.lo, add(mul(a.hi, b.lo), mul(a.lo, b.hi)));
+  return fast_two_sum(t.hi, u);
+}
+
+__device__ __forceinline__ ff2 div22_fma(ff2 a, ff2 b) {
+  float ch = dvd(a.hi, b.hi);
+  ff2 t = two_prod_fma(ch, b.hi);
+  float cl = dvd(sub(add(sub(sub(a.hi, t.hi), t.lo), a.lo), mul(ch, b.lo)),
+                 b.hi);
+  return fast_two_sum(ch, cl);
+}
+
+// exp_poly on mul22_fma (the same constants and op order).
+__device__ __forceinline__ ff2 exp_poly_fma(ff2 r) {
+  const float W_F32[6] = {0x1.a01a02p-16f, 0x1.71de3ap-19f, 0x1.27e4fcp-22f,
+                          0x1.ae6456p-26f, 0x1.1eed8ep-29f, 0x1.612462p-33f};
+  const float W_H[6] = {0x1p-1f, 0x1.555556p-3f, 0x1.555556p-5f,
+                        0x1.111112p-7f, 0x1.6c16c2p-10f, 0x1.a01a02p-13f};
+  const float W_L[6] = {0.0f, -0x1.555556p-28f, -0x1.555556p-30f,
+                        -0x1.dddddep-32f, -0x1.27d27ep-35f,
+                        -0x1.7f97fap-39f};
+  float t = W_F32[5];
+#pragma unroll
+  for (int i = 4; i >= 0; --i) t = add(mul(t, r.hi), W_F32[i]);
+  ff2 w = {t, 0.0f};
+#pragma unroll
+  for (int j = 5; j >= 0; --j) {
+    w = mul22_fma(w, r);
+    w = add22(w, {W_H[j], W_L[j]});
+  }
+  ff2 z = mul22_fma(r, r);
+  ff2 q = mul22_fma(z, w);
+  return add22(r, q);
+}
+
+// exp22 on exp_poly_fma; *ok: its reduced argument is in the domain above.
+__device__ __forceinline__ ff2 exp22_fma(float xh, float xl, bool* ok) {
+  int k;
+  ff2 r = exp_reduce(xh, xl, &k);
+  const float ar = fabsf(r.hi);
+  *ok = ar <= 0.5f && (ar >= 0x1p-48f || ar == 0.0f);
+  ff2 em1 = exp_poly_fma(r);
+  ff2 p = add212(em1, 1.0f);
+  ff2 e = scale2k(p.hi, p.lo, k);
+  bool big = xh > kExpClipHi;
+  bool tiny = xh < kExpClipLo;
+  float eh = big ? inf32() : (tiny ? 0.0f : e.hi);
+  float el = (big || tiny || eh == inf32()) ? 0.0f : e.lo;
+  if (xh != xh) return {xh, xh};
+  return {eh, el};
+}
+
+// sigmoid22 with the twins; *ok as exp22_fma's.
+__device__ __forceinline__ ff2 sigmoid22_fma_body(float xh, float xl,
+                                                  bool* ok) {
+  float ns = xh < 0.0f ? 1.0f : -1.0f;          // -sgn
+  ff2 z = exp22_fma(mul(ns, xh), mul(ns, xl), ok);
+  ff2 d = add212(z, 1.0f);
+  ff2 n = xh >= 0.0f ? ff2{1.0f, 0.0f} : z;
+  ff2 r = div22_fma(n, d);
+  if (xh != xh) return {xh, xh};
+  return r;
+}
+
+// The Dekker bodies, out of line: they run only outside the domain.
+__device__ __noinline__ ff2 sigmoid22_far(float xh, float xl) {
+  return sigmoid22(xh, xl);
+}
+__device__ __noinline__ ff2 silu22_far(float xh, float xl) {
+  return silu22(xh, xl);
+}
+
+// sigmoid22(xh, xl), bit for bit.
+__device__ __forceinline__ ff2 sigmoid22_fma(float xh, float xl) {
+  bool ok;
+  ff2 r = sigmoid22_fma_body(xh, xl, &ok);
+  if (!ok) r = sigmoid22_far(xh, xl);
+  return r;
+}
+
+// silu22(xh, xl), bit for bit.
+__device__ __forceinline__ ff2 silu22_fma(float xh, float xl) {
+  if (xh == 0.0f) return {xh, 0.0f};
+  if (xh == -inf32()) return {0.0f, 0.0f};
+  if (xh == inf32()) return {inf32(), 0.0f};
+  bool ok;
+  const ff2 s = sigmoid22_fma_body(xh, xl, &ok);
+  const ff2 t = two_prod_fma(xh, s.hi);                 // mul22({xh, xl}, s)
+  const float u = add(t.lo, add(mul(xh, s.lo), mul(xl, s.hi)));
+  const float at = fabsf(t.hi);
+  ff2 r = fast_two_sum(t.hi, u);
+  if (!(ok && at >= 0x1p-100f && at < 0x1p+100f && u != 0.0f))
+    r = silu22_far(xh, xl);
+  return r;
+}
+
 }  // namespace ffk

@@ -14,41 +14,44 @@
 // instructions per byte, far above the ~10 per byte at which the H100's
 // memory keeps up, so the instruction rate bounds every function.
 //
-// Design: one kernel per function (a template instance: each carries only
-// its own live set).  The device twins of ff_eft.cuh branch where the
-// reference selects, so an element runs only the branch it takes (tanh:
-// the identity, the Maclaurin kernel or the expm1 form, by tanh_band).
-// Eight functions run one thread per element in a grid-stride loop over
-// strided operand planes (ff_planes.cuh): their branches are short.  For
-// tanh the band sort below is faster on mixed bands (x uniform in (-1, 1))
-// but more than 5% slower on band-pure input, so tanh stays in this loop
-// (repro_torch.benchmarks.math_variants "tanh band sort").  erf and gelu branch into series of very different
-// lengths (erf22's bands: the alternating series on |x| <= 1, the positive
-// series to 4, the asymptotic form beyond), and a warp whose elements
-// straddle a band edge would run two series.  Their kernel (band_kernel)
-// takes one tile of kTile elements a block: it stages the tile's limbs in
-// shared memory, classifies each element by the band it takes (erf_band;
-// gelu_band, on gelu22's own x / sqrt2), ranks it within its band by warp
-// ballots and a block prefix of the warps' counts, and writes the tile's
-// slots into one list, band by band, the costliest first.  Each warp then
-// evaluates 32 consecutive entries of the list, so all but the warps at
-// the two or three band edges of a tile run one series, and writes each
-// result back into its element's slot; the tile leaves in coalesced
-// stores (on a mixed input 1.7x faster than one thread an element; 5-12%
-// slower on a tile of one band).  Inside the series every division is by
-// an integer and exact without the IEEE division (div22_int / div22_odd,
-// ff_eft.cuh): a multiply by RN(1/d) and two FMAs, no MUFU, FCHK or slow
-// path.  The 16 small-band terms are unrolled, so their divisors fold to
-// immediates; the 59 mid-band terms are unrolled by 4 with RN(1/(2n+1))
-// from the constant table (fully unrolled, ~40 KB of instructions slow
-// mixed tiles ~35%).  The paths off the series' range (div22 beyond
-// 2^100, a lo limb larger than hi) stay out of line, where their code
-// costs no instruction fetch.  The effect of each choice is measured by
+// Design: one kernel per function (a template instance: each carries only its
+// own live set).  The device twins of ff_eft.cuh branch where the reference
+// selects, so an element runs only the branch it takes (tanh: the identity,
+// the Maclaurin kernel or the expm1 form, by tanh_band).  Eight functions run
+// one thread per element in a grid-stride loop over strided operand planes
+// (ff_planes.cuh): their branches are short.  For tanh the band sort below is
+// faster on mixed bands (x uniform in (-1, 1)) but more than 5% slower on
+// band-pure input, so tanh stays in this loop
+// (repro_torch.benchmarks.math_variants "tanh band sort").  sigmoid and silu
+// run each TwoProd as a multiply and an FMA (sigmoid22_fma and silu22_fma,
+// ff_eft.cuh) where one test on the reduced argument, and silu's on its last
+// product, proves Dekker's TwoProd exact, and sigmoid22 / silu22 themselves
+// out of line elsewhere; on contiguous planes they take a flat index (kFlat).
+// erf and gelu branch into series of very different lengths (erf22's bands:
+// the alternating series on |x| <= 1, the positive series to 4, the
+// asymptotic form beyond), and a warp whose elements straddle a band edge
+// would run two series.  Their kernel (band_kernel) takes one tile of kTile
+// elements a block: it stages the tile's limbs in shared memory, classifies
+// each element by the band it takes (erf_band; gelu_band, on gelu22's own x /
+// sqrt2), ranks it within its band by warp ballots and a block prefix of the
+// warps' counts, and writes the tile's slots into one list, band by band, the
+// costliest first.  Each warp then evaluates 32 consecutive entries of the
+// list, so all but the warps at the two or three band edges of a tile run one
+// series, and writes each result back into its element's slot; the tile
+// leaves in coalesced stores (on a mixed input 1.7x faster than one thread an
+// element; 5-12% slower on a tile of one band).  Inside the series every
+// division is by an integer and exact without the IEEE division (div22_int /
+// div22_odd, ff_eft.cuh): a multiply by RN(1/d) and two FMAs, no MUFU, FCHK
+// or slow path.  The 16 small-band terms are unrolled, so their divisors fold
+// to immediates; the 59 mid-band terms are unrolled by 4 with RN(1/(2n+1))
+// from the constant table (fully unrolled, ~40 KB of instructions slow mixed
+// tiles ~35%).  The paths off the series' range (div22 beyond 2^100, a lo
+// limb larger than hi) stay out of line, where their code costs no
+// instruction fetch.  The effect of each choice is measured by
 // repro_torch.benchmarks.math_variants.  ~64 registers, no spills.  Each
 // element runs erf22 / gelu22 itself, so it is its plain version's bits
-// (kernels/ff_math.py math_elementwise_plain: the same op sequences);
-// -Xptxas -v in build/.../libff_math.log gives each kernel's registers
-// and spills.
+// (kernels/ff_math.py math_elementwise_plain: the same op sequences); -Xptxas
+// -v in build/.../libff_math.log gives each kernel's registers and spills.
 
 #include <utility>
 
@@ -71,16 +74,41 @@ __device__ __forceinline__ ff2 apply(float h, float l, float bh, float bl) {
   else if constexpr (OP == LOG) return log22(h, l);
   else if constexpr (OP == LOG1P) return log1p22(h, l);
   else if constexpr (OP == TANH) return tanh22(h, l);
-  else if constexpr (OP == SIGMOID) return sigmoid22(h, l);
+  else if constexpr (OP == SIGMOID) return sigmoid22_fma(h, l);
   else if constexpr (OP == ERF) return erf22(h, l);
   else if constexpr (OP == GELU) return gelu22(h, l);
-  else if constexpr (OP == SILU) return silu22(h, l);
+  else if constexpr (OP == SILU) return silu22_fma(h, l);
   else return pow22(h, l, bh, bl);
+}
+
+// sigmoid and silu on contiguous hi and lo planes (the silu gate of
+// serving): a flat index, without for_each_element's division by the
+// column count and its strided addresses.
+template <int OP>
+constexpr bool kFlat = OP == SIGMOID || OP == SILU;
+
+__device__ __forceinline__ bool contiguous(const Planes& t) {
+  return t.cs[0] == 1 && t.cs[1] == 1 && t.rs[0] == t.cols &&
+         t.rs[1] == t.cols;
 }
 
 template <int OP>
 __global__ void __launch_bounds__(256)
 math_kernel(const __grid_constant__ Planes t) {
+  if constexpr (kFlat<OP>) {
+    if (contiguous(t)) {
+      const long long n = t.rows * t.cols;
+      const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+      for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                         threadIdx.x;
+           i < n; i += stride) {
+        const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
+        t.out_hi[i] = v.hi;
+        t.out_lo[i] = v.lo;
+      }
+      return;
+    }
+  }
   ffk::for_each_element(t, [&](long long i, auto r, auto c) {
     const float h = ffk::load(t, 0, r, c), l = ffk::load(t, 1, r, c);
     float bh = 0.0f, bl = 0.0f;

@@ -1,0 +1,312 @@
+"""sigmoid and silu of the ``ff_math`` CUDA kernel on the FMA TwoProd
+(``sigmoid22_fma`` and ``silu22_fma`` of ``csrc/ff_eft.cuh``), emulated
+exactly on the CPU:
+
+  * TwoProd as a multiply and an FMA: ``fma(a, b, -x)`` through float64,
+    where ``a * b`` (48 bits) and ``a * b - x`` are exact, then one
+    rounding to f32 (+0 where the error is zero, as the FMA gives);
+  * the element's test on its reduced argument r (``|r.hi| <= 1/2`` and
+    ``|r.hi| >= 2^-48`` or ``r.hi == 0``), silu's on its last product
+    (``2^-100 <= |t.hi| < 2^100``, ``u != 0``), and ``sigmoid22`` /
+    ``silu22`` themselves (Dekker's TwoProd) on every other element.
+
+That path is held bit for bit, signed zeros included, to the port's
+plain ``sigmoid22`` / ``silu22`` on each class of
+``math_variants.sigmoid_edges`` (subnormal z, k ln2 cancelled by lo,
+|x| from 2^-150, lo +-0 and +-hi 2^-25, exact products, subnormal and
+non-finite limbs, lo beyond hi) and on x uniform in (-30, 30), and to the
+reference's on normal-range inputs.  Each guard is shown to matter: the
+bare FMA form differs from Dekker's where it sends an element away.
+Zero errors of the other sign do arise on the FMA path and leave no
+trace.  The device's constants are the emulated ones.
+"""
+
+import math
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ffmath as ref_math
+from repro_torch.benchmarks import math_variants as mv
+from repro_torch.core import ff as core_ff
+from repro_torch.core import ffmath
+from repro_torch.core import transforms as T
+from repro_torch.core.ff import FF
+
+SRC = (Path(core_ff.__file__).resolve().parents[1] / "csrc"
+       / "ff_eft.cuh").read_text()
+OPS = ("sigmoid", "silu")
+R_TOP, R_LEAST = 0.5, 2.0 ** -48          # the domain of |r.hi|
+T_LEAST, T_TOP = 2.0 ** -100, 2.0 ** 100  # silu's last product |t.hi|
+
+
+def two_prod_fma(a, b):
+    x = a * b
+    return x, (a.double() * b.double() - x.double()).float()
+
+
+def mul22_fma(a: FF, b: FF, seen=None) -> FF:
+    if seen is not None:
+        seen.append((a.hi, b.hi))
+    th, tl = two_prod_fma(a.hi, b.hi)
+    u = tl + (a.hi * b.lo + a.lo * b.hi)
+    return FF(*T.fast_two_sum(th, u))
+
+
+def div22_fma(a: FF, b: FF) -> FF:
+    ch = a.hi / b.hi
+    th, tl = two_prod_fma(ch, b.hi)
+    cl = ((((a.hi - th) - tl) + a.lo) - ch * b.lo) / b.hi
+    return FF(*T.fast_two_sum(ch, cl))
+
+
+def exp_poly_fma(rh, rl, seen=None) -> FF:
+    """ffmath._exp_poly on mul22_fma."""
+    t = ffmath._EXP_W_F32[-1]
+    for c in ffmath._EXP_W_F32[-2::-1]:
+        t = t * rh + c
+    w, r = FF(t, torch.zeros_like(t)), FF(rh, rl)
+    for ch, cl in ffmath._EXP_W_FF[::-1]:
+        w = mul22_fma(w, r, seen)
+        w = core_ff.add22(w, FF(torch.full_like(rh, ch),
+                                torch.full_like(rh, cl)))
+    z = mul22_fma(r, r, seen)
+    q = mul22_fma(z, w, seen)
+    return core_ff.add22(r, q)
+
+
+def in_domain(rh):
+    ar = rh.abs()
+    return (ar <= R_TOP) & ((ar >= R_LEAST) | (ar == 0))
+
+
+def exp22_fma(xh, xl, seen=None):
+    """ffmath.exp22 on exp_poly_fma, and whether r is in the domain."""
+    rh, rl, k = ffmath._exp_reduce(xh, xl)
+    s = exp_poly_fma(rh, rl, seen)
+    p = core_ff.add212(s, 1.0)
+    eh, el = ffmath._scale2k(p.hi, p.lo, k)
+    big, tiny = xh > ffmath._EXP_CLIP_HI, xh < ffmath._EXP_CLIP_LO
+    eh = torch.where(big, math.inf, torch.where(tiny, 0.0, eh))
+    el = torch.where(big | tiny | (eh == math.inf), 0.0, el)
+    nan = xh != xh
+    return torch.where(nan, xh, eh), torch.where(nan, xh, el), in_domain(rh)
+
+
+def sigmoid_body(xh, xl):
+    """sigmoid22 on the twins; (hi, lo, ok)."""
+    sgn = torch.where(xh < 0, -1.0, 1.0)
+    zh, zl, ok = exp22_fma(-sgn * xh, -sgn * xl)
+    d = core_ff.add212(FF(zh, zl), 1.0)
+    pos = xh >= 0
+    r = div22_fma(FF(torch.where(pos, 1.0, zh), torch.where(pos, 0.0, zl)),
+                  d)
+    nan = xh != xh
+    return torch.where(nan, xh, r.hi), torch.where(nan, xh, r.lo), ok
+
+
+def silu_body(xh, xl):
+    """silu22 on the twins; (hi, lo, ok): the rails, then x s with its
+    test."""
+    sh, sl, ok = sigmoid_body(xh, xl)
+    th, tl = two_prod_fma(xh, sh)
+    u = tl + (xh * sl + xl * sh)
+    rh, rl = T.fast_two_sum(th, u)
+    at = th.abs()
+    ok = ok & (at >= T_LEAST) & (at < T_TOP) & (u != 0)
+    rh, rl = ffmath._zero_and_rails(xh, rh, rl)
+    return rh, rl, ok | (xh == 0) | torch.isinf(xh)
+
+
+BODY = {"sigmoid": sigmoid_body, "silu": silu_body}
+
+
+def device(op, xh, xl):
+    """The kernel's element: the FMA form where ok, else the plain
+    function; (hi, lo, ok)."""
+    fh, fl, ok = BODY[op](xh, xl)
+    ph, pl = ffmath.UNARY22[op](xh, xl)
+    return torch.where(ok, fh, ph), torch.where(ok, fl, pl), ok
+
+
+def differs(a, b):
+    """Where the bits differ (a NaN matches any NaN)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return ~((a.view(torch.int32) == b.view(torch.int32)) | (na & nb))
+
+
+EDGES = mv.sigmoid_edges("cpu")
+
+
+def _inputs(kind):
+    if kind in EDGES:
+        return EDGES[kind]
+    rng = np.random.default_rng(211)
+    x = rng.uniform(-30, 30, 20000)
+    hi = x.astype(np.float32)
+    lo = (x - hi.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(hi), torch.from_numpy(lo)
+
+
+@pytest.mark.parametrize("kind", list(EDGES) + ["uniform (-30, 30)"])
+@pytest.mark.parametrize("op", OPS)
+def test_fma_path_is_the_plain_function(op, kind):
+    xh, xl = _inputs(kind)
+    gh, gl, ok = device(op, xh, xl)
+    ph, pl = ffmath.UNARY22[op](xh, xl)
+    assert not (differs(gh, ph) | differs(gl, pl)).any()
+    if kind in ("uniform (-30, 30)", "lo signed zeros", "z subnormal"):
+        assert ok.any()                 # the class reaches the FMA path
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_fma_path_is_the_reference(op):
+    """On x uniform in (-30, 30), whose limbs and results stay normal
+    (XLA:CPU flushes subnormals, ROADMAP's FTZ policy)."""
+    xh, xl = _inputs("uniform (-30, 30)")
+    gh, gl, ok = device(op, xh, xl)
+    rh, rl = ref_math.UNARY22[op](jnp.asarray(xh.numpy()),
+                                  jnp.asarray(xl.numpy()))
+    assert bool(ok.all())
+    assert np.array_equal(np.asarray(rh).view(np.int32),
+                          gh.numpy().view(np.int32))
+    assert np.array_equal(np.asarray(rl).view(np.int32),
+                          gl.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_timed_inputs_take_the_fma_path(op):
+    """The operators phase's |N(0,1)| + 0.5 and x uniform in (-30, 30),
+    with lo ~ hi 1e-8: every element on the FMA path."""
+    g = torch.Generator().manual_seed(13)
+    h = torch.cat([torch.randn(20000, generator=g).abs() + 0.5,
+                   torch.rand(20000, generator=g) * 60 - 30])
+    lo = h * 1e-8 * torch.randn(h.shape, generator=g)
+    assert bool(BODY[op](h, lo)[2].all())
+
+
+def test_guard_on_r_above_half():
+    """Limbs whose lo exceeds hi put r beyond 1/2; there Dekker's splits
+    overflow where the FMA's products do not: the bare FMA form is not
+    sigmoid22 (nan against a finite value), and the test sends those
+    elements to it."""
+    xh, xl = EDGES["lo beyond hi"]
+    for op in OPS:
+        fh, fl, ok = BODY[op](xh, xl)
+        ph, pl = ffmath.UNARY22[op](xh, xl)
+        bad = differs(fh, ph) | differs(fl, pl)
+        assert bad.any() and not (bad & ok).any()
+    sgn = torch.where(xh < 0, -1.0, 1.0)
+    rh = ffmath._exp_reduce(-sgn * xh, -sgn * xl)[0]
+    assert bool((rh.abs() > R_TOP).any())
+
+
+def test_guard_on_r_below_2_48():
+    """Below 2^-48, r r (and, lower, w r) underflows in Dekker's partial
+    products: exp22's polynomial on the FMA differs from Dekker's, and
+    the test sends such r away.  (On the sampled sigmoid inputs the +1 of
+    exp22 hid the difference.)"""
+    rng = np.random.default_rng(223)
+    e = rng.uniform(-110, -50, 4096)
+    rh = torch.from_numpy((np.exp2(e) * rng.choice([-1, 1], 4096))
+                          .astype(np.float32))
+    rl = torch.zeros_like(rh)
+    a, b = ffmath._exp_poly(rh, rl), exp_poly_fma(rh, rl)
+    bad = differs(a.hi, b.hi) | differs(a.lo, b.lo)
+    assert bad.any() and not (bad & in_domain(rh)).any()
+    r2 = core_ff.mul22(FF(rh, rl), FF(rh, rl))
+    f2 = mul22_fma(FF(rh, rl), FF(rh, rl))
+    assert (differs(r2.hi, f2.hi) | differs(r2.lo, f2.lo)).any()
+
+
+def test_guard_on_silu_product():
+    """Where x s falls below 2^-100 (x below ~-73.6, z subnormal), Dekker's
+    product of x and s rounds its partial products: the bare FMA form of
+    silu differs from silu22 and the test on t.hi sends those elements to
+    it."""
+    xh, xl = EDGES["z subnormal"]
+    fh, fl, ok = silu_body(xh, xl)
+    ph, pl = ffmath.silu22(xh, xl)
+    bad = differs(fh, ph) | differs(fl, pl)
+    assert bad.any() and not (bad & ok).any()
+    sgn = torch.where(xh < 0, -1.0, 1.0)
+    zh, _zl, rok = exp22_fma(-sgn * xh, -sgn * xl)
+    assert bool(rok[bad].all())         # r was fine: the product's test
+    sh, sl, _ = sigmoid_body(xh, xl)    # sigmoid's bits are sigmoid22's
+    qh, ql = ffmath.sigmoid22(xh, xl)
+    assert not (differs(sh, qh) | differs(sl, ql)).any()
+
+
+def test_guard_on_silu_zero_error():
+    """silu's last Mul22 is the output: where its product is exact and
+    one split half is +0 and the other negative, Dekker's error is -0
+    and the FMA's +0, and with x.lo = -0, s.lo = +0, x < 0 that sign is the
+    output's lo.  No silu input found reaches it; the operands show it,
+    and u == 0 is what the kernel tests."""
+    x = FF(torch.tensor([-(1.0 + 2.0 ** -23)]), torch.tensor([-0.0]))
+    s = FF(torch.tensor([0.5]), torch.tensor([0.0]))
+    d, f = core_ff.mul22(x, s), mul22_fma(x, s)
+    assert torch.equal(d.hi, f.hi) and d.lo.item() == 0 == f.lo.item()
+    assert math.copysign(1, d.lo.item()) == -1
+    assert math.copysign(1, f.lo.item()) == 1
+    th, tl = two_prod_fma(x.hi, s.hi)
+    assert (tl + (x.hi * s.lo + x.lo * s.hi)).item() == 0     # u == 0
+
+
+def test_zero_errors_of_either_sign_leave_no_trace():
+    """On exact products the FMA path meets errors that Dekker's TwoProd
+    gives as -0 (its own +0) in exp22's Mul22s; the outputs are
+    sigmoid22's all the same (Horner's add22, the +1 of exp22 and div22
+    drop the sign)."""
+    xh, xl = EDGES["exact products"]
+    seen = []
+    sgn = torch.where(xh < 0, -1.0, 1.0)
+    zh, zl, ok = exp22_fma(-sgn * xh, -sgn * xl, seen)
+    neg = torch.zeros_like(xh, dtype=torch.bool)
+    for a, b in seen:
+        y = T.two_prod(a, b)[1]
+        neg |= (y == 0) & (torch.sign(y.view(torch.int32)) < 0)
+    assert bool((neg & ok).any())
+    wh, wl = ffmath.exp22(-sgn * xh, -sgn * xl)
+    assert not ((differs(zh, wh) | differs(zl, wl)) & ok).any()
+
+
+def test_device_constants_are_the_emulated_ones():
+    """exp_poly_fma has exp_poly's constants; the domain's bounds and
+    the kFlat instances are the ones emulated and documented."""
+    def body(fn):
+        b = SRC[SRC.index(fn):]
+        return b[:b.index("\n}\n")]
+
+    def floats(fn):
+        return sorted(float.fromhex(t[:-1]) for t in
+                      re.findall(r"-?0x[0-9a-f.]+p[-+]\d+f", body(fn)))
+    assert floats("ff2 exp_poly_fma(ff2 r) {") == floats(
+        "ff2 exp_poly(ff2 r) {")
+    assert len(floats("ff2 exp_poly(ff2 r) {")) == 17
+    assert "*ok = ar <= 0.5f && (ar >= 0x1p-48f || ar == 0.0f);" \
+        in body("ff2 exp22_fma(")
+    assert "at >= 0x1p-100f && at < 0x1p+100f && u != 0.0f" \
+        in body("ff2 silu22_fma(")
+    assert (R_TOP, R_LEAST, T_LEAST, T_TOP) == (
+        0.5, float.fromhex("0x1p-48"), float.fromhex("0x1p-100"),
+        float.fromhex("0x1p+100"))
+    cu = (Path(core_ff.__file__).resolve().parents[1] / "csrc"
+          / "ff_math.cu").read_text()
+    assert "kFlat = OP == SIGMOID || OP == SILU;" in cu
+    assert "return sigmoid22_fma(h, l);" in cu
+    assert "return silu22_fma(h, l);" in cu
+
+
+@pytest.mark.parametrize("name", sorted(mv.VARIANTS))
+def test_math_variants_edit_the_sources_once(name):
+    """Each math_variants variant is text edits of csrc/: every edited text
+    occurs once in its file (else the variant cannot build)."""
+    csrc = Path(core_ff.__file__).resolve().parents[1] / "csrc"
+    for fname, old, new in mv.VARIANTS[name]:
+        assert (csrc / fname).read_text().count(old) == 1, (fname, old)
+        assert old != new
