@@ -1518,7 +1518,10 @@ def math_branch_inputs(torch, op, g):
     nan) with normal limbs; for sigmoid and silu also the edge classes of
     their FMA path (``math_variants.sigmoid_edges``: subnormal z, k ln2
     cancelled by lo, |x| from 2^-150, signed-zero and subnormal limbs,
-    exact products, lo beyond hi, non-finite limbs)."""
+    exact products, lo beyond hi, non-finite limbs), for pow and log1p
+    those of theirs (``math_variants.log_pow_edges``: a = 1, tiny atanh
+    arguments, |b| from 2^100 and below 2^-90, the saturations, lo beyond
+    hi, 2 + x near 0, exact products, subnormal and non-finite limbs)."""
     def u(a, b, n=4096):
         return torch.rand(n, generator=g, device="cuda",
                           dtype=torch.float64) * (b - a) + a
@@ -1550,14 +1553,21 @@ def math_branch_inputs(torch, op, g):
         edges = sigmoid_edges("cuda", seed=SEED)
         return (torch.cat([hi] + [h for h, _ in edges.values()]),
                 torch.cat([lo] + [e for _, e in edges.values()]))
-    if op != "pow":
+    if op not in ("pow", "log1p"):
         return (hi, lo)
-    bh, bl = ff_limbs(torch, u(-8, 8, x.numel()))
-    edge = torch.tensor([[0.0, 1.5], [0.0, -1.5], [0.0, 0.0], [math.inf, 2.0],
-                         [math.inf, -2.0], [math.inf, 0.0], [-2.0, 0.5],
-                         [-2.0, 0.0]], device="cuda")
-    return (torch.cat([hi, edge[:, 0]]), torch.cat([lo, edge[:, 0] * 0]),
-            torch.cat([bh, edge[:, 1]]), torch.cat([bl, edge[:, 1] * 0]))
+    from repro_torch.benchmarks.math_variants import log_pow_edges
+    edges = log_pow_edges("cuda", seed=SEED)[op].values()
+    planes = (hi, lo)
+    if op == "pow":
+        bh, bl = ff_limbs(torch, u(-8, 8, x.numel()))
+        edge = torch.tensor([[0.0, 1.5], [0.0, -1.5], [0.0, 0.0],
+                             [math.inf, 2.0], [math.inf, -2.0],
+                             [math.inf, 0.0], [-2.0, 0.5], [-2.0, 0.0]],
+                            device="cuda")
+        planes = (torch.cat([hi, edge[:, 0]]), torch.cat([lo, edge[:, 0] * 0]),
+                  torch.cat([bh, edge[:, 1]]), torch.cat([bl, edge[:, 1] * 0]))
+    return tuple(torch.cat([p] + [c[i] for c in edges])
+                 for i, p in enumerate(planes))
 
 
 def band_schedule_inputs(torch, op, g):
@@ -1786,6 +1796,38 @@ def phase_ops_checks(torch):
         + f") and, x uniform in (-30, 30), {MATH_BIG} contiguous, a strided "
         f"view, a row lo plane and a column hi plane "
         f"({time.perf_counter() - t0:.1f} s)")
+    # pow and log1p the same: their edge classes one by one, then the
+    # layouts at MATH_BIG (pow: a ~ |N(0,1)| + 0.5, b ~ N(0,1), also a
+    # broadcast b; log1p: x uniform in (-0.29, 4), near and far branches
+    # interleaved)
+    from repro_torch.benchmarks.math_variants import log_pow_edges
+    t0 = time.perf_counter()
+    lp = log_pow_edges("cuda", seed=SEED + 1)
+    ah = rn(*MATH_BIG).abs() + 0.5
+    bh = rn(*MATH_BIG)
+    a, b = (ah, ah * 1e-8 * rn(*MATH_BIG)), (bh, bh * 1e-8 * rn(*MATH_BIG))
+    x = torch.rand(MATH_BIG, generator=g, device="cuda") * 4.29 - 0.29
+    x = (x, x * 1e-8 * torch.randn(x.shape, generator=g, device="cuda"))
+    layouts = {"pow": {"contiguous": a + b,
+                       "strided view": tuple(p[:, 1::3] for p in a + b),
+                       "row lo plane": (a[0], a[1][:1]) + b,
+                       "column hi plane": (a[0][:, :1], a[1]) + b,
+                       "column b": a + (b[0][:, :1], b[1][:, :1]),
+                       "scalar b": a + (b[0][0, 0], b[1][0, 0])},
+               "log1p": {"contiguous": x,
+                         "strided view": tuple(p[:, 1::3] for p in x),
+                         "row lo plane": (x[0], x[1][:1]),
+                         "column hi plane": (x[0][:, :1], x[1])}}
+    for op in ("pow", "log1p"):
+        for what, args in list(lp[op].items()) + list(layouts[op].items()):
+            check("ff_math", f"{op} {what}", fm.math_elementwise(op, *args),
+                  fm.math_elementwise_plain(op, *args))
+        log(f"ff_math {op}: kernel == plain bit for bit on the FMA path's "
+            f"edge classes ("
+            + ", ".join(f"{k} {v[0].numel()}" for k, v in lp[op].items())
+            + f") and at {MATH_BIG}: " + ", ".join(layouts[op]))
+    log(f"ff_math pow, log1p: edge classes and layouts "
+        f"{time.perf_counter() - t0:.1f} s")
     int_division_check(torch)
     torch.cuda.synchronize()
     return worst
@@ -2028,12 +2070,14 @@ def phase_ops_timing(torch, clock_hz):
             del x, h, lo, x64
     # tanh on mixed bands (x uniform in (-1, 1): about 35% in the small
     # band) and uniform in each of its series' bands alone; sigmoid and
-    # silu on x uniform in (-30, 30) (both signs: z = exp(-|x|) to e^-30)
-    from repro_torch.benchmarks.math_variants import TANH_BANDS
+    # silu on x uniform in (-30, 30) (both signs: z = exp(-|x|) to e^-30);
+    # log1p on its near branch (the timed |N(0,1)| + 0.5 takes the far one)
+    from repro_torch.benchmarks.math_variants import LOG1P_BAND, TANH_BANDS
     banded = [("tanh", band, b) for band, b in
               {"uniform (-1, 1)": (-1.0, 1.0), **TANH_BANDS}.items()]
     banded += [(op, "uniform (-30, 30)", (-30.0, 30.0))
                for op in ("sigmoid", "silu")]
+    banded.append(("log1p", "near (-0.29, 0.41)", LOG1P_BAND))
     for op, band, (b0, b1) in banded:
         x = b0 + (b1 - b0) * (1.0 - torch.rand((R, C), generator=g,
                                                device="cuda",
@@ -2041,7 +2085,7 @@ def phase_ops_timing(torch, clock_hz):
         h = x.float()
         lo = h * 1e-8 * torch.randn((R, C), generator=g, device="cuda")
         x64 = h.double() + lo.double()
-        yard = f64.get(op, torch.tanh)
+        yard = f64[op] if op in f64 else getattr(torch, op)
         rows["ff_math"].append(dict(op=op, band=band, shape=[R, C],
                                     **time_kernel(
             lambda: fm.math_elementwise(op, h, lo),
@@ -2057,12 +2101,12 @@ def phase_ops_timing(torch, clock_hz):
                 f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}), plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms")
-    log("ff_math sigmoid / silu (FMA TwoProd): kernel / bound "
-        + "; ".join(f"{r['op']}{' ' + r['band'] if 'band' in r else ''} "
-                    f"{r['shape']} {r['ms']:.4f} / {r['bound_ms']:.4f} ms "
-                    f"= {r['ms'] / r['bound_ms']:.2f}x"
-                    for r in rows["ff_math"]
-                    if r["op"] in ("sigmoid", "silu")))
+    for ops in (("sigmoid", "silu"), ("pow", "log1p")):
+        log(f"ff_math {' / '.join(ops)} (FMA TwoProd): kernel / bound "
+            + "; ".join(f"{r['op']}{' ' + r['band'] if 'band' in r else ''} "
+                        f"{r['shape']} {r['ms']:.4f} / {r['bound_ms']:.4f} "
+                        f"ms = {r['ms'] / r['bound_ms']:.2f}x"
+                        for r in rows["ff_math"] if r["op"] in ops))
     return rows
 
 

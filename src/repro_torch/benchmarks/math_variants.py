@@ -1,5 +1,5 @@
-"""The ``ff_math`` kernel's erf, gelu, tanh, sigmoid and silu design, one
-choice at a time, on the card::
+"""The ``ff_math`` kernel's erf, gelu, tanh, sigmoid, silu, pow and log1p
+design, one choice at a time, on the card::
 
     python -m repro_torch.benchmarks.math_variants [NAME ...] \\
         [--ops OP ...] [--baseline CSRC] [--sass] [--out rows.json]
@@ -7,22 +7,28 @@ choice at a time, on the card::
 Each variant is a copy of ``csrc/`` with one design choice undone (a text
 edit of the sources, ``VARIANTS``), built with the port's ``nvcc`` flags
 into ``build/variants/<name>/`` (all at once), then swapped in for the
-``ff_math`` library: each function of ``--ops`` (default all five) is
+``ff_math`` library: each function of ``--ops`` (default all seven) is
 checked bit for bit against its plain version at (512, 8192), tanh also
 on its band edges and a mixed tile, sigmoid and silu also on
-``sigmoid_edges``, a strided view and a row plane, and timed by
-CUDA-graph replay at (4096, 4096) and (512, 8192) on ``|N(0,1)| + 0.5``
-(the operators phase's input); erf also at (4096, 4096) on its argument
-uniform in each band, tanh on x uniform in (-1, 1) (about 35% in its
-small band) and uniform in each band, sigmoid and silu on x uniform in
-(-30, 30) at both shapes.  Each row also lists each kernel's registers
-and spill bytes (``-Xptxas -v``), the kernels whose SASS differs from
-``shipped``'s (``cuobjdump -sass``, addresses and encodings dropped), and
-the loops of the sigmoid and silu kernels with their f32 (FADD, FMUL,
-FFMA) and other instructions: one element a pass.  ``shipped`` is the
+``sigmoid_edges``, pow and log1p on ``log_pow_edges``, and the four on a
+strided view and a row plane (pow also a column plane and a scalar b),
+and timed by CUDA-graph replay at (4096, 4096) and (512, 8192) on
+``|N(0,1)| + 0.5`` (the operators phase's input; pow's b ~ N(0,1));
+erf also at (4096, 4096) on its argument uniform in each band, tanh on x
+uniform in (-1, 1) (about 35% in its small band) and uniform in each
+band, sigmoid and silu on x uniform in (-30, 30), log1p on x uniform in
+its near band (-0.29, 0.41), at both shapes, and log1p on x uniform in
+(-0.29, 1.2) (its two branches mixed in every warp).  Each row also lists each
+kernel's registers and spill bytes (``-Xptxas -v``), the kernels whose
+SASS differs from ``shipped``'s (``cuobjdump -sass``, addresses and
+encodings dropped), and the loops of the sigmoid, silu, pow and log1p
+kernels with their f32 (FADD, FMUL, FFMA) and other instructions (one
+element a pass) and the share of the IEEE divisions' code in them.
+``shipped`` is the
 sources as they are; ``--baseline`` builds another ``csrc/`` directory
 (the parent commit's, say) as a row named ``baseline``, so that two
-versions compare in one call.  ``--sass`` also prints the loops of each
+versions compare in one call, and lists each row's kernels whose SASS
+differs from the baseline's.  ``--sass`` also prints the loops of each
 variant's erf kernel.  Needs a CUDA card and a checkout (the variants
 build into its ``build/``).
 """
@@ -68,14 +74,20 @@ TANH_SORTED: Tuple[Edit, ...] = (
 SIGMOID_DEKKER: Tuple[Edit, ...] = (
     ("ff_math.cu", "return sigmoid22_fma(h, l);", "return sigmoid22(h, l);"),
     ("ff_math.cu", "return silu22_fma(h, l);", "return silu22(h, l);"))
+# log1p and pow the same
+LOG_POW_DEKKER: Tuple[Edit, ...] = (
+    ("ff_math.cu", "return log1p22_fma(h, l);", "return log1p22(h, l);"),
+    ("ff_math.cu", "return pow22_fma(h, l, bh, bl);",
+     "return pow22(h, l, bh, bl);"))
 NO_FLAT: Tuple[Edit, ...] = (
-    ("ff_math.cu", "constexpr bool kFlat = OP == SIGMOID || OP == SILU;",
+    ("ff_math.cu", "constexpr bool kFlat =\n"
+     "    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;",
      "constexpr bool kFlat = false;"),)
-# the flat loop of sigmoid and silu, and two alternatives to it
+# the flat loop of sigmoid, silu, log1p and pow, and two alternatives to it
 FLAT_LOOP = """      for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x;
            i < n; i += stride) {
-        const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
+        const ff2 v = flat_apply<OP>(t, i);
         t.out_hi[i] = v.hi;
         t.out_lo[i] = v.lo;
       }
@@ -83,7 +95,7 @@ FLAT_LOOP = """      for (long long i = static_cast<long long>(blockIdx.x) * blo
 FLAT_32 = """      if (n < (1LL << 31)) {
         for (int i = blockIdx.x * blockDim.x + threadIdx.x;
              i < static_cast<int>(n); i += static_cast<int>(stride)) {
-          const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
+          const ff2 v = flat_apply<OP>(t, i);
           t.out_hi[i] = v.hi;
           t.out_lo[i] = v.lo;
         }
@@ -94,18 +106,50 @@ FLAT_TWO = """      for (long long i = static_cast<long long>(blockIdx.x) * bloc
                          threadIdx.x;
            i < n; i += 2 * stride) {
         const long long j = i + stride < n ? i + stride : i;
-        const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
-        const ff2 w = apply<OP>(t.in[0][j], t.in[1][j], 0.0f, 0.0f);
+        const ff2 v = flat_apply<OP>(t, i);
+        const ff2 w = flat_apply<OP>(t, j);
         t.out_hi[i] = v.hi;
         t.out_lo[i] = v.lo;
         t.out_hi[j] = w.hi;
         t.out_lo[j] = w.lo;
       }
 """
+# log1p's branches each with its own atanh kernel (the far one log22_fma's)
+LOG1P_SHARED = """  const bool near = xh >= -0x1.2bec32p-2f && xh <= 0x1.a82798p-2f;
+  ff2 n = {xh, xl}, d, f = {0.0f, 0.0f};
+  float ef = 0.0f;
+  if (near) {
+    d = add212(n, 2.0f);
+  } else {
+    const ff2 w = two_sum(xh, 1.0f);
+    f = fast_two_sum(w.hi, add(w.lo, xl));
+    ef = log_reduce(f.hi, f.lo, &n, &d);
+  }
+  float sh, u;
+  const ff2 l = atanh2_fma(n, d, &sh, &u);
+  if (near) {
+    *ok = atanh_arg_ok(sh) && u != 0.0f;
+    return l;
+  }
+  *ok = atanh_arg_ok(sh) || n.hi == 0.0f;
+  return log_finish(f.hi, ef, l);
+"""
+LOG1P_APART = """  if (xh >= -0x1.2bec32p-2f && xh <= 0x1.a82798p-2f) {
+    float sh, u;
+    const ff2 l = atanh2_fma({xh, xl}, add212({xh, xl}, 2.0f), &sh, &u);
+    *ok = atanh_arg_ok(sh) && u != 0.0f;
+    return l;
+  }
+  const ff2 w = two_sum(xh, 1.0f);
+  const ff2 f = fast_two_sum(w.hi, add(w.lo, xl));
+  return log22_fma(f.hi, f.lo, ok);
+"""
 VARIANTS: Dict[str, Tuple[Edit, ...]] = {
     "shipped": (),
-    # sigmoid and silu as they were: Dekker's TwoProd, the strided loop
-    "dekker": SIGMOID_DEKKER + NO_FLAT,
+    # sigmoid, silu, log1p and pow as they were (sigmoid and silu before
+    # the FMA path, log1p and pow before theirs): Dekker's TwoProd, the
+    # strided loop
+    "dekker": SIGMOID_DEKKER + LOG_POW_DEKKER + NO_FLAT,
     # each TwoProd of sigmoid and silu checks its own product, operands and
     # zero error, and runs Dekker's out of line otherwise, in place of the
     # element's test on its reduced argument (a test of the product alone
@@ -142,6 +186,20 @@ VARIANTS: Dict[str, Tuple[Edit, ...]] = {
     "flat 32-bit index": (("ff_math.cu", FLAT_LOOP, FLAT_32),),
     # two elements a thread and pass, for instruction-level parallelism
     "two elements a thread": (("ff_math.cu", FLAT_LOOP, FLAT_TWO),),
+    # log1p's near and far branches each with its own atanh kernel
+    "log1p branches apart": (("ff_eft.cuh", LOG1P_SHARED, LOG1P_APART),),
+    # log1p22 out of line where log1p's test fails, as pow22 is
+    "log1p far body out of line": (
+        ("ff_eft.cuh", "// log1p22(xh, xl), bit for bit.",
+         "__device__ __noinline__ ff2 log1p22_far(float xh, float xl) {\n"
+         "  return log1p22(xh, xl);\n}\n\n// log1p22(xh, xl), bit for bit."),
+        ("ff_eft.cuh", "  if (!ok) r = log1p22(xh, xl);\n",
+         "  if (!ok) r = log1p22_far(xh, xl);\n")),
+    # pow's log half on Dekker's TwoProd (log22), the FMA in its product
+    # l b and in exp22 only
+    "fma in exp only": (
+        ("ff_eft.cuh", "  const ff2 l = log22_fma(ah, al, &lok);\n",
+         "  const ff2 l = log22(ah, al);\n  lok = true;\n"),),
     # the FMA twins in exp_poly only: Dekker's TwoProd in the division and
     # in silu's last product (where the remaining time goes)
     "fma in exp_poly only": (
@@ -180,7 +238,7 @@ VARIANTS: Dict[str, Tuple[Edit, ...]] = {
         ("ff_eft.cuh", f"__device__ __noinline__ ff2 {fn}(",
          f"__device__ __forceinline__ ff2 {fn}(")
         for fn in ("div22_far", "erf_small_any", "erf_mid_any",
-                   "sigmoid22_far", "silu22_far")),
+                   "sigmoid22_far", "silu22_far", "pow22_far")),
     "mid series unrolled": (
         ("ff_eft.cuh", "#pragma unroll 4\n  for (int n = 1; n < kErfPosTerms",
          "#pragma unroll\n  for (int n = 1; n < kErfPosTerms"),),
@@ -215,10 +273,11 @@ BANDS = {"small": (0.0, 1.0), "mid": (1.0, 4.0), "big": (4.0, 8.0)}
 # tanh's two series' bands of |x| (the identity band below 2^-45 is empty
 # at these sizes)
 TANH_BANDS = {"small": (0.0, 0.35), "large": (0.3501, 8.0)}
-OPS = ("erf", "gelu", "tanh", "sigmoid", "silu")
+OPS = ("erf", "gelu", "tanh", "sigmoid", "silu", "pow", "log1p")
 F32_OPS = ("FADD", "FMUL", "FFMA")
-# the kernel instances whose loops are counted: sigmoid's and silu's
-COUNTED = {"sigmoid": "math_kernelILi5E", "silu": "math_kernelILi8E"}
+# the kernel instances whose loops are counted
+COUNTED = {"sigmoid": "math_kernelILi5E", "silu": "math_kernelILi8E",
+           "pow": "math_kernelILi9E", "log1p": "math_kernelILi3E"}
 
 
 def graph_ms(fn, iters: int = 5) -> float:
@@ -309,13 +368,34 @@ def loops(ins, least: int = 1) -> List[dict]:
             if n < least:
                 continue
             f32 = sum(ops[o] for o in F32_OPS)
+            body = [i for i in ins if lo <= i[0] <= addr]
             out.append({"from": hex(lo), "to": hex(addr), "instructions": n,
                         "f32": f32, "other": n - f32,
+                        "fdiv": division_regions(body),
                         "ops": dict(ops.most_common(8)),
                         "other_ops": dict(collections.Counter(
                             {o: c for o, c in ops.items()
                              if o not in F32_OPS}).most_common(8))})
     return out
+
+
+def division_regions(ins) -> dict:
+    """The IEEE divisions (``__fdiv_rn``) among ``ins``: each one's code
+    from its reciprocal (MUFU.RCP) through its range check (FCHK), the
+    branch around the call of the slow path, to the BSYNC that rejoins it;
+    the count of divisions, and the instructions of those regions (their
+    union) with their f32 ones."""
+    ops = [op for _a, op, _r in ins]
+    mine = set()
+    checks = [j for j, op in enumerate(ops) if op.startswith("FCHK")]
+    for j in checks:
+        lo = max((i for i in range(j) if ops[i].startswith("MUFU.RCP")),
+                 default=j)
+        hi = next((i for i in range(j, len(ops))
+                   if ops[i].startswith("BSYNC")), j)
+        mine.update(range(lo, hi + 1))
+    return {"divisions": len(checks), "instructions": len(mine),
+            "f32": sum(ops[i].split(".")[0] in F32_OPS for i in mine)}
 
 
 def function_body(sass: str, name: str) -> str:
@@ -332,9 +412,9 @@ def sass_loops(lib) -> List[dict]:
 
 
 def element_loops(sass: str) -> Dict[str, List[dict]]:
-    """The loops of the sigmoid and silu kernels (one element a pass; the
-    flat loop over contiguous planes and for_each_element's two) of at
-    least 64 instructions."""
+    """The loops of the COUNTED kernels (one element a pass; the flat loop
+    over contiguous planes and for_each_element's two) of at least 64
+    instructions."""
     return {op: loops(sass_instructions(function_body(sass, name)), 64)
             for op, name in COUNTED.items()}
 
@@ -479,6 +559,182 @@ def sigmoid_edges(device, seed: int = 0) -> Dict[str, Tuple[torch.Tensor,
             for k, (a, b) in out.items()}
 
 
+# log1p's near branch, [-0.2928932, 0.41421354] as f32, and the band
+# chip_smoke times it on
+LOG1P_NEAR = (float.fromhex("-0x1.2bec32p-2"), float.fromhex("0x1.a82798p-2"))
+LOG1P_BAND = (-0.29, 0.41)
+
+
+def log_pow_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
+        torch.Tensor, ...]]]:
+    """The edge classes of pow22 and log1p22 on the FMA TwoProd:
+    ``{"pow": {class: (ah, al, bh, bl)}, "log1p": {class: (xh, xl)}}``.
+
+    pow: a = 1; a = 2^k with lo +-[1, 2) 2^(k-45 ... k-100) (log's s from
+    2^-46 down to 2^-101); a near 1 with |b| in 2^100 ... 2^127 (b's split
+    overflows); |b| in 2^-140 ... 2^-90 (the product l b below 2^-100);
+    b ln a near +-89 and near -104 (the saturations); lo limbs beyond hi on
+    a and on b (up to hi 2^130, inf); exact products (a = m 2^e, b = +-1,
+    2, 3, 4, 1/2, lo +-0); subnormal limbs; +-0, +-inf and nan in every
+    operand.  log1p: its near band with lo +0, -0 and +-hi 2^-25, and its
+    edges with their neighbours; 1 + x = 2^k with lo as a's above; lo
+    beyond hi on the near band (up to hi 2^130, and 2 + x near 0) and
+    beyond it; the identity edge 2^-45; exact products; subnormal limbs;
+    -1, below -1, +-0, +-inf and nan, and non-finite lo limbs."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def pm(n):
+        return rng.choice([-1.0, 1.0], n)
+
+    def ff(x):                            # float64 -> (hi, lo)
+        x = np.asarray(x, np.float64)
+        h = x.astype(f32)
+        with np.errstate(invalid="ignore"):
+            lo = np.where(np.isfinite(x), x - h.astype(np.float64), 0.0)
+        return h, lo.astype(f32)
+
+    def lo4(h):                           # lo +0, -0, +-hi 2^-25
+        h = np.asarray(h, f32)
+        s = (h * f32(2.0 ** -25)).astype(f32)
+        z = np.zeros_like(h)
+        return (np.concatenate([h, h, h, h]),
+                np.concatenate([z, -z, s, -s]))
+
+    def tiny_lo(h, n):                    # +-[1, 2) 2^(k-45 ... k-100)
+        k = np.floor(np.log2(np.abs(h.astype(np.float64))))
+        return (np.ldexp(rng.uniform(1, 2, n), (k + rng.integers(-100, -44, n))
+                         .astype(int)) * pm(n)).astype(f32)
+
+    def beyond(h):                        # lo = +-hi 2^(-10, 0, 10, 60, 130)
+        with np.errstate(over="ignore"):
+            lo = np.concatenate([(h * f32(2.0 ** k)).astype(f32)
+                                 for k in (-10, 0, 10, 60, 130)])
+        hh = np.tile(h, 5)
+        return np.concatenate([hh, hh]), np.concatenate([lo, -lo])
+
+    def b_of(n):                          # b uniform in (-8, 8), FF
+        return ff(rng.uniform(-8, 8, n))
+
+    pw, lp = {}, {}
+    n = 512
+    bh, bl = b_of(4 * n)
+    ah = np.ones(4 * n, f32)
+    al = np.concatenate([np.zeros(n, f32), -np.zeros(n, f32),
+                         tiny_lo(ah[:2 * n], 2 * n)])
+    ints = np.array([1, -1, 2, -2, 3, 0.5, -0.5, 100, 2.0 ** 100], f32)
+    pw["a = 1"] = (np.concatenate([ah, np.ones(2 * ints.size, f32)]),
+                   np.concatenate([al, np.zeros(2 * ints.size, f32)]),
+                   np.concatenate([bh, ints, ints]),
+                   np.concatenate([bl, np.zeros(ints.size, f32),
+                                   -np.zeros(ints.size, f32)]))
+    ah = np.ldexp(1.0, rng.integers(-40, 41, 4 * n)).astype(f32)
+    bh, bl = b_of(4 * n)
+    pw["a = 2^k, tiny lo"] = (ah, tiny_lo(ah, 4 * n), bh, bl)
+    near1 = (1.0 + rng.uniform(-2.0 ** -20, 2.0 ** -20, 2 * n)).astype(f32)
+    near1 = np.concatenate([near1, np.nextafter(np.ones(1, f32), f32(2)),
+                            np.nextafter(np.ones(1, f32), f32(0))])
+    m = near1.size
+    big = (np.ldexp(rng.uniform(1, 2, m), rng.integers(100, 128, m))
+           * pm(m)).astype(f32)
+    pw["a near 1, |b| in 2^100-2^127"] = (
+        np.concatenate([near1, near1]), np.zeros(2 * m, f32),
+        np.concatenate([big, big]),
+        np.concatenate([np.zeros(m, f32), (big * f32(2.0 ** -25))
+                        .astype(f32)]))
+    ah, al = ff(np.exp(rng.uniform(-3, 3, 2 * n)))
+    tiny = (np.ldexp(rng.uniform(1, 2, 2 * n), rng.integers(-140, -89, 2 * n))
+            * pm(2 * n)).astype(f32)
+    pw["|b| in 2^-140-2^-90"] = (ah, al, tiny,
+                                 (tiny * f32(2.0 ** -25)).astype(f32))
+    a64 = np.exp(rng.uniform(-3, 3, 3 * n))
+    a64 = np.where(np.abs(a64 - 1) < 1e-3, 2.0, a64)
+    c = np.concatenate([rng.uniform(88, 90, n), rng.uniform(-90, -88, n),
+                        rng.uniform(-105, -102, n)])
+    ah, al = ff(a64)
+    bh, bl = ff(c / np.log(ah.astype(np.float64) + al))
+    pw["b ln a near 89, -89, -104"] = (ah, al, bh, bl)
+    h = np.exp(rng.uniform(-3, 3, 256)).astype(f32)
+    xh, xl = beyond(h)
+    bh, bl = b_of(xh.size)
+    gh, gl = beyond(rng.uniform(-8, 8, 256).astype(f32))
+    ah2, al2 = ff(np.exp(rng.uniform(-3, 3, gh.size)))
+    pw["lo beyond hi"] = (np.concatenate([xh, ah2]), np.concatenate([xl, al2]),
+                          np.concatenate([bh, gh]), np.concatenate([bl, gl]))
+    mo = np.arange(1, 64, 2, dtype=np.float64)
+    am = (mo[:, None] * 2.0 ** np.arange(-10, 7)[None, :]).ravel().astype(f32)
+    bs = np.array([1, -1, 2, -2, 3, -3, 4, 0.5, -0.5], f32)
+    ah, bh = np.repeat(am, bs.size), np.tile(bs, am.size)
+    z = np.zeros_like(ah)
+    pw["exact products"] = (np.concatenate([ah, ah]), np.concatenate([z, -z]),
+                            np.concatenate([bh, bh]), np.concatenate([-z, z]))
+    sub = (np.ldexp(rng.uniform(1, 2, 128), rng.integers(-149, -126, 128))
+           * pm(128)).astype(f32)
+    an, al = ff(np.exp(rng.uniform(-3, 3, 128)))
+    bn, bl = b_of(128)
+    z = np.zeros(128, f32)
+    pw["subnormal limbs"] = (
+        np.concatenate([np.abs(sub), an, an, an, an]),
+        np.concatenate([z, sub, al, al, al]),
+        np.concatenate([bn, bn, sub, bn, sub * f32(2.0 ** 20)]),
+        np.concatenate([bl, bl, z, sub, z]))
+    spec = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 2.0, 0.5, -2.0], f32)
+    sa, sb = np.repeat(spec, spec.size), np.tile(spec, spec.size)
+    z = np.zeros_like(sa)
+    bad = np.array([np.inf, -np.inf, np.nan], f32)
+    fin = np.full(3, 1.5, f32)
+    pw["non-finite"] = (np.concatenate([sa, sa, fin, fin]),
+                        np.concatenate([z, -z, bad, z[:3]]),
+                        np.concatenate([sb, sb, fin, fin]),
+                        np.concatenate([z, -z, z[:3], bad]))
+
+    lo_, hi_ = LOG1P_NEAR
+    e = np.array([lo_, hi_], f32)
+    e = np.concatenate([e, np.nextafter(e, f32(-1)), np.nextafter(e, f32(1))])
+    lp["near band"] = lo4(np.concatenate([
+        rng.uniform(lo_, hi_, 2 * n).astype(f32), e]))
+    k = rng.integers(1, 21, 2 * n)
+    xh = np.concatenate([np.ldexp(1.0, k) - 1.0,
+                         -1.0 + np.ldexp(1.0, -rng.integers(1, 21, 2 * n))])
+    xh = xh.astype(f32)
+    one = (xh.astype(np.float64) + 1.0).astype(f32)
+    lp["1 + x = 2^k, tiny lo"] = (xh, tiny_lo(one, xh.size))
+    xh, xl = beyond(rng.uniform(lo_, hi_, 256).astype(f32))
+    h2 = rng.uniform(lo_, hi_, 2 * n).astype(f32)
+    l2 = (-(2.0 + h2.astype(np.float64))
+          + rng.uniform(-0.2, 0.2, 2 * n)).astype(f32)
+    lp["near band, lo beyond hi"] = (np.concatenate([xh, h2]),
+                                     np.concatenate([xl, l2]))
+    lp["far, lo beyond hi"] = beyond(np.concatenate([
+        np.exp(rng.uniform(-1, 4, 128)), rng.uniform(-0.99, -0.3, 128)])
+        .astype(f32))
+    e = np.array([2.0 ** -45, -2.0 ** -45], f32)
+    e = np.concatenate([e, np.nextafter(e, f32(0)),
+                        np.nextafter(e, e * 2)])
+    lp["identity edge"] = lo4(np.concatenate([
+        e, (np.ldexp(rng.uniform(1, 2, 256), rng.integers(-46, -40, 256))
+            * pm(256)).astype(f32)]))
+    xm = np.concatenate([am, -am[am < 1]])
+    z = np.zeros_like(xm)
+    lp["exact products"] = (np.concatenate([xm, xm]), np.concatenate([z, -z]))
+    hn = rng.uniform(-0.99, 4, 128).astype(f32)
+    z = np.zeros(128, f32)
+    lp["subnormal limbs"] = (np.concatenate([sub, hn, hn]),
+                             np.concatenate([z, sub, -sub]))
+    spec = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, -1.5, -2.0],
+                    f32)
+    fin = np.array([0.1, -0.2, 2.0], f32)
+    lp["non-finite"] = (np.concatenate([spec, spec, fin, fin, fin]),
+                        np.concatenate([np.zeros(8, f32), -np.zeros(8, f32),
+                                        bad, -bad, bad[::-1]]))
+
+    def dev(planes):
+        return tuple(torch.from_numpy(np.ascontiguousarray(p, f32)).to(device)
+                     for p in planes)
+    return {"pow": {k: dev(v) for k, v in pw.items()},
+            "log1p": {k: dev(v) for k, v in lp.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", default=list(VARIANTS))
@@ -505,6 +761,8 @@ def main(argv=None) -> int:
             for loop in sass_loops(lib_of[name]):
                 print(json.dumps({"variant": name, **loop}), flush=True)
     base_sass = sass_functions(cuobjdump_sass(lib_of["shipped"]))
+    parent_sass = (sass_functions(cuobjdump_sass(lib_of["baseline"]))
+                   if args.baseline else None)
     g = torch.Generator(device="cuda").manual_seed(5)
 
     def limbs(h):
@@ -524,7 +782,11 @@ def main(argv=None) -> int:
     wide = {s: limbs(torch.rand(s, generator=g, device="cuda") * 60 - 30)
             for s in ((4096, 4096), (512, 8192))}
     inputs = {"4096x4096": mixed((4096, 4096)), "512x8192": mixed((512, 8192))}
-    timed = {op: dict(inputs) for op in ops}
+    # pow's exponent b ~ N(0, 1), as the operators phase times it
+    expo = {k: limbs(torch.randn(v[0].shape, generator=g, device="cuda"))
+            for k, v in inputs.items()}
+    timed = {op: {k: v + expo[k] if op == "pow" else v
+                  for k, v in inputs.items()} for op in ops}
     if "erf" in ops:
         timed["erf"].update({f"{k} band": band(*v) for k, v in BANDS.items()})
     if "tanh" in ops:
@@ -533,8 +795,14 @@ def main(argv=None) -> int:
     for op in {"sigmoid", "silu"} & set(ops):
         timed[op].update({f"uniform (-30, 30) {s[0]}x{s[1]}": v
                           for s, v in wide.items()})
+    if "log1p" in ops:
+        timed["log1p"].update({f"near band {s[0]}x{s[1]}": band(
+            *LOG1P_BAND, s) for s in ((4096, 4096), (512, 8192))})
+        # near and far branches about evenly mixed in every warp
+        timed["log1p"]["uniform (-0.29, 1.2) 4096x4096"] = band(-0.29, 1.2)
     check = mixed((512, 8192))
-    checks = {op: [check] for op in ops}
+    checks = {op: [check + expo["512x8192"] if op == "pow" else check]
+              for op in ops}
     if "tanh" in ops:
         checks["tanh"] += [tanh_edges("cuda"),
                            tuple(x[:512] for x in uniform)]
@@ -544,6 +812,18 @@ def main(argv=None) -> int:
     wh, wl = wide[(512, 8192)]
     for op in {"sigmoid", "silu"} & set(ops):
         checks[op] += [(eh, el), (wh[:, ::3], wl[:, ::3]), (wh, wl[:1])]
+    # pow and log1p: the edge classes, a strided view and a row lo plane;
+    # pow also a column and a scalar b
+    lp = log_pow_edges("cuda")
+    for op in {"pow", "log1p"} & set(ops):
+        c = checks[op][0]
+        checks[op] += [tuple(torch.cat(p) for p in zip(*lp[op].values())),
+                       tuple(x[:, 1::3] for x in c),
+                       (c[0], c[1][:1]) + c[2:]]
+    if "pow" in ops:
+        ah, al, bh, bl = checks["pow"][0]
+        checks["pow"] += [(ah, al, bh[:, :1], bl[:, :1]),
+                          (ah, al, bh[0, 0], bl[0, 0])]
     want = {op: [fm.math_elementwise_plain(op, *c) for c in cs]
             for op, cs in checks.items()}
     key = ("ff_math", "ff_math_f32")
@@ -568,10 +848,14 @@ def main(argv=None) -> int:
                        k for k in set(sass) | set(base_sass)
                        if sass.get(k) != base_sass.get(k)),
                    "element_loops": element_loops(text)}
+            if parent_sass is not None:
+                row["sass_differs_from_baseline"] = sorted(
+                    k for k in set(sass) | set(parent_sass)
+                    if sass.get(k) != parent_sass.get(k))
             for op in ops:
-                for what, (h, lo) in timed[op].items():
+                for what, planes in timed[op].items():
                     row[f"{op} {what}"] = graph_ms(
-                        lambda: fm.math_elementwise(op, h, lo))
+                        lambda: fm.math_elementwise(op, *planes))
             rows.append(row)
             print(json.dumps(row), flush=True)
             if not same:

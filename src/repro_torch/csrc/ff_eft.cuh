@@ -870,4 +870,214 @@ __device__ __forceinline__ ff2 silu22_fma(float xh, float xl) {
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// log1p22 and pow22 bit for bit, on the FMA TwoProd (the ff_math kernel's
+// LOG1P and POW instances), in the manner of sigmoid22_fma above: one test
+// an element, and log1p22 / pow22 themselves where it fails.
+// log1p runs 7 (near branch) or 8 (far) TwoProds an element, pow 17.
+//
+// Exactness (Dekker's domain as above: both operands below 2^115, and the
+// exponents' sum ea + eb >= -103).  The products, for an element whose
+// atanh argument s (log_core's (m - 1) / (m + 1), or log1p's near-branch
+// x / (2 + x)) has 2^-48 <= |s.hi| <= 1/2:
+//   - div22's ch d.hi: s ~ n / d with n = m - 1 and d = m + 1, so
+//     |s| <= 1/2 puts m in ~[1/3, 3] and d.hi in ~[4/3, 4] (log1p: d =
+//     2 + x, the same), and ch ~ s.hi: |ch d.hi| >= 2^-48;
+//   - atanh_poly's s.hi s.hi >= 2^-96; its Horner's a.hi z.hi, where z.hi
+//     = RN(s.hi^2) in [2^-96, 1/4] and a.hi >= S_F32[0] ~ 0.111 (exponent
+//     -4; S(z) <= atanh(1/2) / (1/2) < 1.1): ea + eb >= -100;
+//   - s.hi a.hi, a.hi = S(z) in [1, 1.1]: >= 2^-48;
+//   - mul212(ln2, e), e an integer with |e| <= 129: >= 0.69, or 0.
+// The bound 2^-48 is sigmoid's: 2^-50 would put z.hi at 2^-100 and the
+// Horner's exponents at -104.  Where log_core's n.hi == 0 (m == 1, x an
+// exact power of two, frequent in pow), s is (+0, +0) and every product of
+// s and z is zero: exact too.  pow's l.hi b.hi is tested: |t.hi| >= 2^-100
+// and |b.hi| < kSplitSafe, with |l.hi| <= 129 ln2 + 2 atanh(1/2) < 91
+// wherever s passed; exp22's products: exp22_fma's *ok.  So log22_fma's
+// test is on s (or n.hi == 0), log1p's near branch tests its s, and pow
+// takes log22_fma's and exp22_fma's tests and the one on l b.  Every other
+// element runs log1p22 / pow22 itself: log's s below 2^-48
+// (m within 2^-47 of 1: x = 2^k (1 + tiny)), lo limbs that put s beyond
+// 1/2 (lo beyond hi; 2 + x near 0), |l b| below 2^-100 (tiny b, and
+// a == 1), |b| from 2^100, exp's r off its domain, and +-0, +-inf, nan
+// (a == 0 or inf gives l = -inf or inf, b == 0 gives t = 0).
+//
+// Signed zeros (as above: where the exact product is an f32, Dekker's y
+// may be -0 and the FMA's is +0, and a Mul22's lo then differs only in
+// sign, where its cross products sum to -0).  Where each goes:
+//   - div22: x1 = a.hi - t.hi is never -0: gone (as in sigmoid22_fma);
+//   - s s: a square, Dekker's y is +0: none;
+//   - the Horner's a z: into add22(a, {S_H[j], S_L[j]}), whose a.lo +
+//     S_L[j] is S_L[j] for j > 0 and +0 for S_L[0] == +0: gone;
+//   - mul212(ln2, e) = (t.hi, u - (RN(t.hi + u) - t.hi)), u = y + LN2_L e:
+//     Dekker's split of LN2_H has a positive low half, so at e == 0 its y
+//     is +0 as the FMA's; at other exact products (e a power of two) y
+//     meets LN2_L e != 0: gone.  Its lo is -0 only where u is, which needs
+//     LN2_L e == -0 (e == 0) and y == -0: never;
+//   - log_core's s a: its lo, doubled, into add22(tl, l) as v = err +
+//     (tl.lo + l.lo), where tl.lo, never -0, turns a zero l.lo into +0 or
+//     tl.lo: gone;
+//   - log1p's near-branch s a: its lo, doubled, is the output's lo: u == 0
+//     sends the element to log1p22 (one test);
+//   - pow's l b (t.hi != 0 by its test): t.lo enters exp_reduce's v = t.lo
+//     - k L3: k L3 != 0 for k != 0, and t.lo - (-0) = +0 for k == +0; for
+//     k == -0 (t.hi in (-ln2/2, 0)), v = t.lo and add212((t.hi, +0), v)
+//     is the TwoSum of t.hi != 0 and a zero, whose err is +0: gone;
+//   - exp22's own: as in sigmoid22_fma (its +1).
+// tests/test_torch_math_fma_log.py emulates this path exactly on the CPU
+// and holds it to log1p22 and pow22 on math_variants.log_pow_edges.
+// ---------------------------------------------------------------------------
+
+// Mul212 on two_prod_fma.
+__device__ __forceinline__ ff2 mul212_fma(ff2 a, float b) {
+  ff2 t = two_prod_fma(a.hi, b);
+  float u = add(t.lo, mul(a.lo, b));
+  return fast_two_sum(t.hi, u);
+}
+
+// atanh_poly on mul22_fma (the same constants and op order).
+__device__ __forceinline__ ff2 atanh_poly_fma(ff2 s) {
+  const float S_F32[6] = {0x1.c71c72p-4f, 0x1.745d18p-4f, 0x1.3b13b2p-4f,
+                          0x1.111112p-4f, 0x1.e1e1e2p-5f, 0x1.af286cp-5f};
+  const float S_H[4] = {0x1p+0f, 0x1.555556p-2f, 0x1.99999ap-3f,
+                        0x1.24924ap-3f};
+  const float S_L[4] = {0.0f, -0x1.555556p-27f, -0x1.99999ap-29f,
+                        -0x1.b6db6ep-28f};
+  ff2 z = mul22_fma(s, s);
+  float t = S_F32[5];
+#pragma unroll
+  for (int i = 4; i >= 0; --i) t = add(mul(t, z.hi), S_F32[i]);
+  ff2 a = {t, 0.0f};
+#pragma unroll
+  for (int j = 3; j >= 0; --j) {
+    a = mul22_fma(a, z);
+    a = add22(a, {S_H[j], S_L[j]});
+  }
+  return a;
+}
+
+// The atanh argument's domain above.
+__device__ __forceinline__ bool atanh_arg_ok(float sh) {
+  const float as = fabsf(sh);
+  return as <= 0.5f && as >= 0x1p-48f;
+}
+
+// log22's reduction x = 2^e m, m in [1/sqrt2, sqrt2) by exponent-bit
+// surgery, as log_core's n = m - 1 and d = m + 1; returns e.
+__device__ __forceinline__ float log_reduce(float xh, float xl, ff2* n,
+                                            ff2* d) {
+  int bits = __float_as_int(xh);
+  int e = ((bits >> 23) & 0xFF) - 127;
+  float mh = __int_as_float((bits & 0x007FFFFF) | 0x3F800000);
+  bool big = mh > 0x1.6a09e6p+0f;
+  mh = big ? mul(mh, 0.5f) : mh;
+  e += big ? 1 : 0;
+  const ff2 m = {mh, scale2k(xl, 0.0f, -e).hi};
+  *n = add212(m, -1.0f);
+  *d = add212(m, 1.0f);
+  return static_cast<float>(e);
+}
+
+// 2 s S(s^2) with s = n / d, on the twins: the atanh kernel of log_core
+// and of log1p's near branch (div22, atanh_poly, mul22, the doubling).
+// *sh: s.hi; *u: the last Mul22's u, the source of its low limb.
+__device__ __forceinline__ ff2 atanh2_fma(ff2 n, ff2 d, float* sh,
+                                          float* u) {
+  const ff2 s = div22_fma(n, d);
+  const ff2 a = atanh_poly_fma(s);
+  const ff2 t = two_prod_fma(s.hi, a.hi);               // mul22(s, a)
+  *u = add(t.lo, add(mul(s.hi, a.lo), mul(s.lo, a.hi)));
+  *sh = s.hi;
+  const ff2 l = fast_two_sum(t.hi, *u);
+  return {mul(2.0f, l.hi), mul(2.0f, l.lo)};            // exact
+}
+
+// log_core's e ln2 + l, and log22's values at x = 0, x < 0, inf and nan.
+__device__ __forceinline__ ff2 log_finish(float xh, float ef, ff2 l) {
+  const float LN2_H = 0x1.62e43p-1f;   // ln2 as an FF constant
+  const float LN2_L = -0x1.05c61p-29f;
+  ff2 r = add22(mul212_fma({LN2_H, LN2_L}, ef), l);
+  bool bad = (xh < 0.0f) || (xh != xh);
+  float rh = xh == 0.0f ? -inf32() : (bad ? __int_as_float(0x7fc00000) : r.hi);
+  rh = xh == inf32() ? inf32() : rh;
+  float rl = (xh == 0.0f || bad || xh == inf32()) ? 0.0f : r.lo;
+  return {rh, rl};
+}
+
+// log22 on the twins; *ok: its s is in the domain, or n.hi == 0.
+__device__ __forceinline__ ff2 log22_fma(float xh, float xl, bool* ok) {
+  ff2 n, d;
+  const float ef = log_reduce(xh, xl, &n, &d);
+  float sh, u;
+  const ff2 l = atanh2_fma(n, d, &sh, &u);
+  *ok = atanh_arg_ok(sh) || n.hi == 0.0f;
+  return log_finish(xh, ef, l);
+}
+
+// log1p22 on the twins; *ok: the element is in the domain above (the
+// branches that run no product pass).  Both branches share one atanh
+// kernel: its s is x / (2 + x) on the near branch, log22's of the exact
+// 1 + x beyond, so a warp of mixed branches runs it once.
+__device__ __forceinline__ ff2 log1p22_fma_body(float xh, float xl,
+                                                bool* ok) {
+  *ok = true;
+  if (xh != xh) return {xh, xh};
+  if (xh == inf32()) return {inf32(), 0.0f};
+  if (fabsf(xh) < kIdentity) return {xh, xl};
+  const bool near = xh >= -0x1.2bec32p-2f && xh <= 0x1.a82798p-2f;
+  ff2 n = {xh, xl}, d, f = {0.0f, 0.0f};
+  float ef = 0.0f;
+  if (near) {
+    d = add212(n, 2.0f);
+  } else {
+    const ff2 w = two_sum(xh, 1.0f);
+    f = fast_two_sum(w.hi, add(w.lo, xl));
+    ef = log_reduce(f.hi, f.lo, &n, &d);
+  }
+  float sh, u;
+  const ff2 l = atanh2_fma(n, d, &sh, &u);
+  if (near) {
+    *ok = atanh_arg_ok(sh) && u != 0.0f;
+    return l;
+  }
+  *ok = atanh_arg_ok(sh) || n.hi == 0.0f;
+  return log_finish(f.hi, ef, l);
+}
+
+// pow22 itself, out of line: it runs only outside the domain.
+__device__ __noinline__ ff2 pow22_far(float ah, float al, float bh,
+                                      float bl) {
+  return pow22(ah, al, bh, bl);
+}
+
+// log1p22(xh, xl), bit for bit.  log1p22 itself runs inline where the
+// test fails: called out of line, it would hold the kernel at 37 registers
+// and 6 blocks of 256 an SM (28 and 8 inline; math_variants "log1p far
+// body out of line" times it).
+__device__ __forceinline__ ff2 log1p22_fma(float xh, float xl) {
+  bool ok;
+  ff2 r = log1p22_fma_body(xh, xl, &ok);
+  if (!ok) r = log1p22(xh, xl);
+  return r;
+}
+
+// pow22(ah, al, bh, bl), bit for bit.
+__device__ __forceinline__ ff2 pow22_fma(float ah, float al, float bh,
+                                         float bl) {
+  bool lok, eok;
+  const ff2 l = log22_fma(ah, al, &lok);
+  const ff2 t = mul22_fma(l, {bh, bl});
+  ff2 r = exp22_fma(t.hi, t.lo, &eok);
+  if (ah == 0.0f || ah == inf32()) {
+    const bool zero = ah == 0.0f;
+    if (bh > 0.0f) r.hi = zero ? 0.0f : inf32();
+    if (bh < 0.0f) r.hi = zero ? inf32() : 0.0f;
+    r.lo = 0.0f;
+  }
+  if (bh == 0.0f) r = {1.0f, 0.0f};
+  if (!(lok && eok && fabsf(t.hi) >= 0x1p-100f && fabsf(bh) < kSplitSafe))
+    r = pow22_far(ah, al, bh, bl);
+  return r;
+}
+
 }  // namespace ffk

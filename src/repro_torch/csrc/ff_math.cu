@@ -22,11 +22,14 @@
 // (ff_planes.cuh): their branches are short.  For tanh the band sort below is
 // faster on mixed bands (x uniform in (-1, 1)) but more than 5% slower on
 // band-pure input, so tanh stays in this loop
-// (repro_torch.benchmarks.math_variants "tanh band sort").  sigmoid and silu
-// run each TwoProd as a multiply and an FMA (sigmoid22_fma and silu22_fma,
-// ff_eft.cuh) where one test on the reduced argument, and silu's on its last
-// product, proves Dekker's TwoProd exact, and sigmoid22 / silu22 themselves
-// out of line elsewhere; on contiguous planes they take a flat index (kFlat).
+// (repro_torch.benchmarks.math_variants "tanh band sort").  sigmoid, silu,
+// log1p and pow run each TwoProd as a multiply and an FMA (sigmoid22_fma,
+// silu22_fma, log1p22_fma and pow22_fma, ff_eft.cuh) where one test an
+// element proves Dekker's TwoProd exact (exp's reduced argument, log's atanh
+// argument, the products whose low limb reaches the output, pow's l b), and
+// sigmoid22 / silu22 / log1p22 / pow22 themselves elsewhere (out of line but
+// log1p22, whose call would cost registers); on contiguous planes they take
+// a flat index (kFlat).
 // erf and gelu branch into series of very different lengths (erf22's bands:
 // the alternating series on |x| <= 1, the positive series to 4, the
 // asymptotic form beyond), and a warp whose elements straddle a band edge
@@ -72,37 +75,54 @@ __device__ __forceinline__ ff2 apply(float h, float l, float bh, float bl) {
   if constexpr (OP == EXP) return exp22(h, l);
   else if constexpr (OP == EXPM1) return expm122(h, l);
   else if constexpr (OP == LOG) return log22(h, l);
-  else if constexpr (OP == LOG1P) return log1p22(h, l);
+  else if constexpr (OP == LOG1P) return log1p22_fma(h, l);
   else if constexpr (OP == TANH) return tanh22(h, l);
   else if constexpr (OP == SIGMOID) return sigmoid22_fma(h, l);
   else if constexpr (OP == ERF) return erf22(h, l);
   else if constexpr (OP == GELU) return gelu22(h, l);
   else if constexpr (OP == SILU) return silu22_fma(h, l);
-  else return pow22(h, l, bh, bl);
+  else return pow22_fma(h, l, bh, bl);
 }
 
-// sigmoid and silu on contiguous hi and lo planes (the silu gate of
-// serving): a flat index, without for_each_element's division by the
+// sigmoid, silu, log1p and pow on contiguous operand planes (the silu gate
+// of serving): a flat index, without for_each_element's division by the
 // column count and its strided addresses.
 template <int OP>
-constexpr bool kFlat = OP == SIGMOID || OP == SILU;
+constexpr bool kFlat =
+    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;
 
+// Every operand plane of OP (pow's four, two otherwise) is row-major and
+// dense: a broadcast plane (stride 0) is not.
+template <int OP>
 __device__ __forceinline__ bool contiguous(const Planes& t) {
-  return t.cs[0] == 1 && t.cs[1] == 1 && t.rs[0] == t.cols &&
-         t.rs[1] == t.cols;
+  const bool x = t.cs[0] == 1 && t.cs[1] == 1 && t.rs[0] == t.cols &&
+                 t.rs[1] == t.cols;
+  if constexpr (OP == POW)
+    return x && t.cs[2] == 1 && t.cs[3] == 1 && t.rs[2] == t.cols &&
+           t.rs[3] == t.cols;
+  return x;
+}
+
+// Element i of contiguous operand planes.
+template <int OP>
+__device__ __forceinline__ ff2 flat_apply(const Planes& t, long long i) {
+  if constexpr (OP == POW)
+    return apply<OP>(t.in[0][i], t.in[1][i], t.in[2][i], t.in[3][i]);
+  else
+    return apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
 }
 
 template <int OP>
 __global__ void __launch_bounds__(256)
 math_kernel(const __grid_constant__ Planes t) {
   if constexpr (kFlat<OP>) {
-    if (contiguous(t)) {
+    if (contiguous<OP>(t)) {
       const long long n = t.rows * t.cols;
       const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
       for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x;
            i < n; i += stride) {
-        const ff2 v = apply<OP>(t.in[0][i], t.in[1][i], 0.0f, 0.0f);
+        const ff2 v = flat_apply<OP>(t, i);
         t.out_hi[i] = v.hi;
         t.out_lo[i] = v.lo;
       }

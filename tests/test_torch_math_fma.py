@@ -297,7 +297,7 @@ def test_device_constants_are_the_emulated_ones():
         float.fromhex("0x1p+100"))
     cu = (Path(core_ff.__file__).resolve().parents[1] / "csrc"
           / "ff_math.cu").read_text()
-    assert "kFlat = OP == SIGMOID || OP == SILU;" in cu
+    assert "OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;" in cu
     assert "return sigmoid22_fma(h, l);" in cu
     assert "return silu22_fma(h, l);" in cu
 
