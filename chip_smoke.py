@@ -1521,7 +1521,12 @@ def math_branch_inputs(torch, op, g):
     exact products, lo beyond hi, non-finite limbs), for pow and log1p
     those of theirs (``math_variants.log_pow_edges``: a = 1, tiny atanh
     arguments, |b| from 2^100 and below 2^-90, the saturations, lo beyond
-    hi, 2 + x near 0, exact products, subnormal and non-finite limbs)."""
+    hi, 2 + x near 0, exact products, subnormal and non-finite limbs), for
+    expm1 and log those of theirs (``math_variants.exp_log_edges``: the
+    identity edge, k flipping at +-ln2/2, r cancelling near k ln2, lo +-0
+    at k == 0, x = 2^k (1 + tiny), powers of two, s near +-2^6.8, exact
+    products, lo beyond hi, the clip edges, subnormal and non-finite
+    limbs)."""
     def u(a, b, n=4096):
         return torch.rand(n, generator=g, device="cuda",
                           dtype=torch.float64) * (b - a) + a
@@ -1548,9 +1553,10 @@ def math_branch_inputs(torch, op, g):
     }[op]
     x = torch.cat(parts + ([] if op == "pow" else [spec]))
     hi, lo = ff_limbs(torch, x)
-    if op in ("sigmoid", "silu"):        # the FMA path's edge classes
-        from repro_torch.benchmarks.math_variants import sigmoid_edges
-        edges = sigmoid_edges("cuda", seed=SEED)
+    if op in ("sigmoid", "silu", "expm1", "log"):   # the FMA path's edges
+        from repro_torch.benchmarks import math_variants as mv
+        edges = (mv.sigmoid_edges("cuda", seed=SEED) if op in ("sigmoid",
+                 "silu") else mv.exp_log_edges("cuda", seed=SEED)[op])
         return (torch.cat([hi] + [h for h, _ in edges.values()]),
                 torch.cat([lo] + [e for _, e in edges.values()]))
     if op not in ("pow", "log1p"):
@@ -1796,37 +1802,61 @@ def phase_ops_checks(torch):
         + f") and, x uniform in (-30, 30), {MATH_BIG} contiguous, a strided "
         f"view, a row lo plane and a column hi plane "
         f"({time.perf_counter() - t0:.1f} s)")
-    # pow and log1p the same: their edge classes one by one, then the
-    # layouts at MATH_BIG (pow: a ~ |N(0,1)| + 0.5, b ~ N(0,1), also a
-    # broadcast b; log1p: x uniform in (-0.29, 4), near and far branches
-    # interleaved)
-    from repro_torch.benchmarks.math_variants import log_pow_edges
+    # pow, log1p, expm1 and log the same: their edge classes one by one
+    # (for expm1 and log with the elements each sends to the Dekker body
+    # counted by the card's own test, held to its host emulation), then the layouts at MATH_BIG (pow: a ~ |N(0,1)| + 0.5, b ~
+    # N(0,1), also a broadcast b; log1p: x uniform in (-0.29, 4), near and
+    # far branches interleaved; expm1: x uniform in (-1, 1), both branches;
+    # log: x = exp(U(-50, 50)))
+    from repro_torch.benchmarks.math_variants import (
+        dekker_elements, exp_log_edges, log_pow_edges)
     t0 = time.perf_counter()
-    lp = log_pow_edges("cuda", seed=SEED + 1)
+    lp = {**log_pow_edges("cuda", seed=SEED + 1),
+          **exp_log_edges("cuda", seed=SEED + 1)}
     ah = rn(*MATH_BIG).abs() + 0.5
     bh = rn(*MATH_BIG)
     a, b = (ah, ah * 1e-8 * rn(*MATH_BIG)), (bh, bh * 1e-8 * rn(*MATH_BIG))
-    x = torch.rand(MATH_BIG, generator=g, device="cuda") * 4.29 - 0.29
-    x = (x, x * 1e-8 * torch.randn(x.shape, generator=g, device="cuda"))
+
+    def unary(x):
+        x = (x, x * 1e-8 * torch.randn(x.shape, generator=g, device="cuda"))
+        return {"contiguous": x, "strided view": tuple(p[:, 1::3] for p in x),
+                "row lo plane": (x[0], x[1][:1]),
+                "column hi plane": (x[0][:, :1], x[1])}
+    u = torch.rand(MATH_BIG, generator=g, device="cuda", dtype=torch.float64)
     layouts = {"pow": {"contiguous": a + b,
                        "strided view": tuple(p[:, 1::3] for p in a + b),
                        "row lo plane": (a[0], a[1][:1]) + b,
                        "column hi plane": (a[0][:, :1], a[1]) + b,
                        "column b": a + (b[0][:, :1], b[1][:, :1]),
                        "scalar b": a + (b[0][0, 0], b[1][0, 0])},
-               "log1p": {"contiguous": x,
-                         "strided view": tuple(p[:, 1::3] for p in x),
-                         "row lo plane": (x[0], x[1][:1]),
-                         "column hi plane": (x[0][:, :1], x[1])}}
-    for op in ("pow", "log1p"):
+               "log1p": unary((4.29 * u - 0.29).float()),
+               "expm1": unary((2.0 * u - 1.0).float()),
+               "log": unary(torch.exp(100.0 * u - 50.0).float())}
+    for op in ("pow", "log1p", "expm1", "log"):
         for what, args in list(lp[op].items()) + list(layouts[op].items()):
             check("ff_math", f"{op} {what}", fm.math_elementwise(op, *args),
                   fm.math_elementwise_plain(op, *args))
+        far = {}
+        for k, v in (lp[op].items() if op in ("expm1", "log") else ()):
+            mask = dekker_mask(torch, op, *v).cpu()
+            host = dekker_elements(op, *(p.cpu() for p in v))
+            if not torch.equal(mask, host):
+                raise AssertionError(
+                    f"ff_math {op} {k}: the card's element test differs "
+                    f"from its host emulation on "
+                    f"{int((mask != host).sum())} elements")
+            far[k] = int(mask.sum())
+        if far and not any(far.values()):
+            raise AssertionError(f"ff_math {op}: no edge class reaches the "
+                                 f"Dekker body")
         log(f"ff_math {op}: kernel == plain bit for bit on the FMA path's "
-            f"edge classes ("
-            + ", ".join(f"{k} {v[0].numel()}" for k, v in lp[op].items())
+            f"edge classes (elements"
+            f"{'/to the Dekker body, by the card test' if far else ''}: "
+            + ", ".join(f"{k} {v[0].numel()}"
+                        + (f"/{far[k]}" if far else "")
+                        for k, v in lp[op].items())
             + f") and at {MATH_BIG}: " + ", ".join(layouts[op]))
-    log(f"ff_math pow, log1p: edge classes and layouts "
+    log(f"ff_math pow, log1p, expm1, log: edge classes and layouts "
         f"{time.perf_counter() - t0:.1f} s")
     int_division_check(torch)
     torch.cuda.synchronize()
@@ -1858,6 +1888,28 @@ def int_division_check(torch):
     if n_div or n_div22:
         raise AssertionError("the exact integer division differs from "
                              "IEEE division")
+
+
+def dekker_mask(torch, op, xh, xl):
+    """The card's own element test of math_kernel<EXPM1> / <LOG>
+    (csrc/ff_math_paths.cu, the functions those instances inline): True
+    where the kernel sends the element to the Dekker body (expm122 /
+    log22).  A check kernel: no count, not in the kernels line."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.entry("ff_math_paths", "ff_math_dekker_elements",
+                     [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    xh, xl = xh.contiguous(), xl.contiguous()
+    if xh.shape != xl.shape or xh.dtype != torch.float32:
+        raise ValueError("dekker_mask: two f32 planes of one shape")
+    mask = torch.empty(xh.shape, dtype=torch.uint8, device="cuda")
+    err = fn({"expm1": 1, "log": 2}[op], mask.data_ptr(), xh.data_ptr(),
+             xl.data_ptr(), xh.numel(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ff_math_dekker_elements: CUDA error {err}")
+    return mask.bool()
 
 
 def tune_operands(torch, op, shape, g):
@@ -1989,6 +2041,7 @@ def phase_ops_timing(torch, clock_hz):
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     peak_ops = F32_LANES * clock_hz
     rows = {"ff_elementwise": [], "ff_rowsum": [], "ff_math": []}
+    far = []          # (expm1 / log row, elements the card test sends away)
 
     def pair(shape, positive=True):
         h = torch.randn(shape, generator=g, device="cuda")
@@ -2048,6 +2101,9 @@ def phase_ops_timing(torch, clock_hz):
                 cuda_ms(lambda: fm.math_elementwise_plain(op, *args), 1),
                 yard, nbytes, math_ops(op, h), peak_ops, iters),
                 library=f"float64 {op}"))
+            if op in ("expm1", "log"):
+                far.append((f"{op} {list(shape)}",
+                            int(dekker_mask(torch, op, h, lo).sum())))
         del h, lo, ph, pl, x64, p64
     # band-pure rows: erf's argument (gelu's x / sqrt2) uniform in one band
     for op in ("erf", "gelu"):
@@ -2078,11 +2134,15 @@ def phase_ops_timing(torch, clock_hz):
     banded += [(op, "uniform (-30, 30)", (-30.0, 30.0))
                for op in ("sigmoid", "silu")]
     banded.append(("log1p", "near (-0.29, 0.41)", LOG1P_BAND))
+    # expm1 on its k == 0 branch alone and on both; log on exp(U(-50, 50))
+    banded += [("expm1", "k == 0 (-0.34, 0.34)", (-0.34, 0.34)),
+               ("expm1", "uniform (-1, 1)", (-1.0, 1.0)),
+               ("log", "exp(U(-50, 50))", (-50.0, 50.0))]
     for op, band, (b0, b1) in banded:
         x = b0 + (b1 - b0) * (1.0 - torch.rand((R, C), generator=g,
                                                device="cuda",
                                                dtype=torch.float64))
-        h = x.float()
+        h = (torch.exp(x) if op == "log" else x).float()
         lo = h * 1e-8 * torch.randn((R, C), generator=g, device="cuda")
         x64 = h.double() + lo.double()
         yard = f64[op] if op in f64 else getattr(torch, op)
@@ -2093,6 +2153,9 @@ def phase_ops_timing(torch, clock_hz):
             cuda_ms(lambda: fm.math_elementwise_plain(op, h, lo), 1),
             lambda: yard(x64), 16 * h.numel(), math_ops(op, h),
             peak_ops, 10), library=f"float64 {op}"))
+        if op in ("expm1", "log"):
+            far.append((f"{op} {band} {[R, C]}",
+                        int(dekker_mask(torch, op, h, lo).sum())))
         del x, h, lo, x64
     for name, recs in rows.items():
         for r in recs:
@@ -2101,7 +2164,14 @@ def phase_ops_timing(torch, clock_hz):
                 f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}), plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms")
-    for ops in (("sigmoid", "silu"), ("pow", "log1p")):
+    # no element of expm1's or log's timed inputs runs the Dekker body
+    log("ff_math expm1, log: elements of the timed inputs that the card's "
+        "element test (ff_math_paths.cu) sends to the Dekker body: "
+        + ", ".join(f"{what} {n}" for what, n in far))
+    if any(n for _what, n in far):
+        raise AssertionError("ff_math expm1 / log: timed elements run the "
+                             "Dekker body")
+    for ops in (("sigmoid", "silu"), ("pow", "log1p"), ("expm1", "log")):
         log(f"ff_math {' / '.join(ops)} (FMA TwoProd): kernel / bound "
             + "; ".join(f"{r['op']}{' ' + r['band'] if 'band' in r else ''} "
                         f"{r['shape']} {r['ms']:.4f} / {r['bound_ms']:.4f} "

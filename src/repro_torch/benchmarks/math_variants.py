@@ -1,5 +1,5 @@
-"""The ``ff_math`` kernel's erf, gelu, tanh, sigmoid, silu, pow and log1p
-design, one choice at a time, on the card::
+"""The ``ff_math`` kernel's erf, gelu, tanh, sigmoid, silu, pow, log1p,
+expm1 and log design, one choice at a time, on the card::
 
     python -m repro_torch.benchmarks.math_variants [NAME ...] \\
         [--ops OP ...] [--baseline CSRC] [--sass] [--out rows.json]
@@ -7,23 +7,26 @@ design, one choice at a time, on the card::
 Each variant is a copy of ``csrc/`` with one design choice undone (a text
 edit of the sources, ``VARIANTS``), built with the port's ``nvcc`` flags
 into ``build/variants/<name>/`` (all at once), then swapped in for the
-``ff_math`` library: each function of ``--ops`` (default all seven) is
+``ff_math`` library: each function of ``--ops`` (default all nine) is
 checked bit for bit against its plain version at (512, 8192), tanh also
 on its band edges and a mixed tile, sigmoid and silu also on
-``sigmoid_edges``, pow and log1p on ``log_pow_edges``, and the four on a
-strided view and a row plane (pow also a column plane and a scalar b),
+``sigmoid_edges``, pow and log1p on ``log_pow_edges``, expm1 and log on
+``exp_log_edges``, and those six on a strided view and a row plane (pow
+also a column plane and a scalar b),
 and timed by CUDA-graph replay at (4096, 4096) and (512, 8192) on
 ``|N(0,1)| + 0.5`` (the operators phase's input; pow's b ~ N(0,1));
 erf also at (4096, 4096) on its argument uniform in each band, tanh on x
 uniform in (-1, 1) (about 35% in its small band) and uniform in each
 band, sigmoid and silu on x uniform in (-30, 30), log1p on x uniform in
 its near band (-0.29, 0.41), at both shapes, and log1p on x uniform in
-(-0.29, 1.2) (its two branches mixed in every warp).  Each row also lists each
-kernel's registers and spill bytes (``-Xptxas -v``), the kernels whose
+(-0.29, 1.2) (its two branches mixed in every warp), expm1 on x uniform in
+(-0.34, 0.34) (its k == 0 branch) at both shapes and in (-1, 1) (both
+branches), log on exp(U(-50, 50)) at both shapes.  Each row also lists
+each kernel's registers and spill bytes (``-Xptxas -v``), the kernels whose
 SASS differs from ``shipped``'s (``cuobjdump -sass``, addresses and
-encodings dropped), and the loops of the sigmoid, silu, pow and log1p
-kernels with their f32 (FADD, FMUL, FFMA) and other instructions (one
-element a pass) and the share of the IEEE divisions' code in them.
+encodings dropped), and the loops of the sigmoid, silu, pow, log1p, expm1
+and log kernels with their f32 (FADD, FMUL, FFMA) and other instructions
+(one element a pass) and the share of the IEEE divisions' code in them.
 ``shipped`` is the
 sources as they are; ``--baseline`` builds another ``csrc/`` directory
 (the parent commit's, say) as a row named ``baseline``, so that two
@@ -79,11 +82,16 @@ LOG_POW_DEKKER: Tuple[Edit, ...] = (
     ("ff_math.cu", "return log1p22_fma(h, l);", "return log1p22(h, l);"),
     ("ff_math.cu", "return pow22_fma(h, l, bh, bl);",
      "return pow22(h, l, bh, bl);"))
+# expm1 and log the same
+EXPM1_LOG_DEKKER: Tuple[Edit, ...] = (
+    ("ff_math.cu", "return expm122_fmapath(h, l);", "return expm122(h, l);"),
+    ("ff_math.cu", "return log22_fmapath(h, l);", "return log22(h, l);"))
 NO_FLAT: Tuple[Edit, ...] = (
-    ("ff_math.cu", "constexpr bool kFlat =\n"
+    ("ff_math.cu", "constexpr bool kFlat = OP == EXPM1 || OP == LOG ||\n"
      "    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;",
      "constexpr bool kFlat = false;"),)
-# the flat loop of sigmoid, silu, log1p and pow, and two alternatives to it
+# the flat loop of expm1, log, log1p, sigmoid, silu and pow, and two
+# alternatives to it
 FLAT_LOOP = """      for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x;
            i < n; i += stride) {
@@ -146,10 +154,9 @@ LOG1P_APART = """  if (xh >= -0x1.2bec32p-2f && xh <= 0x1.a82798p-2f) {
 """
 VARIANTS: Dict[str, Tuple[Edit, ...]] = {
     "shipped": (),
-    # sigmoid, silu, log1p and pow as they were (sigmoid and silu before
-    # the FMA path, log1p and pow before theirs): Dekker's TwoProd, the
-    # strided loop
-    "dekker": SIGMOID_DEKKER + LOG_POW_DEKKER + NO_FLAT,
+    # sigmoid, silu, log1p, pow, expm1 and log as they were before their
+    # FMA paths: Dekker's TwoProd, the strided loop
+    "dekker": SIGMOID_DEKKER + LOG_POW_DEKKER + EXPM1_LOG_DEKKER + NO_FLAT,
     # each TwoProd of sigmoid and silu checks its own product, operands and
     # zero error, and runs Dekker's out of line otherwise, in place of the
     # element's test on its reduced argument (a test of the product alone
@@ -195,6 +202,14 @@ VARIANTS: Dict[str, Tuple[Edit, ...]] = {
          "  return log1p22(xh, xl);\n}\n\n// log1p22(xh, xl), bit for bit."),
         ("ff_eft.cuh", "  if (!ok) r = log1p22(xh, xl);\n",
          "  if (!ok) r = log1p22_far(xh, xl);\n")),
+    # log22 out of line where log's test fails, as expm122 is
+    "log far body out of line": (
+        ("ff_eft.cuh", "__device__ __forceinline__ ff2 log22_fmapath(",
+         "__device__ __noinline__ ff2 log22_far(float xh, float xl) {\n"
+         "  return log22(xh, xl);\n}\n\n"
+         "__device__ __forceinline__ ff2 log22_fmapath("),
+        ("ff_eft.cuh", "  if (!ok) r = log22(xh, xl);\n",
+         "  if (!ok) r = log22_far(xh, xl);\n")),
     # pow's log half on Dekker's TwoProd (log22), the FMA in its product
     # l b and in exp22 only
     "fma in exp only": (
@@ -238,7 +253,8 @@ VARIANTS: Dict[str, Tuple[Edit, ...]] = {
         ("ff_eft.cuh", f"__device__ __noinline__ ff2 {fn}(",
          f"__device__ __forceinline__ ff2 {fn}(")
         for fn in ("div22_far", "erf_small_any", "erf_mid_any",
-                   "sigmoid22_far", "silu22_far", "pow22_far")),
+                   "sigmoid22_far", "silu22_far", "pow22_far",
+                   "expm122_far")),
     "mid series unrolled": (
         ("ff_eft.cuh", "#pragma unroll 4\n  for (int n = 1; n < kErfPosTerms",
          "#pragma unroll\n  for (int n = 1; n < kErfPosTerms"),),
@@ -273,11 +289,13 @@ BANDS = {"small": (0.0, 1.0), "mid": (1.0, 4.0), "big": (4.0, 8.0)}
 # tanh's two series' bands of |x| (the identity band below 2^-45 is empty
 # at these sizes)
 TANH_BANDS = {"small": (0.0, 0.35), "large": (0.3501, 8.0)}
-OPS = ("erf", "gelu", "tanh", "sigmoid", "silu", "pow", "log1p")
+OPS = ("erf", "gelu", "tanh", "sigmoid", "silu", "pow", "log1p", "expm1",
+       "log")
 F32_OPS = ("FADD", "FMUL", "FFMA")
 # the kernel instances whose loops are counted
 COUNTED = {"sigmoid": "math_kernelILi5E", "silu": "math_kernelILi8E",
-           "pow": "math_kernelILi9E", "log1p": "math_kernelILi3E"}
+           "pow": "math_kernelILi9E", "log1p": "math_kernelILi3E",
+           "expm1": "math_kernelILi1E", "log": "math_kernelILi2E"}
 
 
 def graph_ms(fn, iters: int = 5) -> float:
@@ -480,6 +498,30 @@ def cancelling_lo(yh: torch.Tensor) -> torch.Tensor:
     return ((kf * ffmath._EXP_L3).double() - sh.double()).float()
 
 
+def lo_forms(h) -> Tuple[np.ndarray, np.ndarray]:
+    """f32 hi limbs ``h``, each with lo +0, -0 and +-hi 2^-25."""
+    h = np.asarray(h, np.float32)
+    s = (h * np.float32(2.0 ** -25)).astype(np.float32)
+    z = np.zeros_like(h)
+    return np.concatenate([h, h, h, h]), np.concatenate([z, -z, s, -s])
+
+
+def lo_beyond(h) -> Tuple[np.ndarray, np.ndarray]:
+    """f32 hi limbs ``h``, each with lo = +-hi 2^(-10, 0, 10, 60, 130)
+    (the last inf)."""
+    with np.errstate(over="ignore"):
+        lo = np.concatenate([(h * np.float32(2.0 ** k)).astype(np.float32)
+                             for k in (-10, 0, 10, 60, 130)])
+    hh = np.tile(h, 5)
+    return np.concatenate([hh, hh]), np.concatenate([lo, -lo])
+
+
+def on_device(device, planes) -> Tuple[torch.Tensor, ...]:
+    """numpy planes as contiguous f32 tensors on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(p, np.float32))
+                 .to(device) for p in planes)
+
+
 def sigmoid_edges(device, seed: int = 0) -> Dict[str, Tuple[torch.Tensor,
                                                              torch.Tensor]]:
     """The edge classes of sigmoid22 and silu22 on the FMA TwoProd, as FF
@@ -496,15 +538,7 @@ def sigmoid_edges(device, seed: int = 0) -> Dict[str, Tuple[torch.Tensor,
     applies."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
-
-    def lo4(h):
-        h = np.asarray(h, f32)
-        s = (h * f32(2.0 ** -25)).astype(f32)
-        z = np.zeros_like(h)
-        return (np.concatenate([h, h, h, h]),
-                np.concatenate([z, -z, s, -s]))
-
-    out = {"z subnormal": lo4(rng.uniform(-110, -60, 512))}
+    out = {"z subnormal": lo_forms(rng.uniform(-110, -60, 512))}
     y = torch.tensor([-k * math.log(2.0) for k in range(1, 101)],
                      dtype=torch.float32)
     y = torch.cat([y, torch.nextafter(y, torch.full_like(y, -math.inf)),
@@ -528,8 +562,8 @@ def sigmoid_edges(device, seed: int = 0) -> Dict[str, Tuple[torch.Tensor,
                                np.concatenate([yl, -yl]))
     e = rng.integers(-150, -39, 512)
     tiny = np.ldexp(rng.uniform(1, 2, 512), e) * rng.choice([-1, 1], 512)
-    out["tiny |x|"] = lo4(tiny.astype(f32))
-    out["lo signed zeros"] = lo4(rng.uniform(-30, 30, 2048))
+    out["tiny |x|"] = lo_forms(tiny.astype(f32))
+    out["lo signed zeros"] = lo_forms(rng.uniform(-30, 30, 2048))
     m = np.arange(1, 64, 2, dtype=np.float64)
     r = (m[:, None] * 2.0 ** np.arange(-20, 7)[None, :]).ravel()
     r = np.concatenate([r, -r]).astype(f32)
@@ -541,22 +575,14 @@ def sigmoid_edges(device, seed: int = 0) -> Dict[str, Tuple[torch.Tensor,
     hn = rng.uniform(-30, 30, 128).astype(f32)
     out["subnormal limbs"] = (np.concatenate([sub, hn, hn]),
                               np.concatenate([np.zeros_like(sub), sub, -sub]))
-    h = rng.uniform(-30, 30, 256).astype(f32)
-    with np.errstate(over="ignore"):
-        lo = np.concatenate([(h * f32(2.0 ** k)).astype(f32)
-                             for k in (-10, 0, 10, 60, 130)])
-    hh = np.tile(h, 5)
-    out["lo beyond hi"] = (np.concatenate([hh, hh]),
-                           np.concatenate([lo, -lo]))
+    out["lo beyond hi"] = lo_beyond(rng.uniform(-30, 30, 256).astype(f32))
     spec = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], f32)
     fin = np.array([1.0, -2.0, 30.0], f32)
     bad = np.array([np.inf, -np.inf, np.nan], f32)
     out["non-finite"] = (np.concatenate([spec, spec, fin, fin, fin]),
                          np.concatenate([np.zeros(5, f32), -np.zeros(5, f32),
                                          bad, -bad, bad[::-1]]))
-    return {k: (torch.from_numpy(np.ascontiguousarray(a, f32)).to(device),
-                torch.from_numpy(np.ascontiguousarray(b, f32)).to(device))
-            for k, (a, b) in out.items()}
+    return {k: on_device(device, v) for k, v in out.items()}
 
 
 # log1p's near branch, [-0.2928932, 0.41421354] as f32, and the band
@@ -594,24 +620,10 @@ def log_pow_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
             lo = np.where(np.isfinite(x), x - h.astype(np.float64), 0.0)
         return h, lo.astype(f32)
 
-    def lo4(h):                           # lo +0, -0, +-hi 2^-25
-        h = np.asarray(h, f32)
-        s = (h * f32(2.0 ** -25)).astype(f32)
-        z = np.zeros_like(h)
-        return (np.concatenate([h, h, h, h]),
-                np.concatenate([z, -z, s, -s]))
-
     def tiny_lo(h, n):                    # +-[1, 2) 2^(k-45 ... k-100)
         k = np.floor(np.log2(np.abs(h.astype(np.float64))))
         return (np.ldexp(rng.uniform(1, 2, n), (k + rng.integers(-100, -44, n))
                          .astype(int)) * pm(n)).astype(f32)
-
-    def beyond(h):                        # lo = +-hi 2^(-10, 0, 10, 60, 130)
-        with np.errstate(over="ignore"):
-            lo = np.concatenate([(h * f32(2.0 ** k)).astype(f32)
-                                 for k in (-10, 0, 10, 60, 130)])
-        hh = np.tile(h, 5)
-        return np.concatenate([hh, hh]), np.concatenate([lo, -lo])
 
     def b_of(n):                          # b uniform in (-8, 8), FF
         return ff(rng.uniform(-8, 8, n))
@@ -655,9 +667,9 @@ def log_pow_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
     bh, bl = ff(c / np.log(ah.astype(np.float64) + al))
     pw["b ln a near 89, -89, -104"] = (ah, al, bh, bl)
     h = np.exp(rng.uniform(-3, 3, 256)).astype(f32)
-    xh, xl = beyond(h)
+    xh, xl = lo_beyond(h)
     bh, bl = b_of(xh.size)
-    gh, gl = beyond(rng.uniform(-8, 8, 256).astype(f32))
+    gh, gl = lo_beyond(rng.uniform(-8, 8, 256).astype(f32))
     ah2, al2 = ff(np.exp(rng.uniform(-3, 3, gh.size)))
     pw["lo beyond hi"] = (np.concatenate([xh, ah2]), np.concatenate([xl, al2]),
                           np.concatenate([bh, gh]), np.concatenate([bl, gl]))
@@ -691,7 +703,7 @@ def log_pow_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
     lo_, hi_ = LOG1P_NEAR
     e = np.array([lo_, hi_], f32)
     e = np.concatenate([e, np.nextafter(e, f32(-1)), np.nextafter(e, f32(1))])
-    lp["near band"] = lo4(np.concatenate([
+    lp["near band"] = lo_forms(np.concatenate([
         rng.uniform(lo_, hi_, 2 * n).astype(f32), e]))
     k = rng.integers(1, 21, 2 * n)
     xh = np.concatenate([np.ldexp(1.0, k) - 1.0,
@@ -699,19 +711,19 @@ def log_pow_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
     xh = xh.astype(f32)
     one = (xh.astype(np.float64) + 1.0).astype(f32)
     lp["1 + x = 2^k, tiny lo"] = (xh, tiny_lo(one, xh.size))
-    xh, xl = beyond(rng.uniform(lo_, hi_, 256).astype(f32))
+    xh, xl = lo_beyond(rng.uniform(lo_, hi_, 256).astype(f32))
     h2 = rng.uniform(lo_, hi_, 2 * n).astype(f32)
     l2 = (-(2.0 + h2.astype(np.float64))
           + rng.uniform(-0.2, 0.2, 2 * n)).astype(f32)
     lp["near band, lo beyond hi"] = (np.concatenate([xh, h2]),
                                      np.concatenate([xl, l2]))
-    lp["far, lo beyond hi"] = beyond(np.concatenate([
+    lp["far, lo beyond hi"] = lo_beyond(np.concatenate([
         np.exp(rng.uniform(-1, 4, 128)), rng.uniform(-0.99, -0.3, 128)])
         .astype(f32))
     e = np.array([2.0 ** -45, -2.0 ** -45], f32)
     e = np.concatenate([e, np.nextafter(e, f32(0)),
                         np.nextafter(e, e * 2)])
-    lp["identity edge"] = lo4(np.concatenate([
+    lp["identity edge"] = lo_forms(np.concatenate([
         e, (np.ldexp(rng.uniform(1, 2, 256), rng.integers(-46, -40, 256))
             * pm(256)).astype(f32)]))
     xm = np.concatenate([am, -am[am < 1]])
@@ -727,12 +739,196 @@ def log_pow_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
     lp["non-finite"] = (np.concatenate([spec, spec, fin, fin, fin]),
                         np.concatenate([np.zeros(8, f32), -np.zeros(8, f32),
                                         bad, -bad, bad[::-1]]))
+    return {"pow": {k: on_device(device, v) for k, v in pw.items()},
+            "log1p": {k: on_device(device, v) for k, v in lp.items()}}
 
-    def dev(planes):
-        return tuple(torch.from_numpy(np.ascontiguousarray(p, f32)).to(device)
-                     for p in planes)
-    return {"pow": {k: dev(v) for k, v in pw.items()},
-            "log1p": {k: dev(v) for k, v in lp.items()}}
+
+def exp_log_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
+        torch.Tensor, torch.Tensor]]]:
+    """The edge classes of expm122 and log22 on the FMA TwoProd:
+    ``{"expm1": {class: (xh, xl)}, "log": {class: (xh, xl)}}``.
+
+    expm1: |x| at the identity edge 2^-45 (and its neighbours, 2^-46 to
+    2^-40); x at +-ln2/2, where k flips between 0 and +-1 (the f32 values
+    within 8 ulps); FF x = k ln2 (k = +-1 ... +-127) whose reduced argument
+    cancels below 2^-48 (``cancelling_lo``), and for k = 0 hi = 2^e, lo =
+    -(hi - 2^(e-23)) (r = 2^(e-23), hi from 2^-45); x in (-ln2/2, ln2/2)
+    with lo +-0 (k = -0 for x < 0); exact products (x = m 2^e, m odd below
+    64, lo +-0; FF x = k ln2 + m 2^e: zero errors of either sign on both
+    branches); lo beyond hi
+    (up to hi 2^130, inf, and lo = -hi); the clip edges -105 and 89 and the
+    overflow of exp from ~88.72, with their neighbours; subnormal limbs;
+    +-0, +-inf and nan with lo +-0, and non-finite lo limbs.  log: x =
+    2^k (1 + tiny) (hi = 2^k, lo = +-[1, 2) 2^(k-45 ... k-100): s from
+    2^-46 down to 2^-101); powers of two (n.hi == 0) with lo +-0; x near
+    1 and near the frexp seam sqrt2 with lo +0, -0 and +-hi 2^-25; exact
+    products; lo beyond hi (up to hi 2^130, inf), and lo ~ -2 hi, where
+    the atanh argument s is near +-2^6.8; subnormal hi limbs (and lo);
+    +-0, negative, +-inf and nan hi limbs, and non-finite lo limbs; m =
+    mh + ml near 3 and 1/3 (lo beyond hi), where |s| is near 1/2 and
+    div22's quotient n.hi / d.hi and its s.hi fall on either side of it.
+    (Near |s| = 2^-48 they cannot: m is then within 2^-46 of 1, so d.hi
+    = 2 and n.lo = 0, and s.hi is the exact n.hi / 2.)"""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def pm(n):
+        return rng.choice([-1.0, 1.0], n)
+
+    def around(v, ulps):                  # v and its f32 neighbours
+        v = np.asarray(v, f32)
+        out, up, down = [v], v, v
+        for _ in range(ulps):
+            up = np.nextafter(up, f32(np.inf))
+            down = np.nextafter(down, f32(-np.inf))
+            out += [up, down]
+        return np.concatenate(out)
+
+    def subnormal(n):
+        return (np.ldexp(rng.uniform(1, 2, n), rng.integers(-149, -126, n))
+                * pm(n)).astype(f32)
+
+    spec = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], f32)
+    bad = np.array([np.inf, -np.inf, np.nan], f32)
+    em, lg = {}, {}
+    e = np.array([2.0 ** -45, -2.0 ** -45], f32)
+    em["identity edge"] = lo_forms(np.concatenate([
+        around(e, 2), (np.ldexp(rng.uniform(1, 2, 256),
+                                rng.integers(-46, -40, 256))
+                       * pm(256)).astype(f32)]))
+    half = f32(math.log(2.0) / 2)
+    em["x at +-ln2/2"] = lo_forms(around(np.array([half, -half], f32), 8))
+    y = torch.tensor([k * math.log(2.0) for k in range(1, 128)]
+                     + [-k * math.log(2.0) for k in range(1, 128)],
+                     dtype=torch.float32)
+    y = torch.cat([y, torch.nextafter(y, torch.full_like(y, -math.inf)),
+                   torch.nextafter(y, torch.full_like(y, math.inf))])
+    base = cancelling_lo(y)
+    ys, ls = [y], [base]
+    for d in (1, 2):
+        up = down = base
+        for _ in range(d):
+            up = torch.nextafter(up, torch.full_like(up, math.inf))
+            down = torch.nextafter(down, torch.full_like(down, -math.inf))
+        ys += [y, y]
+        ls += [up, down]
+    k0 = np.arange(-45, -20, dtype=np.float64)   # k = 0, r = 2^(e-23)
+    ys.append(torch.from_numpy(np.concatenate([np.exp2(k0), -np.exp2(k0)])
+                               .astype(f32)))
+    r0 = -(np.exp2(k0) - np.exp2(k0 - 23))
+    ls.append(torch.from_numpy(np.concatenate([r0, -r0]).astype(f32)))
+    em["r cancelling near k ln2"] = (torch.cat(ys).numpy(),
+                                     torch.cat(ls).numpy())
+    x = rng.uniform(-half, half, 1024).astype(f32)
+    z = np.zeros_like(x)
+    em["k = 0, lo +-0"] = (np.concatenate([x, x]), np.concatenate([z, -z]))
+    m = np.arange(1, 64, 2, dtype=np.float64)
+    r = (m[:, None] * 2.0 ** np.arange(-44, 6)[None, :]).ravel()
+    r = np.concatenate([r, -r])
+    r = r[np.abs(r) < 88].astype(f32)
+    z = np.zeros_like(r)
+    # and FF x = k ln2 + r with a short r = m 2^e (k != 0)
+    r0 = (m[:, None] * 2.0 ** np.arange(-16, -7)[None, :]).ravel()
+    kl = np.array([1, 2, 5, 17, -1, -2, -5, -17])[:, None] * (
+        ffmath._EXP_L1 + ffmath._EXP_L2 + float(f32(ffmath._EXP_L3)))
+    xk = (kl + np.concatenate([r0, -r0])[None, :]).ravel()
+    hk = xk.astype(f32)
+    em["exact products"] = (np.concatenate([r, r, hk]),
+                            np.concatenate([z, -z, (xk - hk).astype(f32)]))
+    h = rng.uniform(-20, 20, 256).astype(f32)
+    xh, xl = lo_beyond(np.concatenate([h, rng.uniform(-half, half, 64)
+                                    .astype(f32)]))
+    em["lo beyond hi"] = (xh, xl)
+    clip = np.array([-105.0, 89.0, 88.72283935546875, -103.97, 88.0], f32)
+    em["clip edges"] = lo_forms(around(clip, 3))
+    sub = subnormal(128)
+    hn = rng.uniform(-20, 20, 128).astype(f32)
+    em["subnormal limbs"] = (np.concatenate([sub, hn, hn]),
+                             np.concatenate([np.zeros(128, f32), sub, -sub]))
+    fin = np.array([0.1, -0.2, 2.0], f32)
+    em["non-finite"] = (np.concatenate([spec, spec, fin, fin, fin]),
+                        np.concatenate([np.zeros(5, f32), -np.zeros(5, f32),
+                                        bad, -bad, bad[::-1]]))
+
+    k = rng.integers(-126, 128, 1024)
+    hi = np.ldexp(1.0, k).astype(f32)
+    tiny = (np.ldexp(rng.uniform(1, 2, 1024),
+                     k + rng.integers(-100, -44, 1024)) * pm(1024)).astype(f32)
+    lg["2^k (1 + tiny)"] = (hi, tiny)
+    hi = np.ldexp(1.0, np.arange(-126, 128)).astype(f32)
+    z = np.zeros_like(hi)
+    lg["powers of two"] = (np.concatenate([hi, hi]), np.concatenate([z, -z]))
+    near = np.concatenate([
+        rng.uniform(0.7, 1.42, 1024),
+        np.sqrt(2.0) * (1 + rng.uniform(-2.0 ** -20, 2.0 ** -20, 256)),
+        1.0 + rng.uniform(-2.0 ** -20, 2.0 ** -20, 256)]).astype(f32)
+    lg["near 1 and sqrt2"] = lo_forms(np.concatenate([near, around(
+        np.array([1.0, math.sqrt(2.0), math.sqrt(0.5)], f32), 3)]))
+    xm = (m[:, None] * 2.0 ** np.arange(-30, 20)[None, :]).ravel().astype(f32)
+    z = np.zeros_like(xm)
+    lg["exact products"] = (np.concatenate([xm, xm]), np.concatenate([z, -z]))
+    lg["lo beyond hi"] = lo_beyond(np.exp(rng.uniform(-20, 20, 256))
+                                   .astype(f32))
+    # m = mh + ml = (1 + s) / (1 - s) for |s| in 2^6.6 ... 2^7: the atanh
+    # kernel's a.hi passes 2^116, where Dekker's split overflows
+    mh = rng.uniform(1.0, 1.4, 512).astype(f32)
+    t = np.exp2(rng.uniform(6.6, 7.0, 512)) * pm(512)
+    sc = np.ldexp(1.0, rng.integers(-20, 21, 512))
+    lg["lo ~ -2 hi (s near +-2^6.8)"] = (
+        (mh * sc).astype(f32),
+        (((1 + t) / (1 - t) - mh.astype(np.float64)) * sc).astype(f32))
+    sub = np.abs(subnormal(128))
+    hn = np.exp(rng.uniform(-20, 20, 128)).astype(f32)
+    lg["subnormal limbs"] = (np.concatenate([sub, hn, hn]),
+                             np.concatenate([np.zeros(128, f32), sub, -sub]))
+    neg = -np.exp(rng.uniform(-5, 5, 64)).astype(f32)
+    lg["non-finite, zero, negative"] = (
+        np.concatenate([spec, spec, neg, fin[[0, 2]], fin[[0, 2]],
+                        fin[[0, 2]]]),
+        np.concatenate([np.zeros(5, f32), -np.zeros(5, f32),
+                        np.zeros(64, f32), bad[:2], -bad[:2], bad[1:]]))
+    # m = mh + ml within 2^-21 of 3 and of 1/3, where s = +-1/2: d.hi is
+    # no power of two, so the quotient ch = n.hi / d.hi and s.hi =
+    # RN(ch + cl) often fall on either side of the test's 1/2
+    mh = rng.uniform(0.75, 1.4, 1024).astype(f32)
+    t = np.repeat([3.0, 1.0 / 3.0], 512) * (
+        1 + rng.uniform(-2.0 ** -21, 2.0 ** -21, 1024))
+    sc = np.ldexp(1.0, rng.integers(-20, 21, 1024))
+    lg["|s| near 1/2 (lo beyond hi)"] = (
+        (mh * sc).astype(f32), ((t - mh.astype(np.float64)) * sc)
+        .astype(f32))
+    return {"expm1": {k: on_device(device, v) for k, v in em.items()},
+            "log": {k: on_device(device, v) for k, v in lg.items()}}
+
+
+def dekker_elements(op: str, xh: torch.Tensor,
+                    xl: torch.Tensor) -> torch.Tensor:
+    """Where the ff_math kernel's expm1 or log sends an element to the
+    Dekker body (expm122 / log22): the host's emulation of its element
+    test, bit for bit (the FMA's product through float64, rounded once).
+    expm1: exp's reduced argument r off |r.hi| <= 1/2 and (|r.hi| >=
+    2^-48 or r.hi == 0), nan reduced as -105 (CUDA's fminf / fmaxf); log:
+    the atanh argument s = div22_fma(n, d) off 2^-48 <= |s.hi| <= 1/2,
+    unless n.hi == 0.  The CPU tests take their emulated paths' test from
+    here; chip_smoke.py holds it to the card's own (csrc/ff_math_paths.cu)
+    on every edge class."""
+    from repro_torch.core import ff as core_ff
+    from repro_torch.core.ff import FF
+    if op == "expm1":
+        xc = torch.where(xh != xh, ffmath._EXP_CLIP_LO, xh)
+        rh = ffmath._exp_reduce(xc, xl)[0].abs()
+        return ~((rh <= 0.5) & ((rh >= 2.0 ** -48) | (rh == 0)))
+    if op != "log":
+        raise KeyError(f"dekker_elements: {op!r} (expm1 or log)")
+    mh, ml, _e = ffmath._frexp_sqrt2(xh, xl)
+    n = core_ff.add212(FF(mh, ml), -1.0)
+    d = core_ff.add212(FF(mh, ml), 1.0)
+    ch = n.hi / d.hi                                  # div22_fma
+    th = ch * d.hi
+    tl = (ch.double() * d.hi.double() - th.double()).float()
+    cl = ((((n.hi - th) - tl) + n.lo) - ch * d.lo) / d.hi
+    sh = (ch + cl).abs()                              # fast_two_sum's hi
+    return ~(((sh <= 0.5) & (sh >= 2.0 ** -48)) | (n.hi == 0))
 
 
 def main(argv=None) -> int:
@@ -800,6 +996,16 @@ def main(argv=None) -> int:
             *LOG1P_BAND, s) for s in ((4096, 4096), (512, 8192))})
         # near and far branches about evenly mixed in every warp
         timed["log1p"]["uniform (-0.29, 1.2) 4096x4096"] = band(-0.29, 1.2)
+    if "expm1" in ops:
+        timed["expm1"].update({f"k == 0 (-0.34, 0.34) {s[0]}x{s[1]}": band(
+            -0.34, 0.34, s) for s in ((4096, 4096), (512, 8192))})
+        # k == 0 where |x| < ln2/2 (about a third), k = +-1 beyond
+        timed["expm1"]["uniform (-1, 1) 4096x4096"] = band(-1.0, 1.0)
+    if "log" in ops:
+        for s in ((4096, 4096), (512, 8192)):
+            u = torch.rand(s, generator=g, device="cuda", dtype=torch.float64)
+            timed["log"][f"exp(U(-50, 50)) {s[0]}x{s[1]}"] = limbs(
+                torch.exp(100.0 * u - 50.0).float())
     check = mixed((512, 8192))
     checks = {op: [check + expo["512x8192"] if op == "pow" else check]
               for op in ops}
@@ -812,10 +1018,10 @@ def main(argv=None) -> int:
     wh, wl = wide[(512, 8192)]
     for op in {"sigmoid", "silu"} & set(ops):
         checks[op] += [(eh, el), (wh[:, ::3], wl[:, ::3]), (wh, wl[:1])]
-    # pow and log1p: the edge classes, a strided view and a row lo plane;
-    # pow also a column and a scalar b
-    lp = log_pow_edges("cuda")
-    for op in {"pow", "log1p"} & set(ops):
+    # pow, log1p, expm1 and log: the edge classes, a strided view and a
+    # row lo plane; pow also a column and a scalar b
+    lp = {**log_pow_edges("cuda"), **exp_log_edges("cuda")}
+    for op in {"pow", "log1p", "expm1", "log"} & set(ops):
         c = checks[op][0]
         checks[op] += [tuple(torch.cat(p) for p in zip(*lp[op].values())),
                        tuple(x[:, 1::3] for x in c),

@@ -826,6 +826,95 @@ __device__ __forceinline__ ff2 exp22_fma(float xh, float xl, bool* ok) {
   return {eh, el};
 }
 
+// ---------------------------------------------------------------------------
+// expm122 bit for bit on the FMA TwoProd (the ff_math kernel's EXPM1
+// instance): the kNonZeroK = false form's op order and selections on
+// exp_poly_fma, exp22_fma's test, and expm122 itself where it fails.  8
+// TwoProds an element.
+//
+// Exactness.  The products are exp22's (above): the Horner's w.hi r.hi, r.hi
+// r.hi and z.hi w.hi, exact where |r.hi| <= 1/2 and (|r.hi| >= 2^-48 or r.hi
+// == 0); nothing else multiplies two variables.  On the k == 0 branch |x| is
+// at most ~ln2/2 and r is x to within the reduction's rounding, so r.hi is
+// ~x.hi >= 2^-45 wherever the identity branch is not taken; r cancels below
+// 2^-48 only for an FF x within 2^-48 of k ln2 (k != 0) or whose lo nearly
+// cancels hi, and lo limbs beyond hi break |r.hi| <= 1/2: those elements
+// run expm122.
+//
+// The test is conservative here: no FF x is known where the bare FMA
+// form's output differs from expm122's (test_expm1_guard_is_conservative
+// in tests/test_torch_math_fma.py).  On the k == 0 branch, whose output is
+// exp_poly(r) itself, an element fails it only (i) with lo beyond hi,
+// |r.hi| > 1/2, where Dekker's products stay exact until its split
+// overflows near 2^115, and there r r overflows and both forms give nan;
+// or (ii) with 0 < |r.hi| < 2^-48 from a lo that cancels hi (|xh| >=
+// 2^-45): r = xh + xl is then exact (r.lo = 0), a multiple of 2^-69 with
+// at most 21 bits, W(r)'s hi is W_H[0] = 1/2, and every value in Dekker's
+// products is a multiple of 2^-138 of at most 24 bits, so exact.  For k
+// != 0 a product's error differs below 2^-126, far under the rounding of
+// 1 + s.  It stays exp22_fma's test, whose proof is the one that holds:
+// it costs nothing where it passes (no element of the timed inputs fails
+// it).
+//
+// Signed zeros.  On that domain exp_poly_fma(r) is exp_poly(r) bit for bit,
+// the signs of zeros included, so both branches are expm122's: k == 0
+// returns s itself (no +1 to absorb a sign, unlike exp22), and k != 0 runs
+// add212(s, 1), scale2k and add212(e, -1) on the same s.  Where an exact
+// product is an f32, Dekker's y may be -0 and the FMA's is +0 (above); a
+// Mul22's u = y + c then differs only where its cross products c sum to -0,
+// and its hi t.hi + u only where t.hi is -0.  In exp_poly:
+//   - r.hi is never -0: exp_reduce's h1 = xc - kf L1 is +0 at xc = -0
+//     (where kf = -0), so s.hi, the TwoSum's hi and r.hi are never -0;
+//   - the Horner's w r: w.hi > 0 (W(r) in [0.4, 0.6]), so t.hi is never
+//     -0 and only w.lo may differ; add22(w, {W_H[j], W_L[j]}) adds it to
+//     W_L[j] != 0 for j > 0 and to W_L[0] = +0: gone;
+//   - r r: a square, y is +0 in both forms (al al - err3 is -0 only from
+//     -0 - (+0), and al al is never -0): none.  So z's u is never -0, and
+//     z.lo = u - (RN(t.hi + u) - t.hi) is never -0 either;
+//   - z w: c = z.hi w.lo + z.lo w.hi, whose second term is never -0
+//     (z.lo is not, w.hi > 0), so c is never -0 and u = y + c is the same
+//     for either zero y: none;
+//   - add22(r, q): the same operands.
+// So the k == 0 branch needs no test of its own (the sigmoid argument
+// above leans on exp22's +1 for z w; this one does not).
+// tests/test_torch_math_fma.py emulates this path exactly on the CPU and
+// holds it to expm122 on math_variants.exp_log_edges, where zero errors of
+// the other sign arise on both branches.
+// ---------------------------------------------------------------------------
+
+// expm122 with exp_poly_fma; *ok as exp22_fma's.
+__device__ __forceinline__ ff2 expm122_fma(float xh, float xl, bool* ok) {
+  int k;
+  ff2 r = exp_reduce(xh, xl, &k);
+  const float ar = fabsf(r.hi);
+  *ok = ar <= 0.5f && (ar >= 0x1p-48f || ar == 0.0f);   // exp22_fma's
+  ff2 s = exp_poly_fma(r);
+  ff2 p = add212(s, 1.0f);
+  ff2 e = scale2k(p.hi, p.lo, k);
+  ff2 g = add212(e, -1.0f);
+  bool ovf = e.hi == inf32();
+  ff2 o = k == 0 ? s : ff2{ovf ? e.hi : g.hi, ovf ? 0.0f : g.lo};
+  if (fabsf(xh) < kIdentity) o = {xh, xl};
+  bool big = xh > kExpClipHi;
+  bool tiny = xh < kExpClipLo;
+  if (big || tiny) o = {big ? inf32() : -1.0f, 0.0f};
+  if (xh != xh) return {xh, xh};
+  return o;
+}
+
+// expm122 itself, out of line: it runs only outside the domain.
+__device__ __noinline__ ff2 expm122_far(float xh, float xl) {
+  return expm122(xh, xl);
+}
+
+// expm122(xh, xl), bit for bit.
+__device__ __forceinline__ ff2 expm122_fmapath(float xh, float xl) {
+  bool ok;
+  ff2 r = expm122_fma(xh, xl, &ok);
+  if (!ok) r = expm122_far(xh, xl);
+  return r;
+}
+
 // sigmoid22 with the twins; *ok as exp22_fma's.
 __device__ __forceinline__ ff2 sigmoid22_fma_body(float xh, float xl,
                                                   bool* ok) {
@@ -1058,6 +1147,24 @@ __device__ __forceinline__ ff2 log1p22_fma(float xh, float xl) {
   bool ok;
   ff2 r = log1p22_fma_body(xh, xl, &ok);
   if (!ok) r = log1p22(xh, xl);
+  return r;
+}
+
+// log22(xh, xl), bit for bit (the ff_math kernel's LOG instance; 8
+// TwoProds an element): log22_fma where its test passes, log22 itself
+// elsewhere, inline (as log1p22 above).  The test and its proof are
+// log22_fma's; log's own output has no exp after it, so the trace above
+// must end in log_finish.  l.hi = 2 RN(s.hi a.hi) is the same in both forms
+// (s.hi is never -0: +0 where n.hi == 0, else |s.hi| >= 2^-48; a.hi > 0),
+// and a zero l.lo of either sign meets tl.lo in add22(tl, l)'s v = err +
+// (tl.lo + l.lo).  tl.lo is never -0, also at e == 0: there tl =
+// mul212_fma(ln2, +0) has t = (+0, +0) and u = +0 + LN2_L (+0) = +0 +
+// (-0) = +0, so tl = (+0, +0) (Dekker's the same), and +0 + (-0) = +0:
+// gone.  So log needs no test beyond log22_fma's.
+__device__ __forceinline__ ff2 log22_fmapath(float xh, float xl) {
+  bool ok;
+  ff2 r = log22_fma(xh, xl, &ok);
+  if (!ok) r = log22(xh, xl);
   return r;
 }
 

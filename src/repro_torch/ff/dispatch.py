@@ -710,7 +710,7 @@ def _forward_only(op: str, *xs) -> None:
     if autodiff.needs_grad(*(t for x in xs for t in _limbs(x))):
         raise NotImplementedError(
             f"the gradient of ff.{op} is not ported yet (ROADMAP, queue "
-            f"item 3): call it on a tensor that needs no gradient")
+            f"item 2): call it on a tensor that needs no gradient")
 
 
 def _binary(grad_fn, fn: Callable, a, b) -> FF:

@@ -44,7 +44,7 @@ def check_supported(cfg: ModelConfig, policy: PrecisionPolicy,
         raise NotImplementedError(
             "training under policy ff_math=True is not ported yet: the "
             "gradients of ff.silu and ff.tanh (the FF elementary functions) "
-            "are missing (ROADMAP, queue item 3)")
+            "are missing (ROADMAP, queue item 2)")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -1,6 +1,6 @@
-"""sigmoid and silu of the ``ff_math`` CUDA kernel on the FMA TwoProd
-(``sigmoid22_fma`` and ``silu22_fma`` of ``csrc/ff_eft.cuh``), emulated
-exactly on the CPU:
+"""sigmoid, silu and expm1 of the ``ff_math`` CUDA kernel on the FMA
+TwoProd (``sigmoid22_fma``, ``silu22_fma`` and ``expm122_fmapath`` of
+``csrc/ff_eft.cuh``), emulated exactly on the CPU:
 
   * TwoProd as a multiply and an FMA: ``fma(a, b, -x)`` through float64,
     where ``a * b`` (48 bits) and ``a * b - x`` are exact, then one
@@ -8,17 +8,21 @@ exactly on the CPU:
   * the element's test on its reduced argument r (``|r.hi| <= 1/2`` and
     ``|r.hi| >= 2^-48`` or ``r.hi == 0``), silu's on its last product
     (``2^-100 <= |t.hi| < 2^100``, ``u != 0``), and ``sigmoid22`` /
-    ``silu22`` themselves (Dekker's TwoProd) on every other element.
+    ``silu22`` / ``expm122`` themselves (Dekker's TwoProd) on every other
+    element (expm1 takes exp's test alone).
 
 That path is held bit for bit, signed zeros included, to the port's
 plain ``sigmoid22`` / ``silu22`` on each class of
 ``math_variants.sigmoid_edges`` (subnormal z, k ln2 cancelled by lo,
 |x| from 2^-150, lo +-0 and +-hi 2^-25, exact products, subnormal and
 non-finite limbs, lo beyond hi) and on x uniform in (-30, 30), and to the
-reference's on normal-range inputs.  Each guard is shown to matter: the
-bare FMA form differs from Dekker's where it sends an element away.
-Zero errors of the other sign do arise on the FMA path and leave no
-trace.  The device's constants are the emulated ones.
+reference's on normal-range inputs; expm1 the same on each class of
+``math_variants.exp_log_edges`` and on its timed inputs.  Each guard is
+shown to matter: the bare FMA form differs from Dekker's where it sends
+an element away.  Zero errors of the other sign do arise on the FMA path
+(for expm1 also on its k == 0 branch, which has no +1) and leave no
+trace: ``exp_poly_fma`` is ``exp_poly`` bit for bit on the domain.  The
+device's constants are the emulated ones.
 """
 
 import math
@@ -275,23 +279,24 @@ def test_zero_errors_of_either_sign_leave_no_trace():
     assert not ((differs(zh, wh) | differs(zl, wl)) & ok).any()
 
 
+def _body(fn):
+    b = SRC[SRC.index(fn):]
+    return b[:b.index("\n}\n")]
+
+
 def test_device_constants_are_the_emulated_ones():
     """exp_poly_fma has exp_poly's constants; the domain's bounds and
     the kFlat instances are the ones emulated and documented."""
-    def body(fn):
-        b = SRC[SRC.index(fn):]
-        return b[:b.index("\n}\n")]
-
     def floats(fn):
         return sorted(float.fromhex(t[:-1]) for t in
-                      re.findall(r"-?0x[0-9a-f.]+p[-+]\d+f", body(fn)))
+                      re.findall(r"-?0x[0-9a-f.]+p[-+]\d+f", _body(fn)))
     assert floats("ff2 exp_poly_fma(ff2 r) {") == floats(
         "ff2 exp_poly(ff2 r) {")
     assert len(floats("ff2 exp_poly(ff2 r) {")) == 17
     assert "*ok = ar <= 0.5f && (ar >= 0x1p-48f || ar == 0.0f);" \
-        in body("ff2 exp22_fma(")
+        in _body("ff2 exp22_fma(")
     assert "at >= 0x1p-100f && at < 0x1p+100f && u != 0.0f" \
-        in body("ff2 silu22_fma(")
+        in _body("ff2 silu22_fma(")
     assert (R_TOP, R_LEAST, T_LEAST, T_TOP) == (
         0.5, float.fromhex("0x1p-48"), float.fromhex("0x1p-100"),
         float.fromhex("0x1p+100"))
@@ -310,3 +315,184 @@ def test_math_variants_edit_the_sources_once(name):
     for fname, old, new in mv.VARIANTS[name]:
         assert (csrc / fname).read_text().count(old) == 1, (fname, old)
         assert old != new
+
+
+# ---------------------------------------------------------------------------
+# expm1: expm122 on exp_poly_fma, exp22_fma's test, expm122 elsewhere
+
+EXPM1_EDGES = mv.exp_log_edges("cpu")["expm1"]
+# the classes whose elements the test sends to expm122, in part
+EXPM1_FAR = {"r cancelling near k ln2", "lo beyond hi", "subnormal limbs",
+             "non-finite"}
+
+
+def expm1_body(xh, xl, seen=None):
+    """expm122 on exp_poly_fma; (hi, lo, ok), ok the kernel's test as
+    math_variants.dekker_elements emulates it (chip_smoke holds that to
+    the card's)."""
+    xc = torch.where(xh != xh, ffmath._EXP_CLIP_LO, xh)   # fminf / fmaxf
+    rh, rl, k = ffmath._exp_reduce(xc, xl)
+    s = exp_poly_fma(rh, rl, seen)
+    p = core_ff.add212(s, 1.0)
+    eh, el = ffmath._scale2k(p.hi, p.lo, k)
+    g = core_ff.add212(FF(eh, el), -1.0)
+    ovf = eh == math.inf
+    small = k == 0
+    oh = torch.where(small, s.hi, torch.where(ovf, eh, g.hi))
+    ol = torch.where(small, s.lo, torch.where(ovf, 0.0, g.lo))
+    idt = xh.abs() < ffmath._IDENTITY
+    oh, ol = torch.where(idt, xh, oh), torch.where(idt, xl, ol)
+    big, tiny = xh > ffmath._EXP_CLIP_HI, xh < ffmath._EXP_CLIP_LO
+    oh = torch.where(big, math.inf, torch.where(tiny, -1.0, oh))
+    ol = torch.where(big | tiny, 0.0, ol)
+    nan = xh != xh
+    return (torch.where(nan, xh, oh), torch.where(nan, xh, ol),
+            ~mv.dekker_elements("expm1", xh, xl))
+
+
+BODY["expm1"] = expm1_body
+
+
+def _expm1_timed():
+    """The operators phase's |N(0,1)| + 0.5, expm1's k == 0 band (-0.34,
+    0.34) and (-1, 1), lo ~ hi 1e-8."""
+    g = torch.Generator().manual_seed(17)
+    h = {"|N(0,1)| + 0.5": torch.randn(20000, generator=g).abs() + 0.5,
+         "k == 0 (-0.34, 0.34)": torch.rand(20000, generator=g) * 0.68 - 0.34,
+         "uniform (-1, 1)": torch.rand(20000, generator=g) * 2 - 1}
+    return {k: (v, v * 1e-8 * torch.randn(v.shape, generator=g))
+            for k, v in h.items()}
+
+
+EXPM1_TIMED = _expm1_timed()
+
+
+@pytest.mark.parametrize("kind", list(EXPM1_EDGES) + list(EXPM1_TIMED))
+def test_expm1_fma_path_is_the_plain_function(kind):
+    """Bit for bit expm122, signed zeros included, on each edge class; the
+    classes meant to reach expm122 do, and only those."""
+    xh, xl = {**EXPM1_EDGES, **EXPM1_TIMED}[kind]
+    gh, gl, ok = device("expm1", xh, xl)
+    ph, pl = ffmath.expm122(xh, xl)
+    assert not (differs(gh, ph) | differs(gl, pl)).any()
+    rh = ffmath._exp_reduce(torch.where(xh != xh, ffmath._EXP_CLIP_LO, xh),
+                            xl)[0]
+    assert torch.equal(ok, in_domain(rh))          # exp22_fma's test
+    assert bool(ok.any())
+    assert bool((~ok).any()) == (kind in EXPM1_FAR)
+
+
+def test_expm1_fma_path_is_the_reference():
+    """On the timed inputs, whose limbs and results stay normal (XLA:CPU
+    flushes subnormals, ROADMAP's FTZ policy)."""
+    for xh, xl in EXPM1_TIMED.values():
+        gh, gl, ok = device("expm1", xh, xl)
+        rh, rl = ref_math.expm122(jnp.asarray(xh.numpy()),
+                                  jnp.asarray(xl.numpy()))
+        assert bool(ok.all())
+        assert np.array_equal(np.asarray(rh).view(np.int32),
+                              gh.numpy().view(np.int32))
+        assert np.array_equal(np.asarray(rl).view(np.int32),
+                              gl.numpy().view(np.int32))
+
+
+def test_expm1_timed_inputs_take_the_fma_path():
+    """Every element of the timed inputs (and of x uniform in (-30, 30))
+    takes the FMA path: none runs expm122."""
+    for xh, xl in list(EXPM1_TIMED.values()) + [_inputs("uniform (-30, 30)")]:
+        assert bool(BODY["expm1"](xh, xl)[2].all())
+
+
+def test_expm1_guard_on_r_below_2_48():
+    """The reduced arguments that the test sends away on the class built
+    for it (FF x within 2^-48 of k ln2, and for k == 0 a lo that nearly
+    cancels hi): there exp_poly on the FMA, the k == 0 branch's output,
+    differs from Dekker's, and only off the domain.  (expm1's outputs hide
+    it: for k != 0 the +1 rounds it away, and on the k == 0 branch such an
+    r has few bits.)"""
+    xh, xl = EXPM1_EDGES["r cancelling near k ln2"]
+    rh, rl, k = ffmath._exp_reduce(xh, xl)
+    ok = in_domain(rh)
+    assert bool((~ok).any()) and bool((~ok & (k == 0)).any())
+    rng = np.random.default_rng(233)
+    m = torch.from_numpy(rng.uniform(1, 2, rh.numel()).astype(np.float32))
+    r = torch.where(ok, rh, rh * m)       # full significands at r's scale
+    a, b = ffmath._exp_poly(r, rl), exp_poly_fma(r, rl)
+    bad = differs(a.hi, b.hi) | differs(a.lo, b.lo)
+    assert bool(bad[~ok].any()) and not (bad & in_domain(r)).any()
+
+
+def test_expm1_guard_is_conservative():
+    """expm1's outputs do not show its guard: on every edge class the bare
+    FMA form is expm122 bit for bit, also on the elements the test sends
+    away.  Those on the k == 0 branch (whose output is exp_poly itself)
+    are an FF x whose lo cancels hi: r = xh + xl exactly (r.lo == 0), a
+    multiple of 2^-69 below 2^-48, so r has at most 21 bits, W(r)'s hi is
+    W_H[0] = 1/2 and every product of exp_poly is exact in Dekker's form
+    too (ff_eft.cuh, above expm122_fma)."""
+    assert ffmath._EXP_W_FF[0][0] == 0.5
+    for xh, xl in EXPM1_EDGES.values():
+        fh, fl, ok = expm1_body(xh, xl)
+        ph, pl = ffmath.expm122(xh, xl)
+        assert not (differs(fh, ph) | differs(fl, pl)).any()
+        rh, rl, k = ffmath._exp_reduce(xh, xl)
+        k0 = ~ok & (k == 0) & (xh.abs() >= ffmath._IDENTITY) & (rh != 0)
+        k0 &= rh.abs() < R_LEAST
+        assert bool((rl[k0] == 0).all())
+        assert torch.equal(torch.remainder(rh[k0].double(), 2.0 ** -69),
+                           torch.zeros_like(rh[k0].double()))
+    xh, xl = EXPM1_EDGES["r cancelling near k ln2"]
+    fh, fl, ok = expm1_body(xh, xl)
+    rh, rl, k = ffmath._exp_reduce(xh, xl)
+    assert bool((~ok & (k == 0) & (rh.abs() < R_LEAST)).any())
+
+
+def test_expm1_zero_errors_of_either_sign_leave_no_trace():
+    """On exact products (x = m 2^e) the FMA path meets errors that
+    Dekker's TwoProd gives as -0 (its own +0), on the k == 0 branch too,
+    whose output is exp_poly itself: exp_poly_fma is exp_poly bit for bit
+    there, signed zeros included (r.hi never -0, w.hi > 0, z.lo never -0,
+    so z w's cross products never sum to -0)."""
+    xh, xl = EXPM1_EDGES["exact products"]
+    seen = []
+    fh, fl, ok = expm1_body(xh, xl, seen)
+    k = ffmath._exp_reduce(xh, xl)[2]
+    neg = torch.zeros_like(xh, dtype=torch.bool)
+    for a, b in seen:
+        y = T.two_prod(a, b)[1]
+        neg |= (y == 0) & (y.view(torch.int32) < 0)
+    idt = xh.abs() < ffmath._IDENTITY
+    for branch in (k == 0, k != 0):
+        assert bool((neg & ok & branch & ~idt).any())
+    ph, pl = ffmath.expm122(xh, xl)
+    assert not ((differs(fh, ph) | differs(fl, pl)) & ok).any()
+    for cls in EXPM1_EDGES.values():
+        rh, rl, _k = ffmath._exp_reduce(*cls)
+        a, b = ffmath._exp_poly(rh, rl), exp_poly_fma(rh, rl)
+        bad = differs(a.hi, b.hi) | differs(a.lo, b.lo)
+        assert not (bad & in_domain(rh)).any()
+
+
+def test_expm1_device_body_is_expm122s():
+    """expm122_fma runs expm122's ops and selections (its kNonZeroK = false
+    form) on exp_poly_fma, with exp22_fma's test; EXPM1 calls the path and
+    takes the flat loop."""
+    def statements(fn):
+        text = re.sub(r"//[^\n]*", "", _body(fn).split("{", 1)[1])
+        return [re.sub(r"\s+", "", t) for t in text.split(";") if t.strip()]
+    plain = [t.replace("exp_poly(r)", "exp_poly_fma(r)")
+             .replace("(!kNonZeroK&&k==0)?s", "k==0?s")
+             for t in statements("ff2 expm122(float xh")]
+    fma = iter(statements("ff2 expm122_fma("))
+    assert all(t in fma for t in plain)       # in order, with the test
+    assert ("*ok = ar <= 0.5f && (ar >= 0x1p-48f || ar == 0.0f);   "
+            "// exp22_fma's") in _body("ff2 expm122_fma(")
+    assert "if (!ok) r = expm122_far(xh, xl);" in _body(
+        "ff2 expm122_fmapath(")
+    cu = (Path(core_ff.__file__).resolve().parents[1] / "csrc"
+          / "ff_math.cu").read_text()
+    assert "return expm122_fmapath(h, l);" in cu
+    assert ("constexpr bool kFlat = OP == EXPM1 || OP == LOG ||\n"
+            "    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;"
+            in cu)
+

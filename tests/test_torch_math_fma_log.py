@@ -1,6 +1,6 @@
-"""log1p and pow of the ``ff_math`` CUDA kernel on the FMA TwoProd
-(``log1p22_fma`` and ``pow22_fma`` of ``csrc/ff_eft.cuh``), emulated
-exactly on the CPU:
+"""log1p, pow and log of the ``ff_math`` CUDA kernel on the FMA TwoProd
+(``log1p22_fma``, ``pow22_fma`` and ``log22_fmapath`` of
+``csrc/ff_eft.cuh``), emulated exactly on the CPU:
 
   * TwoProd as a multiply and an FMA: ``fma(a, b, -x)`` through float64,
     where ``a * b`` (48 bits) and ``a * b - x`` are exact, then one
@@ -9,12 +9,13 @@ exactly on the CPU:
     <= 1/2``, or ``n.hi == 0``, m an exact power of two) and of log1p's
     near branch (with ``u != 0`` on its last Mul22, whose low limb is the
     output's); pow's product ``t = l b`` (``|t.hi| >= 2^-100``, ``|b.hi|
-    < 2^100``) and exp's reduced argument; and ``log1p22`` / ``pow22``
-    themselves (Dekker's TwoProd) on every other element.
+    < 2^100``) and exp's reduced argument; and ``log1p22`` / ``pow22`` /
+    ``log22`` themselves (Dekker's TwoProd) on every other element.
 
 That path is held bit for bit, signed zeros included, to the port's plain
-``log1p22`` / ``pow22`` on each class of ``math_variants.log_pow_edges``
-and on the timed inputs, and to the reference's on normal-range inputs.
+``log1p22`` / ``pow22`` on each class of ``math_variants.log_pow_edges``,
+to ``log22`` on those of ``math_variants.exp_log_edges``, and on the timed
+inputs, and to the reference's on normal-range inputs.
 Each guard is shown to matter: the bare FMA form differs from Dekker's
 where it sends an element away.  Zero errors of the other sign arise on
 the FMA path and leave no trace.  The device's constants and tests are the
@@ -111,7 +112,9 @@ def s_ok(sh):
 
 
 def log22_fma(xh, xl, seen=None):
-    """ffmath.log22 on the twins; (hi, lo, ok)."""
+    """ffmath.log22 on the twins; (hi, lo, ok), ok the kernel's test as
+    math_variants.dekker_elements emulates it (chip_smoke holds that to
+    the card's)."""
     mh, ml, e = ffmath._frexp_sqrt2(xh, xl)
     ef = e.to(torch.float32)
     m = FF(mh, ml)
@@ -125,7 +128,7 @@ def log22_fma(xh, xl, seen=None):
     rh = torch.where(xh == 0, -math.inf, torch.where(bad, math.nan, r.hi))
     rh = torch.where(xh == math.inf, math.inf, rh)
     rl = torch.where((xh == 0) | bad | (xh == math.inf), 0.0, r.lo)
-    return rh, rl, s_ok(s.hi) | (n.hi == 0)
+    return rh, rl, ~mv.dekker_elements("log", xh, xl)
 
 
 def log1p_body(xh, xl, seen=None):
@@ -173,8 +176,9 @@ def pow_body(ah, al, bh, bl, seen=None):
     return torch.where(b0, 1.0, rh), torch.where(b0, 0.0, rl), ok
 
 
-BODY = {"pow": pow_body, "log1p": log1p_body}
-PLAIN = {"pow": ffmath.pow22, "log1p": ffmath.log1p22}
+BODY = {"pow": pow_body, "log1p": log1p_body, "log": log22_fma}
+PLAIN = {"pow": ffmath.pow22, "log1p": ffmath.log1p22, "log": ffmath.log22}
+OPS = tuple(BODY)
 
 
 def device(op, *planes):
@@ -191,7 +195,7 @@ def differs(a, b):
     return ~((a.view(torch.int32) == b.view(torch.int32)) | (na & nb))
 
 
-EDGES = mv.log_pow_edges("cpu")
+EDGES = {**mv.log_pow_edges("cpu"), "log": mv.exp_log_edges("cpu")["log"]}
 
 
 def _limbs(x, rng):
@@ -202,21 +206,28 @@ def _limbs(x, rng):
 
 def timed(op):
     """The operators phase's inputs (a = |N(0,1)| + 0.5, b = N(0,1); log1p
-    on |N(0,1)| + 0.5) and, for log1p, x uniform in its near band
-    (-0.29, 0.41), lo ~ hi 1e-8."""
+    and log on |N(0,1)| + 0.5) and, for log1p, x uniform in its near band
+    (-0.29, 0.41), for log x = exp(U(-50, 50)), lo ~ hi 1e-8."""
     rng = np.random.default_rng(227)
     a = _limbs(np.abs(rng.standard_normal(20000)) + 0.5, rng)
     if op == "pow":
         return {"timed": a + _limbs(rng.standard_normal(20000), rng)}
+    if op == "log":
+        return {"timed": a, "timed exp(U(-50, 50))": _limbs(
+            np.exp(rng.uniform(-50, 50, 20000)), rng)}
     return {"timed": a, "timed near band": _limbs(
         rng.uniform(-0.29, 0.41, 20000), rng)}
 
 
-CASES = [(op, kind) for op in ("pow", "log1p")
+CASES = [(op, kind) for op in OPS
          for kind in list(EDGES[op]) + list(timed(op))]
 # the classes whose every element the tests send to the Dekker body
 OFF_PATH = {("pow", "a near 1, |b| in 2^100-2^127"),
-            ("pow", "|b| in 2^-140-2^-90")}
+            ("pow", "|b| in 2^-140-2^-90"),
+            ("log", "lo ~ -2 hi (s near +-2^6.8)")}
+# log's classes whose elements the test sends to log22 in part
+LOG_FAR = {"2^k (1 + tiny)", "lo beyond hi", "non-finite, zero, negative",
+           "|s| near 1/2 (lo beyond hi)"}
 
 
 @pytest.mark.parametrize("op,kind", CASES, ids=[f"{o}-{k}" for o, k in CASES])
@@ -226,13 +237,17 @@ def test_fma_path_is_the_plain_function(op, kind):
     ph, pl = PLAIN[op](*planes)
     assert not (differs(gh, ph) | differs(gl, pl)).any()
     assert bool(ok.any()) != ((op, kind) in OFF_PATH)
+    if op == "log":       # the classes meant to reach log22 do
+        assert bool((~ok).any()) == (kind in LOG_FAR | {
+            k for o, k in OFF_PATH if o == "log"})
 
 
-@pytest.mark.parametrize("op", ("pow", "log1p"))
+@pytest.mark.parametrize("op", OPS)
 def test_fma_path_is_the_reference(op):
     """On the timed inputs, whose limbs and results stay normal (XLA:CPU
     flushes subnormals, ROADMAP's FTZ policy)."""
-    ref = {"pow": ref_math.pow22, "log1p": ref_math.log1p22}[op]
+    ref = {"pow": ref_math.pow22, "log1p": ref_math.log1p22,
+           "log": ref_math.log22}[op]
     for planes in timed(op).values():
         gh, gl, ok = device(op, *planes)
         rh, rl = ref(*(jnp.asarray(p.numpy()) for p in planes))
@@ -243,7 +258,7 @@ def test_fma_path_is_the_reference(op):
                               gl.numpy().view(np.int32))
 
 
-@pytest.mark.parametrize("op", ("pow", "log1p"))
+@pytest.mark.parametrize("op", OPS)
 def test_timed_inputs_take_the_fma_path(op):
     """Every element of chip_smoke's and math_variants' timed inputs (their
     distributions, another seed) takes the FMA path."""
@@ -338,7 +353,74 @@ def test_guard_on_log1p_zero_error():
     assert (tl + (s.hi * a.lo + s.lo * a.hi)).item() == 0     # u == 0
 
 
-@pytest.mark.parametrize("op", ("pow", "log1p"))
+def test_guard_on_log_s_above_half():
+    """log on lo ~ -2 hi: m = mh + ml near -1, so s = (m - 1) / (m + 1) is
+    near +-2^6.8 and the atanh kernel's a.hi passes 2^116, where Dekker's
+    split overflows (nan against the FMA's finite value); the test on
+    |s.hi| <= 1/2 sends every such element to log22.  (Below 2^-48 the
+    guard is shown on atanh_poly: test_guard_on_s_below_2_48.)"""
+    bad, ok, (xh, xl) = _bare_differs("log", "lo ~ -2 hi (s near +-2^6.8)")
+    assert bad.any() and not (bad & ok).any()
+    mh, ml, _e = ffmath._frexp_sqrt2(xh, xl)
+    n, d = (core_ff.add212(FF(mh, ml), c) for c in (-1.0, 1.0))
+    assert bool(((n.hi / d.hi)[bad].abs() > S_TOP).all())
+    ph = PLAIN["log"](xh, xl)[0]
+    fh = BODY["log"](xh, xl)[0]
+    assert bool((torch.isnan(ph) & torch.isfinite(fh))[bad].any())
+
+
+def test_log_test_reads_s_hi_not_the_quotient():
+    """The kernel tests div22_fma's s.hi = RN(ch + cl), not its quotient
+    ch = n.hi / d.hi.  Near |s| = 1/2 (m near 3 and 1/3, lo beyond hi)
+    d.hi is no power of two and the two fall on either side of 1/2, and
+    the emulated test is the one on s.hi.  Near 2^-48 they cannot
+    differ: there m is within 2^-46 of 1, d.hi = 2 and n.lo = 0, so ch
+    is exact and s.hi == ch."""
+    def parts(xh, xl):
+        mh, ml, _e = ffmath._frexp_sqrt2(xh, xl)
+        n, d = (core_ff.add212(FF(mh, ml), c) for c in (-1.0, 1.0))
+        return n, d, div22_fma(n, d).hi
+    xh, xl = EDGES["log"]["|s| near 1/2 (lo beyond hi)"]
+    n, d, sh = parts(xh, xl)
+    on_s, on_ch = s_ok(sh) | (n.hi == 0), s_ok(n.hi / d.hi) | (n.hi == 0)
+    assert bool((on_s != on_ch).any())
+    assert torch.equal(~mv.dekker_elements("log", xh, xl), on_s)
+    for kind in ("2^k (1 + tiny)", "near 1 and sqrt2"):
+        n, d, sh = parts(*EDGES["log"][kind])
+        small = sh.abs() < 2.0 ** -40
+        assert bool(small.any()) and bool((d.hi[small] == 2).all())
+        assert torch.equal(sh[small], (n.hi / d.hi)[small])
+
+
+def test_log_output_drops_the_zero_sign_at_e_zero():
+    """log's own output has no exp after it: at e == 0 (x in [1/sqrt2,
+    sqrt2)) tl = mul212(ln2, +0) is (+0, +0) in both forms, and add22(tl,
+    l) gives the same bits for l.lo = +0 and -0 (tl.lo + l.lo = +0); l.hi,
+    2 RN(s.hi a.hi), is never -0 on the domain."""
+    e = torch.zeros(4)
+    ln2 = FF(torch.full_like(e, ffmath._LN2_H),
+             torch.full_like(e, ffmath._LN2_L))
+    d, f = core_ff.mul212(ln2, e), mul212_fma(ln2, e)
+    zero = torch.zeros(4, dtype=torch.int32)               # +0 bits
+    for t in (d, f):
+        assert torch.equal(t.hi.view(torch.int32), zero)
+        assert torch.equal(t.lo.view(torch.int32), zero)
+    lh = torch.tensor([0.25, -0.125, 2.0 ** -40, -3.0])
+    a = core_ff.add22(d, FF(lh, torch.zeros(4)))
+    b = core_ff.add22(d, FF(lh, -torch.zeros(4)))
+    assert not (differs(a.hi, b.hi) | differs(a.lo, b.lo)).any()
+    # on log's e == 0 inputs the FMA path's l.hi is never -0
+    xh, xl = EDGES["log"]["near 1 and sqrt2"]
+    mh, ml, ee = ffmath._frexp_sqrt2(xh, xl)
+    n, dd = (core_ff.add212(FF(mh, ml), c) for c in (-1.0, 1.0))
+    sq = div22_fma(n, dd)
+    l = mul22_fma(sq, atanh_poly_fma(sq))
+    ok = s_ok(sq.hi) | (n.hi == 0)
+    assert bool((ee == 0).any())
+    assert not ((l.hi == 0) & (l.hi.view(torch.int32) < 0) & ok).any()
+
+
+@pytest.mark.parametrize("op", OPS)
 def test_zero_errors_of_either_sign_leave_no_trace(op):
     """On exact products the FMA path meets errors that Dekker's TwoProd
     gives as -0 (its own +0); the outputs are the plain function's all the
@@ -408,8 +490,13 @@ def test_device_constants_are_the_emulated_ones():
     assert [float.fromhex(v) for v in ("-0x1.2bec32p-2", "0x1.a82798p-2")] \
         == [float(np.float32(v)) for v in ffmath._LOG1P_NEAR] \
         == list(mv.LOG1P_NEAR)
+    assert "  if (!ok) r = log22(xh, xl);\n" in _body("ff2 log22_fmapath(")
+    assert "ff2 r = log22_fma(xh, xl, &ok);" in _body("ff2 log22_fmapath(")
     cu = (CSRC / "ff_math.cu").read_text()
-    assert "OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;" in cu
+    assert ("constexpr bool kFlat = OP == EXPM1 || OP == LOG ||\n"
+            "    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;"
+            in cu)
+    assert "return log22_fmapath(h, l);" in cu
     assert "return log1p22_fma(h, l);" in cu
     assert "return pow22_fma(h, l, bh, bl);" in cu
     # pow's flat loop reads four planes, so all four must be dense
