@@ -27,7 +27,12 @@ Phases (any failed check raises, so the script exits non-zero):
      registers, spills and main loop's instructions per product logged at
      the build) also bit for bit at K of every slab width, M and N off its
      block tile, exponents over 2^+-40 with alternating signs and signed
-     zeros, contiguous and transposed; then
+     zeros, contiguous and transposed; the hybrid kernel (its instances'
+     registers, spills and main loops logged at the build) bit for bit the
+     check kernel ``ff_matmul_hybrid_check.cu`` (its earlier design) at
+     the tests' and granite-3-2b's shapes, M, N and K off its tiles, bk 1,
+     300, 512 and beyond K, its K-blocks split and not, exponents over
+     2^+-40 with signed zeros, contiguous and transposed; then
      ``repro_torch.ff.matmul`` at those three shapes through every impl,
      the ``policy(matmul=...)`` route, an FF operand and a forward and
      backward per kernel impl, with the launch counts read around that
@@ -62,7 +67,10 @@ Phases (any failed check raises, so the script exits non-zero):
      edges and on mixed bands, and timed there and on band-pure inputs;
      sigmoid and silu (their FMA TwoProd path) bit for bit on its edge
      classes, a strided view, a row and a column plane, and timed also
-     on x uniform in (-30, 30) against their bounds;
+     on x uniform in (-30, 30) against their bounds; pow, log1p, expm1,
+     log and exp the same on theirs, with the elements that expm1, log and
+     exp send to the Dekker body counted by the card's own test
+     (``ff_math_paths.cu``) and held to its host emulation;
   6. the guard: ``guard_flags`` bit for bit its plain version at
      (3, 130), (4096, 4096) and the full-width KV pool plane, with the
      IEEE codes of the adversarial limb classes (NaN and Inf in each
@@ -362,6 +370,16 @@ def phase_build(torch):
         f"{split['other_per_product']:.4f} ({split['loop_instructions']} "
         f"instructions, {split['products_a_pass']} products a pass; other: "
         f"{split['other_ops']})")
+    # the hybrid kernel's instances: registers and spills; the forward
+    # pass's main loop: FFMA against the rest
+    from repro_torch.benchmarks import hybrid_variants as hv
+    for label, info in hv.ptxas_info(
+            (out / "libff_matmul.log").read_text()).items():
+        log(f"  ff_matmul (hybrid) {label}: {info}")
+    for label, loop in hv.forward_loops(
+            str(out / "libff_matmul.so")).items():
+        log(f"  ff_matmul (hybrid) {label}: main loop (one K-tile a pass) "
+            f"{loop}")
 
 
 def phase_kernel_checks(torch):
@@ -674,6 +692,7 @@ def phase_matmul_checks(torch):
     del Ai, Bi, got, want
     worst["ozaki"] = max(worst["ozaki"], phase_ozaki_cases(torch))
     phase_dot2_cases(torch)
+    phase_hybrid_cases(torch)
     torch.cuda.synchronize()
     return worst, plain_ms
 
@@ -718,6 +737,67 @@ def phase_dot2_cases(torch):
         f"shapes (vec {vecs}; M, N off the 64 x 64 tile; exponents over "
         f"2^+-40, alternating signs, signed zeros), contiguous and "
         f"transposed; vs float64 2^{worst:.1f} of S at worst")
+
+
+# the hybrid kernel's edges: M and N off its 128 x 64 tile and off its
+# 4-wide copies, K off its K-tiles of 16; bk 1, 300, 512 and beyond K; the
+# K-blocks split as hybrid_plan splits them, and over 1, 3 and 4 blocks
+HYBRID_CASES = ((129, 300, 65), (1, 7, 1), (63, 1100, 129), (257, 513, 200),
+                (130, 37, 70), (200, 1000, 131))
+HYBRID_BK = (1, 300, 512, 4096)
+HYBRID_SPLITS = (1, 3, 4)
+
+
+def phase_hybrid_cases(torch):
+    """The hybrid kernel bit for bit (signs of zero included) its earlier
+    design, the check kernel ``csrc/ff_matmul_hybrid_check.cu``: on
+    MM_SMALL and MM_GRANITE (normal operands; MM_SMALL also as transposed
+    views), and on HYBRID_CASES at every bk of HYBRID_BK, on operands whose
+    exponents spread over 2^+-40 with alternating signs and signed zeros
+    (``dot2_variants.spread_operands``), contiguous and as transposed
+    views, with the K-blocks split as ``hybrid_plan`` splits them and over
+    each of HYBRID_SPLITS blocks."""
+    from repro_torch.benchmarks import dot2_variants as dv
+    from repro_torch.kernels import ff_matmul as km
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    t0 = time.perf_counter()
+    n = 0
+    for mkn in MM_SMALL + MM_GRANITE:
+        A, B = mm_operands(torch, g, mkn)
+        want = km.ff_matmul_hybrid_check(A, B)
+        forms = [("", A, B)]
+        if mkn in MM_SMALL:
+            forms.append((" (transposed views)", A.T.contiguous().T,
+                          B.T.contiguous().T))
+        for what, a, b in forms:
+            if not dv.same_bits(km.ff_matmul(a, b), want):
+                raise AssertionError(f"hybrid kernel != the check kernel at "
+                                     f"{mkn}{what}")
+            n += 1
+        del A, B, want, forms
+    for mkn in HYBRID_CASES:
+        A, B = dv.spread_operands(mkn, g)
+        forms = (("", A, B), (" (transposed views)", A.T.contiguous().T,
+                              B.T.contiguous().T))
+        for bk in HYBRID_BK:
+            want = km.ff_matmul_hybrid_check(A, B, bk=bk)
+            for what, a, b in forms:
+                got = [("plan", km.ff_matmul(a, b, bk=bk))] + [
+                    (f"{splits} splits", km.hybrid_launch(a, b, bk, splits))
+                    for splits in HYBRID_SPLITS]
+                for how, out in got:
+                    if not dv.same_bits(out, want):
+                        raise AssertionError(
+                            f"hybrid kernel ({how}) != the check kernel at "
+                            f"{mkn} bk {bk}{what}")
+                    n += 1
+    torch.cuda.synchronize()
+    log(f"hybrid edge cases: kernel == the check kernel (the earlier design) "
+        f"bit for bit in {n} comparisons: MM_SMALL and MM_GRANITE; "
+        f"{len(HYBRID_CASES)} shapes off the tile x bk {list(HYBRID_BK)} x "
+        f"the plan's split and {list(HYBRID_SPLITS)} splits, exponents over "
+        f"2^+-40 with signed zeros, contiguous and transposed "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def launch_fns():
@@ -919,10 +999,12 @@ def phase_matmul_timing(torch, plain_ms, clock_hz):
     """Each matmul kernel at the three granite shapes: kernel ms from
     CUDA-graph replay, call ms of the wrapper from Python, the plain
     version's ms (phase_matmul_checks), the bound, and the PyTorch
-    yardstick: an f32 torch.matmul (TF32 off) for hybrid, an f64
-    torch.matmul on f64 copies (the same function at FF quality, before
-    its rounding to FF) for Ozaki and Dot2.  The Ozaki kernel runs on
-    ``ozaki_operands``' outputs; its call is also timed part by part."""
+    yardstick of each: an f64 torch.matmul on f64 copies (the same function
+    at FF quality, before its rounding to FF; ``library_ms``), and for
+    hybrid also an f32 torch.matmul (TF32 off; ``library_f32_ms``), which
+    computes another function (no low limb) and was hybrid's earlier
+    yardstick.  The Ozaki kernel runs on ``ozaki_operands``' outputs; its
+    call is also timed part by part."""
     from repro_torch.core import ffmatmul
     from repro_torch.kernels import ff_matmul as km
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -947,7 +1029,7 @@ def phase_matmul_timing(torch, plain_ms, clock_hz):
             "hybrid": (lambda: km.ff_matmul(A, B),
                        lambda: km.ff_matmul(A, B),
                        f32_bound(io, matmul_ops("hybrid", M, K, N, nk=nk)),
-                       lambda: torch.matmul(A, B)),
+                       lambda: torch.matmul(A64, B64)),
             "ozaki": (lambda: km.ozaki_accumulate(ops, pairs),
                       lambda: km.ff_matmul_ozaki(A, B),
                       ozaki_bound(ops, M, K, N, len(pairs), clock_hz),
@@ -966,6 +1048,8 @@ def phase_matmul_timing(torch, plain_ms, clock_hz):
                 bound_of=what,
                 bound_parts_ms={k: 1e3 * v for k, v in times.items()},
                 library_ms=cuda_ms(lib, 5)))
+        rows["hybrid"][-1]["library_f32_ms"] = cuda_ms(
+            lambda: torch.matmul(A, B), 5)
         del ops
         rows["ozaki"][-1]["call_parts_ms"] = ozaki_call_parts(torch, A, B)
         del A, B, A64, B64
@@ -978,6 +1062,8 @@ def phase_matmul_timing(torch, plain_ms, clock_hz):
                 + ", ".join(f"{k} {v:.4f}" for k, v in
                             r["bound_parts_ms"].items())
                 + f"), library {r['library_ms']:.4f} ms"
+                + (f" (f64), f32 torch.matmul {r['library_f32_ms']:.4f} ms"
+                   if "library_f32_ms" in r else "")
                 + ("; call parts ms: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in r["call_parts_ms"].items())
                    if "call_parts_ms" in r else ""))
@@ -1526,7 +1612,8 @@ def math_branch_inputs(torch, op, g):
     identity edge, k flipping at +-ln2/2, r cancelling near k ln2, lo +-0
     at k == 0, x = 2^k (1 + tiny), powers of two, s near +-2^6.8, exact
     products, lo beyond hi, the clip edges, subnormal and non-finite
-    limbs)."""
+    limbs), for exp its own of them (+-0 and |x| around 2^-48, r cancelling
+    near k ln2 down to x = -104, the overflow and clip edges)."""
     def u(a, b, n=4096):
         return torch.rand(n, generator=g, device="cuda",
                           dtype=torch.float64) * (b - a) + a
@@ -1553,7 +1640,7 @@ def math_branch_inputs(torch, op, g):
     }[op]
     x = torch.cat(parts + ([] if op == "pow" else [spec]))
     hi, lo = ff_limbs(torch, x)
-    if op in ("sigmoid", "silu", "expm1", "log"):   # the FMA path's edges
+    if op in ("sigmoid", "silu", "expm1", "log", "exp"):   # FMA path edges
         from repro_torch.benchmarks import math_variants as mv
         edges = (mv.sigmoid_edges("cuda", seed=SEED) if op in ("sigmoid",
                  "silu") else mv.exp_log_edges("cuda", seed=SEED)[op])
@@ -1802,12 +1889,13 @@ def phase_ops_checks(torch):
         + f") and, x uniform in (-30, 30), {MATH_BIG} contiguous, a strided "
         f"view, a row lo plane and a column hi plane "
         f"({time.perf_counter() - t0:.1f} s)")
-    # pow, log1p, expm1 and log the same: their edge classes one by one
-    # (for expm1 and log with the elements each sends to the Dekker body
-    # counted by the card's own test, held to its host emulation), then the layouts at MATH_BIG (pow: a ~ |N(0,1)| + 0.5, b ~
-    # N(0,1), also a broadcast b; log1p: x uniform in (-0.29, 4), near and
-    # far branches interleaved; expm1: x uniform in (-1, 1), both branches;
-    # log: x = exp(U(-50, 50)))
+    # pow, log1p, expm1, log and exp the same: their edge classes one by
+    # one (for expm1, log and exp with the elements each sends to the Dekker
+    # body counted by the card's own test, held to its host emulation), then
+    # the layouts at MATH_BIG (pow: a ~ |N(0,1)| + 0.5, b ~ N(0,1), also a
+    # broadcast b; log1p: x uniform in (-0.29, 4), near and far branches
+    # interleaved; expm1: x uniform in (-1, 1), both branches; log: x =
+    # exp(U(-50, 50)); exp: x uniform in (-20, 20))
     from repro_torch.benchmarks.math_variants import (
         dekker_elements, exp_log_edges, log_pow_edges)
     t0 = time.perf_counter()
@@ -1831,13 +1919,15 @@ def phase_ops_checks(torch):
                        "scalar b": a + (b[0][0, 0], b[1][0, 0])},
                "log1p": unary((4.29 * u - 0.29).float()),
                "expm1": unary((2.0 * u - 1.0).float()),
-               "log": unary(torch.exp(100.0 * u - 50.0).float())}
-    for op in ("pow", "log1p", "expm1", "log"):
+               "log": unary(torch.exp(100.0 * u - 50.0).float()),
+               "exp": unary((40.0 * u - 20.0).float())}
+    for op in ("pow", "log1p", "expm1", "log", "exp"):
         for what, args in list(lp[op].items()) + list(layouts[op].items()):
             check("ff_math", f"{op} {what}", fm.math_elementwise(op, *args),
                   fm.math_elementwise_plain(op, *args))
         far = {}
-        for k, v in (lp[op].items() if op in ("expm1", "log") else ()):
+        for k, v in (lp[op].items() if op in ("expm1", "log", "exp")
+                     else ()):
             mask = dekker_mask(torch, op, *v).cpu()
             host = dekker_elements(op, *(p.cpu() for p in v))
             if not torch.equal(mask, host):
@@ -1856,7 +1946,7 @@ def phase_ops_checks(torch):
                         + (f"/{far[k]}" if far else "")
                         for k, v in lp[op].items())
             + f") and at {MATH_BIG}: " + ", ".join(layouts[op]))
-    log(f"ff_math pow, log1p, expm1, log: edge classes and layouts "
+    log(f"ff_math pow, log1p, expm1, log, exp: edge classes and layouts "
         f"{time.perf_counter() - t0:.1f} s")
     int_division_check(torch)
     torch.cuda.synchronize()
@@ -1891,10 +1981,10 @@ def int_division_check(torch):
 
 
 def dekker_mask(torch, op, xh, xl):
-    """The card's own element test of math_kernel<EXPM1> / <LOG>
+    """The card's own element test of math_kernel<EXP> / <EXPM1> / <LOG>
     (csrc/ff_math_paths.cu, the functions those instances inline): True
-    where the kernel sends the element to the Dekker body (expm122 /
-    log22).  A check kernel: no count, not in the kernels line."""
+    where the kernel sends the element to the Dekker body (exp22 / expm122
+    / log22).  A check kernel: no count, not in the kernels line."""
     import ctypes
     from repro_torch.kernels import build
     fn = build.entry("ff_math_paths", "ff_math_dekker_elements",
@@ -1904,7 +1994,8 @@ def dekker_mask(torch, op, xh, xl):
     if xh.shape != xl.shape or xh.dtype != torch.float32:
         raise ValueError("dekker_mask: two f32 planes of one shape")
     mask = torch.empty(xh.shape, dtype=torch.uint8, device="cuda")
-    err = fn({"expm1": 1, "log": 2}[op], mask.data_ptr(), xh.data_ptr(),
+    err = fn({"exp": 0, "expm1": 1, "log": 2}[op], mask.data_ptr(),
+             xh.data_ptr(),
              xl.data_ptr(), xh.numel(),
              torch.cuda.current_stream().cuda_stream)
     if err:
@@ -2041,7 +2132,7 @@ def phase_ops_timing(torch, clock_hz):
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     peak_ops = F32_LANES * clock_hz
     rows = {"ff_elementwise": [], "ff_rowsum": [], "ff_math": []}
-    far = []          # (expm1 / log row, elements the card test sends away)
+    far = []     # (exp / expm1 / log row, elements the card test sends away)
 
     def pair(shape, positive=True):
         h = torch.randn(shape, generator=g, device="cuda")
@@ -2101,7 +2192,7 @@ def phase_ops_timing(torch, clock_hz):
                 cuda_ms(lambda: fm.math_elementwise_plain(op, *args), 1),
                 yard, nbytes, math_ops(op, h), peak_ops, iters),
                 library=f"float64 {op}"))
-            if op in ("expm1", "log"):
+            if op in ("exp", "expm1", "log"):
                 far.append((f"{op} {list(shape)}",
                             int(dekker_mask(torch, op, h, lo).sum())))
         del h, lo, ph, pl, x64, p64
@@ -2153,7 +2244,7 @@ def phase_ops_timing(torch, clock_hz):
             cuda_ms(lambda: fm.math_elementwise_plain(op, h, lo), 1),
             lambda: yard(x64), 16 * h.numel(), math_ops(op, h),
             peak_ops, 10), library=f"float64 {op}"))
-        if op in ("expm1", "log"):
+        if op in ("exp", "expm1", "log"):
             far.append((f"{op} {band} {[R, C]}",
                         int(dekker_mask(torch, op, h, lo).sum())))
         del x, h, lo, x64
@@ -2164,14 +2255,16 @@ def phase_ops_timing(torch, clock_hz):
                 f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}), plain "
                 f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms")
-    # no element of expm1's or log's timed inputs runs the Dekker body
-    log("ff_math expm1, log: elements of the timed inputs that the card's "
-        "element test (ff_math_paths.cu) sends to the Dekker body: "
+    # no element of exp's, expm1's or log's timed inputs runs the Dekker
+    # body
+    log("ff_math exp, expm1, log: elements of the timed inputs that the "
+        "card's element test (ff_math_paths.cu) sends to the Dekker body: "
         + ", ".join(f"{what} {n}" for what, n in far))
     if any(n for _what, n in far):
-        raise AssertionError("ff_math expm1 / log: timed elements run the "
-                             "Dekker body")
-    for ops in (("sigmoid", "silu"), ("pow", "log1p"), ("expm1", "log")):
+        raise AssertionError("ff_math exp / expm1 / log: timed elements run "
+                             "the Dekker body")
+    for ops in (("sigmoid", "silu"), ("pow", "log1p"), ("expm1", "log"),
+                ("exp",)):
         log(f"ff_math {' / '.join(ops)} (FMA TwoProd): kernel / bound "
             + "; ".join(f"{r['op']}{' ' + r['band'] if 'band' in r else ''} "
                         f"{r['shape']} {r['ms']:.4f} / {r['bound_ms']:.4f} "

@@ -1,5 +1,5 @@
 """The ``ff_math`` kernel's erf, gelu, tanh, sigmoid, silu, pow, log1p,
-expm1 and log design, one choice at a time, on the card::
+expm1, log and exp design, one choice at a time, on the card::
 
     python -m repro_torch.benchmarks.math_variants [NAME ...] \\
         [--ops OP ...] [--baseline CSRC] [--sass] [--out rows.json]
@@ -7,12 +7,12 @@ expm1 and log design, one choice at a time, on the card::
 Each variant is a copy of ``csrc/`` with one design choice undone (a text
 edit of the sources, ``VARIANTS``), built with the port's ``nvcc`` flags
 into ``build/variants/<name>/`` (all at once), then swapped in for the
-``ff_math`` library: each function of ``--ops`` (default all nine) is
+``ff_math`` library: each function of ``--ops`` (default all ten) is
 checked bit for bit against its plain version at (512, 8192), tanh also
 on its band edges and a mixed tile, sigmoid and silu also on
-``sigmoid_edges``, pow and log1p on ``log_pow_edges``, expm1 and log on
-``exp_log_edges``, and those six on a strided view and a row plane (pow
-also a column plane and a scalar b),
+``sigmoid_edges``, pow and log1p on ``log_pow_edges``, expm1, log and exp
+on ``exp_log_edges``, and those seven on a strided view and a row plane
+(pow also a column plane and a scalar b),
 and timed by CUDA-graph replay at (4096, 4096) and (512, 8192) on
 ``|N(0,1)| + 0.5`` (the operators phase's input; pow's b ~ N(0,1));
 erf also at (4096, 4096) on its argument uniform in each band, tanh on x
@@ -24,8 +24,8 @@ its near band (-0.29, 0.41), at both shapes, and log1p on x uniform in
 branches), log on exp(U(-50, 50)) at both shapes.  Each row also lists
 each kernel's registers and spill bytes (``-Xptxas -v``), the kernels whose
 SASS differs from ``shipped``'s (``cuobjdump -sass``, addresses and
-encodings dropped), and the loops of the sigmoid, silu, pow, log1p, expm1
-and log kernels with their f32 (FADD, FMUL, FFMA) and other instructions
+encodings dropped), and the loops of the sigmoid, silu, pow, log1p, expm1,
+log and exp kernels with their f32 (FADD, FMUL, FFMA) and other instructions
 (one element a pass) and the share of the IEEE divisions' code in them.
 ``shipped`` is the
 sources as they are; ``--baseline`` builds another ``csrc/`` directory
@@ -82,15 +82,17 @@ LOG_POW_DEKKER: Tuple[Edit, ...] = (
     ("ff_math.cu", "return log1p22_fma(h, l);", "return log1p22(h, l);"),
     ("ff_math.cu", "return pow22_fma(h, l, bh, bl);",
      "return pow22(h, l, bh, bl);"))
-# expm1 and log the same
+# expm1, log and exp the same
 EXPM1_LOG_DEKKER: Tuple[Edit, ...] = (
     ("ff_math.cu", "return expm122_fmapath(h, l);", "return expm122(h, l);"),
-    ("ff_math.cu", "return log22_fmapath(h, l);", "return log22(h, l);"))
+    ("ff_math.cu", "return log22_fmapath(h, l);", "return log22(h, l);"),
+    ("ff_math.cu", "return exp22_fmapath(h, l);", "return exp22(h, l);"))
 NO_FLAT: Tuple[Edit, ...] = (
-    ("ff_math.cu", "constexpr bool kFlat = OP == EXPM1 || OP == LOG ||\n"
+    ("ff_math.cu", "constexpr bool kFlat = OP == EXP || OP == EXPM1 || "
+     "OP == LOG ||\n"
      "    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;",
      "constexpr bool kFlat = false;"),)
-# the flat loop of expm1, log, log1p, sigmoid, silu and pow, and two
+# the flat loop of exp, expm1, log, log1p, sigmoid, silu and pow, and two
 # alternatives to it
 FLAT_LOOP = """      for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x;
@@ -154,8 +156,8 @@ LOG1P_APART = """  if (xh >= -0x1.2bec32p-2f && xh <= 0x1.a82798p-2f) {
 """
 VARIANTS: Dict[str, Tuple[Edit, ...]] = {
     "shipped": (),
-    # sigmoid, silu, log1p, pow, expm1 and log as they were before their
-    # FMA paths: Dekker's TwoProd, the strided loop
+    # sigmoid, silu, log1p, pow, expm1, log and exp as they were before
+    # their FMA paths: Dekker's TwoProd, the strided loop
     "dekker": SIGMOID_DEKKER + LOG_POW_DEKKER + EXPM1_LOG_DEKKER + NO_FLAT,
     # each TwoProd of sigmoid and silu checks its own product, operands and
     # zero error, and runs Dekker's out of line otherwise, in place of the
@@ -254,7 +256,7 @@ VARIANTS: Dict[str, Tuple[Edit, ...]] = {
          f"__device__ __forceinline__ ff2 {fn}(")
         for fn in ("div22_far", "erf_small_any", "erf_mid_any",
                    "sigmoid22_far", "silu22_far", "pow22_far",
-                   "expm122_far")),
+                   "expm122_far", "exp22_far")),
     "mid series unrolled": (
         ("ff_eft.cuh", "#pragma unroll 4\n  for (int n = 1; n < kErfPosTerms",
          "#pragma unroll\n  for (int n = 1; n < kErfPosTerms"),),
@@ -290,12 +292,13 @@ BANDS = {"small": (0.0, 1.0), "mid": (1.0, 4.0), "big": (4.0, 8.0)}
 # at these sizes)
 TANH_BANDS = {"small": (0.0, 0.35), "large": (0.3501, 8.0)}
 OPS = ("erf", "gelu", "tanh", "sigmoid", "silu", "pow", "log1p", "expm1",
-       "log")
+       "log", "exp")
 F32_OPS = ("FADD", "FMUL", "FFMA")
 # the kernel instances whose loops are counted
 COUNTED = {"sigmoid": "math_kernelILi5E", "silu": "math_kernelILi8E",
            "pow": "math_kernelILi9E", "log1p": "math_kernelILi3E",
-           "expm1": "math_kernelILi1E", "log": "math_kernelILi2E"}
+           "expm1": "math_kernelILi1E", "log": "math_kernelILi2E",
+           "exp": "math_kernelILi0E"}
 
 
 def graph_ms(fn, iters: int = 5) -> float:
@@ -745,8 +748,8 @@ def log_pow_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
 
 def exp_log_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
         torch.Tensor, torch.Tensor]]]:
-    """The edge classes of expm122 and log22 on the FMA TwoProd:
-    ``{"expm1": {class: (xh, xl)}, "log": {class: (xh, xl)}}``.
+    """The edge classes of expm122, log22 and exp22 on the FMA TwoProd:
+    ``{"expm1": {class: (xh, xl)}, "log": {...}, "exp": {...}}``.
 
     expm1: |x| at the identity edge 2^-45 (and its neighbours, 2^-46 to
     2^-40); x at +-ln2/2, where k flips between 0 and +-1 (the f32 values
@@ -768,7 +771,14 @@ def exp_log_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
     mh + ml near 3 and 1/3 (lo beyond hi), where |s| is near 1/2 and
     div22's quotient n.hi / d.hi and its s.hi fall on either side of it.
     (Near |s| = 2^-48 they cannot: m is then within 2^-46 of 1, so d.hi
-    = 2 and n.lo = 0, and s.hi is the exact n.hi / 2.)"""
+    = 2 and n.lo = 0, and s.hi is the exact n.hi / 2.)  exp: +-0 and |x|
+    around 2^-48 (2^-50 to 2^-46, and 2^-48 with its neighbours), where r
+    is x; expm1's x = k ln2 whose r cancels (``cancelling_lo``), for k
+    also -128 ... -150 (x down to -104), with expm1's k = 0 class; x in
+    (-ln2/2, ln2/2) with lo +-0; exact products; lo beyond hi; the
+    overflow from ~88.72 and the 89 clip, x at -103 and the -105 clip,
+    with their neighbours; subnormal limbs; +-0, +-inf and nan with lo
+    +-0, and non-finite lo limbs."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
 
@@ -897,29 +907,52 @@ def exp_log_edges(device, seed: int = 0) -> Dict[str, Dict[str, Tuple[
     lg["|s| near 1/2 (lo beyond hi)"] = (
         (mh * sc).astype(f32), ((t - mh.astype(np.float64)) * sc)
         .astype(f32))
+    ex = {}
+    e = np.ldexp(rng.uniform(1, 2, 256), rng.integers(-50, -45, 256)) * pm(256)
+    ex["+-0, |x| around 2^-48"] = lo_forms(np.concatenate([
+        np.array([0.0, -0.0], f32),
+        around(np.array([2.0 ** -48, -2.0 ** -48], f32), 2), e.astype(f32)]))
+    y = torch.tensor([-k * math.log(2.0) for k in range(128, 151)],
+                     dtype=torch.float32)
+    y = torch.cat([y, torch.nextafter(y, torch.full_like(y, -math.inf)),
+                   torch.nextafter(y, torch.full_like(y, math.inf))])
+    base = cancelling_lo(y)
+    xh, xl = em["r cancelling near k ln2"]
+    ex["r cancelling near k ln2"] = (
+        np.concatenate([xh, y.numpy(), y.numpy()]),
+        np.concatenate([xl, base.numpy(), torch.nextafter(
+            base, torch.full_like(base, math.inf)).numpy()]))
+    for k in ("k = 0, lo +-0", "exact products", "lo beyond hi",
+              "subnormal limbs", "non-finite"):
+        ex[k] = em[k]
+    clip = np.array([88.72283935546875, 89.0, -103.0, -105.0, 88.0,
+                     -87.33654], f32)
+    ex["overflow and clip edges"] = lo_forms(around(clip, 3))
     return {"expm1": {k: on_device(device, v) for k, v in em.items()},
-            "log": {k: on_device(device, v) for k, v in lg.items()}}
+            "log": {k: on_device(device, v) for k, v in lg.items()},
+            "exp": {k: on_device(device, v) for k, v in ex.items()}}
 
 
 def dekker_elements(op: str, xh: torch.Tensor,
                     xl: torch.Tensor) -> torch.Tensor:
-    """Where the ff_math kernel's expm1 or log sends an element to the
-    Dekker body (expm122 / log22): the host's emulation of its element
-    test, bit for bit (the FMA's product through float64, rounded once).
-    expm1: exp's reduced argument r off |r.hi| <= 1/2 and (|r.hi| >=
-    2^-48 or r.hi == 0), nan reduced as -105 (CUDA's fminf / fmaxf); log:
+    """Where the ff_math kernel's exp, expm1 or log sends an element to the
+    Dekker body (exp22 / expm122 / log22): the host's emulation of its
+    element test, bit for bit (the FMA's product through float64, rounded
+    once).  exp and expm1 (one test, exp22_fma's): exp's reduced argument r
+    off |r.hi| <= 1/2 and (|r.hi| >= 2^-48 or r.hi == 0), nan reduced as
+    -105 (CUDA's fminf / fmaxf); log:
     the atanh argument s = div22_fma(n, d) off 2^-48 <= |s.hi| <= 1/2,
     unless n.hi == 0.  The CPU tests take their emulated paths' test from
     here; chip_smoke.py holds it to the card's own (csrc/ff_math_paths.cu)
     on every edge class."""
     from repro_torch.core import ff as core_ff
     from repro_torch.core.ff import FF
-    if op == "expm1":
+    if op in ("exp", "expm1"):
         xc = torch.where(xh != xh, ffmath._EXP_CLIP_LO, xh)
         rh = ffmath._exp_reduce(xc, xl)[0].abs()
         return ~((rh <= 0.5) & ((rh >= 2.0 ** -48) | (rh == 0)))
     if op != "log":
-        raise KeyError(f"dekker_elements: {op!r} (expm1 or log)")
+        raise KeyError(f"dekker_elements: {op!r} (exp, expm1 or log)")
     mh, ml, _e = ffmath._frexp_sqrt2(xh, xl)
     n = core_ff.add212(FF(mh, ml), -1.0)
     d = core_ff.add212(FF(mh, ml), 1.0)
@@ -1018,10 +1051,10 @@ def main(argv=None) -> int:
     wh, wl = wide[(512, 8192)]
     for op in {"sigmoid", "silu"} & set(ops):
         checks[op] += [(eh, el), (wh[:, ::3], wl[:, ::3]), (wh, wl[:1])]
-    # pow, log1p, expm1 and log: the edge classes, a strided view and a
-    # row lo plane; pow also a column and a scalar b
+    # pow, log1p, expm1, log and exp: the edge classes, a strided view and
+    # a row lo plane; pow also a column and a scalar b
     lp = {**log_pow_edges("cuda"), **exp_log_edges("cuda")}
-    for op in {"pow", "log1p", "expm1", "log"} & set(ops):
+    for op in {"pow", "log1p", "expm1", "log", "exp"} & set(ops):
         c = checks[op][0]
         checks[op] += [tuple(torch.cat(p) for p in zip(*lp[op].values())),
                        tuple(x[:, 1::3] for x in c),

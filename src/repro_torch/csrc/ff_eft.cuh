@@ -915,6 +915,45 @@ __device__ __forceinline__ ff2 expm122_fmapath(float xh, float xl) {
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// exp22 bit for bit on the FMA TwoProd (the ff_math kernel's EXP instance):
+// exp22_fma where its test on r passes, exp22 itself elsewhere.  8 TwoProds
+// an element.  No proof beyond those above is needed; these lines cover it:
+//   - exactness: the products are exp_poly's (the Horner's w.hi r.hi, r.hi
+//     r.hi, z.hi w.hi), and the bounds above sigmoid22_fma derive their
+//     exactness from r alone (|r.hi| <= 1/2 and (|r.hi| >= 2^-48 or r.hi ==
+//     0), a domain symmetric in r): W(r) in [0.4, 0.6] and w.hi in
+//     [2^-16, 1] hold for either sign of r.  Their exp_reduce(-|x|) only
+//     names sigmoid's argument; no step uses x <= 0 (the bounds on div22
+//     and on silu's last product, which do, are not exp's);
+//   - signed zeros: on that domain exp_poly_fma(r) is exp_poly(r) bit for
+//     bit, zero signs included (the trace above expm122_fma, which also
+//     holds for either sign of x), so em1 is exp22's, and so is all that
+//     follows it: add212(em1, 1), scale2k and the selections;
+//   - scale2k multiplies p by 2^k1 and 2^k2, exact powers of two for every
+//     k the clip allows (-152 <= k <= 128, |k1|, |k2| <= 76), and both paths
+//     feed it the same p and k;
+//   - the clip, overflow and nan selections are exp22's own statements.
+// The test sends |x| below 2^-48 (where r is x), r cancelled below 2^-48
+// near k ln2 and lo limbs that break |r.hi| <= 1/2 to exp22, out of line.
+// As on expm1 it is conservative: no FF input shows it at the output (an
+// r below 2^-48 leaves Dekker's partial-product underflow far under lo's
+// last bit, beneath the +1; lo limbs beyond hi overflow both forms alike;
+// test_exp_guard_is_conservative in tests/test_torch_math_fma.py).
+
+// exp22 itself, out of line: it runs only outside the domain.
+__device__ __noinline__ ff2 exp22_far(float xh, float xl) {
+  return exp22(xh, xl);
+}
+
+// exp22(xh, xl), bit for bit.
+__device__ __forceinline__ ff2 exp22_fmapath(float xh, float xl) {
+  bool ok;
+  ff2 r = exp22_fma(xh, xl, &ok);
+  if (!ok) r = exp22_far(xh, xl);
+  return r;
+}
+
 // sigmoid22 with the twins; *ok as exp22_fma's.
 __device__ __forceinline__ ff2 sigmoid22_fma_body(float xh, float xl,
                                                   bool* ok) {

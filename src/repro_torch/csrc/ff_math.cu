@@ -22,15 +22,15 @@
 // (ff_planes.cuh): their branches are short.  For tanh the band sort below is
 // faster on mixed bands (x uniform in (-1, 1)) but more than 5% slower on
 // band-pure input, so tanh stays in this loop
-// (repro_torch.benchmarks.math_variants "tanh band sort").  expm1, log,
-// log1p, sigmoid, silu and pow run each TwoProd as a multiply and an FMA
-// (expm122_fmapath, log22_fmapath, log1p22_fma, sigmoid22_fma, silu22_fma
-// and pow22_fma, ff_eft.cuh) where one test an element proves Dekker's
-// TwoProd exact (exp's reduced argument, log's atanh argument, the products
-// whose low limb reaches the output, pow's l b), and expm122 / log22 /
-// log1p22 / sigmoid22 / silu22 / pow22 themselves elsewhere (out of line but
-// log22 and log1p22, whose call would cost registers); on contiguous planes
-// they take a flat index (kFlat).
+// (repro_torch.benchmarks.math_variants "tanh band sort").  exp, expm1,
+// log, log1p, sigmoid, silu and pow run each TwoProd as a multiply and an
+// FMA (exp22_fmapath, expm122_fmapath, log22_fmapath, log1p22_fma,
+// sigmoid22_fma, silu22_fma and pow22_fma, ff_eft.cuh) where one test an
+// element proves Dekker's TwoProd exact (exp's reduced argument, log's atanh
+// argument, the products whose low limb reaches the output, pow's l b), and
+// exp22 / expm122 / log22 / log1p22 / sigmoid22 / silu22 / pow22 themselves
+// elsewhere (out of line but log22 and log1p22, whose call would cost
+// registers); on contiguous planes they take a flat index (kFlat).
 // erf and gelu branch into series of very different lengths (erf22's bands:
 // the alternating series on |x| <= 1, the positive series to 4, the
 // asymptotic form beyond), and a warp whose elements straddle a band edge
@@ -73,7 +73,7 @@ enum Op : int { EXP, EXPM1, LOG, LOG1P, TANH, SIGMOID, ERF, GELU, SILU, POW };
 template <int OP>
 __device__ __forceinline__ ff2 apply(float h, float l, float bh, float bl) {
   using namespace ffk;
-  if constexpr (OP == EXP) return exp22(h, l);
+  if constexpr (OP == EXP) return exp22_fmapath(h, l);
   else if constexpr (OP == EXPM1) return expm122_fmapath(h, l);
   else if constexpr (OP == LOG) return log22_fmapath(h, l);
   else if constexpr (OP == LOG1P) return log1p22_fma(h, l);
@@ -85,11 +85,12 @@ __device__ __forceinline__ ff2 apply(float h, float l, float bh, float bl) {
   else return pow22_fma(h, l, bh, bl);
 }
 
-// expm1, log, log1p, sigmoid, silu and pow on contiguous operand planes
-// (the silu gate of serving): a flat index, without for_each_element's
-// division by the column count and its strided addresses.
+// exp, expm1, log, log1p, sigmoid, silu and pow on contiguous operand
+// planes (the silu gate of serving): a flat index, without
+// for_each_element's division by the column count and its strided
+// addresses.
 template <int OP>
-constexpr bool kFlat = OP == EXPM1 || OP == LOG ||
+constexpr bool kFlat = OP == EXP || OP == EXPM1 || OP == LOG ||
     OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;
 
 // Every operand plane of OP (pow's four, two otherwise) is row-major and

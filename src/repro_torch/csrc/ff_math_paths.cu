@@ -1,12 +1,12 @@
-// Which path the ff_math kernel's expm1 and log take, element by element:
-// far[i] = 1 where math_kernel<EXPM1> (expm122_fmapath) or <LOG>
-// (log22_fmapath) sends element i to the Dekker body (expm122 / log22),
-// else 0.
+// Which path the ff_math kernel's exp, expm1 and log take, element by
+// element: far[i] = 1 where math_kernel<EXP> (exp22_fmapath), <EXPM1>
+// (expm122_fmapath) or <LOG> (log22_fmapath) sends element i to the Dekker
+// body (exp22 / expm122 / log22), else 0.
 //
 // Each element evaluates the *ok of the very functions those instances
-// inline (expm122_fma, log22_fma in ff_eft.cuh), built with the port's
-// flags (no contraction, IEEE division), so the mask is the kernel's own
-// test on the card, not a replay of it.  A check kernel, not on any model
+// inline (exp22_fma, expm122_fma, log22_fma in ff_eft.cuh), built with the
+// port's flags (no contraction, IEEE division), so the mask is the kernel's
+// own test on the card, not a replay of it.  A check kernel, not on any model
 // path: chip_smoke.py counts its mask per edge class and on the timed
 // inputs, and holds it to math_variants.dekker_elements, the host's
 // emulation that the CPU tests take their emulated paths' test from.
@@ -16,7 +16,7 @@
 
 namespace {
 
-constexpr int kExpm1 = 1, kLog = 2;   // ff_math.cu's Op codes
+constexpr int kExp = 0, kExpm1 = 1, kLog = 2;   // ff_math.cu's Op codes
 
 template <int OP>
 __global__ void __launch_bounds__(256)
@@ -28,7 +28,8 @@ dekker_elements_kernel(unsigned char* __restrict__ far,
                      threadIdx.x;
        i < n; i += stride) {
     bool ok;
-    if constexpr (OP == kExpm1) ffk::expm122_fma(xh[i], xl[i], &ok);
+    if constexpr (OP == kExp) ffk::exp22_fma(xh[i], xl[i], &ok);
+    else if constexpr (OP == kExpm1) ffk::expm122_fma(xh[i], xl[i], &ok);
     else ffk::log22_fma(xh[i], xl[i], &ok);
     far[i] = ok ? 0 : 1;
   }
@@ -36,12 +37,13 @@ dekker_elements_kernel(unsigned char* __restrict__ far,
 
 }  // namespace
 
-// op: 1 (expm1) or 2 (log); far: n bytes; xh, xl: n contiguous f32 limbs
-// each, on the card.  Returns the CUDA error of the launch (0 on success).
+// op: 0 (exp), 1 (expm1) or 2 (log); far: n bytes; xh, xl: n contiguous
+// f32 limbs each, on the card.  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int ff_math_dekker_elements(int op, void* far, const void* xh,
                                        const void* xl, long long n,
                                        cudaStream_t stream) {
-  if (op != kExpm1 && op != kLog)
+  if (op != kExp && op != kExpm1 && op != kLog)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   int grid = 0;
@@ -49,7 +51,9 @@ extern "C" int ff_math_dekker_elements(int op, void* far, const void* xh,
   auto* f = static_cast<unsigned char*>(far);
   const auto* h = static_cast<const float*>(xh);
   const auto* l = static_cast<const float*>(xl);
-  if (op == kExpm1)
+  if (op == kExp)
+    dekker_elements_kernel<kExp><<<grid, 256, 0, stream>>>(f, h, l, n);
+  else if (op == kExpm1)
     dekker_elements_kernel<kExpm1><<<grid, 256, 0, stream>>>(f, h, l, n);
   else
     dekker_elements_kernel<kLog><<<grid, 256, 0, stream>>>(f, h, l, n);

@@ -29,7 +29,8 @@ ROOT = Path(__file__).resolve().parents[3]
 SOURCES = ("ff_mean_sq", "ff_attention", "ff_adamw", "ff_matmul",
            "ff_matmul_ozaki", "ff_matmul_dot2", "ff_softmax",
            "ff_norm_stats", "ff_program", "ff_elementwise", "ff_rowsum",
-           "ff_math", "ff_guard", "ff_math_paths")
+           "ff_math", "ff_guard", "ff_math_paths",
+           "ff_matmul_hybrid_check")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "--fmad=false", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
          "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")

@@ -7,7 +7,11 @@ kernels, each with its plain version.
     product's own rounding has no reference bits (the TPU sums in 6-pass
     bf16, cuBLAS and the kernel each in their own order), so the kernel is
     held to the error contract against its plain version, and to the bit on
-    operands whose block products are exact (small integers).
+    operands whose block products are exact (small integers).  Each block
+    product is one FMA chain in k order, so the output tile and the split of
+    the K-blocks (``hybrid_plan``) change no bits: the kernel is bit for bit
+    its earlier design, kept as the check kernel
+    ``ff_matmul_hybrid_check``.
   * ``ff_matmul_ozaki`` (``csrc/ff_matmul_ozaki.cu``): the Ozaki
     slice-pair accumulation on the fp16 tensor cores.  Torch does what the
     reference does in jnp around its kernel: the pair table, the slices over
@@ -48,9 +52,20 @@ Tensor = torch.Tensor
 Pair = Tuple[Tensor, Tensor]
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# ff_matmul_f32(a, sa0, sa1, b, sb0, sb1, hi, lo, M, N, K, bk, stream)
+# ff_matmul_f32(a, sa0, sa1, b, sb0, sb1, hi, lo, M, N, K, bk, splits, ws,
+# stream)
 _HYBRID_ARGTYPES = [_P, _I64, _I64, _P, _I64, _I64, _P, _P,
-                    _I32, _I32, _I32, _I32, _P]
+                    _I32, _I32, _I32, _I32, _I32, _P, _P]
+# csrc/ff_matmul.cu's Shipped configuration: its output tile (rows,
+# columns), the blocks that fit an SM, and those of a split (which leaves
+# the FF accumulator's shared memory out)
+HYBRID_TILE = (128, 64)
+HYBRID_BLOCKS_PER_SM = 2
+HYBRID_SPLIT_BLOCKS_PER_SM = 3
+# ff_matmul_hybrid_check_f32(a, sa0, sa1, b, sb0, sb1, hi, lo, M, N, K, bk,
+# stream): the earlier hybrid kernel (csrc/ff_matmul_hybrid_check.cu)
+_CHECK_ARGTYPES = [_P, _I64, _I64, _P, _I64, _I64, _P, _P,
+                   _I32, _I32, _I32, _I32, _P]
 # ff_matmul_ozaki_f16(qa, qb, ga, gb, si, sj, npairs, hi, lo, n, M, N, K,
 # Kp, Np, bk, bkp, stream); si, sj: host arrays of the pair table, passed
 # to the kernel by value
@@ -61,7 +76,7 @@ OZAKI_MAX_BETA = 12       # slices of <= 11-bit integers: exact in fp16
 OZAKI_TILE_K = 64         # K per stage: each K-block padded to a multiple
 OZAKI_TILE_N = 128        # output columns per block
 # ff_matmul_dot2_f32(a, sa0, sa1, b, sb0, sb1, hi, lo, M, N, K, vec, stream)
-_DOT2_ARGTYPES = _HYBRID_ARGTYPES
+_DOT2_ARGTYPES = _CHECK_ARGTYPES
 DOT2_MAX_VEC = 8          # the CUDA kernel is compiled for vec = 1..8
 
 
@@ -109,29 +124,79 @@ def ff_matmul_plain(a: Tensor, b: Tensor, *, bk: int = 512) -> Pair:
     return ref_ff_matmul(a, b, bk=bk)
 
 
+def hybrid_plan(M: int, N: int, K: int, bk: int, sms: int) -> int:
+    """The blocks over which the hybrid kernel splits each output tile's
+    K-blocks, for an (M, K) x (K, N) product on a card of ``sms`` SMs.  The
+    rule: none where the output tiles fill ``HYBRID_BLOCKS_PER_SM`` blocks on
+    every SM; else as many as fit the card beside the tiles at
+    ``HYBRID_SPLIT_BLOCKS_PER_SM`` an SM, at most one a K-block (each writes
+    its block products to a workspace, which a second pass folds in K-block
+    order).  It changes no bits."""
+    tiles = -(-M // HYBRID_TILE[0]) * -(-N // HYBRID_TILE[1])
+    if tiles >= HYBRID_BLOCKS_PER_SM * sms:
+        return 1
+    fit = HYBRID_SPLIT_BLOCKS_PER_SM * sms // tiles
+    return max(1, min(-(-K // bk), fit))
+
+
+def hybrid_launch(a: Tensor, b: Tensor, bk: int, splits: int) -> Pair:
+    """One launch of the hybrid kernel with its K-blocks split over
+    ``splits`` blocks a tile (``hybrid_plan``'s), on f32 CUDA operands; no
+    launch count."""
+    M, K, N = _mkn("ff_matmul", a, b)
+    bk = min(bk, max(K, 1))
+    hi, lo = _outputs(a, M, N)
+    nkb = -(-K // bk)
+    ws = (torch.empty((nkb, M, N), dtype=torch.float32, device=a.device)
+          if splits > 1 and nkb > 1 else None)
+    _launch("ff_matmul", "ff_matmul_f32", _HYBRID_ARGTYPES, a.device,
+            a.data_ptr(), a.stride(0), a.stride(1),
+            b.data_ptr(), b.stride(0), b.stride(1),
+            hi.data_ptr(), lo.data_ptr(), M, N, K, bk,
+            splits if ws is not None else 1,
+            ws.data_ptr() if ws is not None else None)
+    return hi, lo
+
+
 def ff_matmul(a: Tensor, b: Tensor, *, bm: int = 256, bn: int = 256,
               bk: int = 512) -> Pair:
     """FF (M, N) = a (M, K) @ b (K, N), hybrid: f32 block products per
     K-block of ``bk``, FF-accumulated.  Returns (hi, lo).
 
-    On CUDA tensors: one launch of the CUDA kernel (raises if it cannot
-    launch); on CPU tensors: the plain version."""
+    On CUDA tensors: the CUDA kernel with ``hybrid_plan``'s split, counted
+    as one launch (raises if it cannot launch); on CPU tensors: the plain
+    version."""
     if a.device.type == "cpu":
         return ff_matmul_plain(a, b, bk=bk)
     _cuda_operands("ff_matmul", a, b)
     M, K, N = _mkn("ff_matmul", a, b)
     if bk < 1:
         raise ValueError(f"ff_matmul: bk must be positive, got {bk}")
-    hi, lo = _outputs(a, M, N)
-    _launch("ff_matmul", "ff_matmul_f32", _HYBRID_ARGTYPES, a.device,
-            a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1),
-            hi.data_ptr(), lo.data_ptr(), M, N, K, min(bk, max(K, 1)))
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    out = hybrid_launch(a, b, bk, hybrid_plan(M, N, K, min(bk, max(K, 1)),
+                                              sms))
     ff_matmul.launches += 1
-    return hi, lo
+    return out
 
 
 ff_matmul.launches = 0    # kernel launches since the last reset
+
+
+def ff_matmul_hybrid_check(a: Tensor, b: Tensor, *, bk: int = 512) -> Pair:
+    """The earlier hybrid kernel (``csrc/ff_matmul_hybrid_check.cu``), which
+    ``ff_matmul`` must match bit for bit: a check on the card, on no model
+    path, with no launch count."""
+    _cuda_operands("ff_matmul_hybrid_check", a, b)
+    M, K, N = _mkn("ff_matmul_hybrid_check", a, b)
+    if bk < 1:
+        raise ValueError(f"ff_matmul_hybrid_check: bk must be positive, "
+                         f"got {bk}")
+    hi, lo = _outputs(a, M, N)
+    _launch("ff_matmul_hybrid_check", "ff_matmul_hybrid_check_f32",
+            _CHECK_ARGTYPES, a.device, a.data_ptr(), a.stride(0),
+            a.stride(1), b.data_ptr(), b.stride(0), b.stride(1),
+            hi.data_ptr(), lo.data_ptr(), M, N, K, min(bk, max(K, 1)))
+    return hi, lo
 
 
 # -- Ozaki ---------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""sigmoid, silu and expm1 of the ``ff_math`` CUDA kernel on the FMA
-TwoProd (``sigmoid22_fma``, ``silu22_fma`` and ``expm122_fmapath`` of
-``csrc/ff_eft.cuh``), emulated exactly on the CPU:
+"""sigmoid, silu, expm1 and exp of the ``ff_math`` CUDA kernel on the FMA
+TwoProd (``sigmoid22_fma``, ``silu22_fma``, ``expm122_fmapath`` and
+``exp22_fmapath`` of ``csrc/ff_eft.cuh``), emulated exactly on the CPU:
 
   * TwoProd as a multiply and an FMA: ``fma(a, b, -x)`` through float64,
     where ``a * b`` (48 bits) and ``a * b - x`` are exact, then one
@@ -8,16 +8,17 @@ TwoProd (``sigmoid22_fma``, ``silu22_fma`` and ``expm122_fmapath`` of
   * the element's test on its reduced argument r (``|r.hi| <= 1/2`` and
     ``|r.hi| >= 2^-48`` or ``r.hi == 0``), silu's on its last product
     (``2^-100 <= |t.hi| < 2^100``, ``u != 0``), and ``sigmoid22`` /
-    ``silu22`` / ``expm122`` themselves (Dekker's TwoProd) on every other
-    element (expm1 takes exp's test alone).
+    ``silu22`` / ``expm122`` / ``exp22`` themselves (Dekker's TwoProd) on
+    every other element (expm1 and exp take exp's test alone).
 
 That path is held bit for bit, signed zeros included, to the port's
 plain ``sigmoid22`` / ``silu22`` on each class of
 ``math_variants.sigmoid_edges`` (subnormal z, k ln2 cancelled by lo,
 |x| from 2^-150, lo +-0 and +-hi 2^-25, exact products, subnormal and
 non-finite limbs, lo beyond hi) and on x uniform in (-30, 30), and to the
-reference's on normal-range inputs; expm1 the same on each class of
-``math_variants.exp_log_edges`` and on its timed inputs.  Each guard is
+reference's on normal-range inputs; expm1 and exp the same on each of
+their classes of ``math_variants.exp_log_edges`` and on their timed
+inputs.  Each guard is
 shown to matter: the bare FMA form differs from Dekker's where it sends
 an element away.  Zero errors of the other sign do arise on the FMA path
 (for expm1 also on its k == 0 branch, which has no +1) and leave no
@@ -492,7 +493,142 @@ def test_expm1_device_body_is_expm122s():
     cu = (Path(core_ff.__file__).resolve().parents[1] / "csrc"
           / "ff_math.cu").read_text()
     assert "return expm122_fmapath(h, l);" in cu
-    assert ("constexpr bool kFlat = OP == EXPM1 || OP == LOG ||\n"
-            "    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;"
+    assert ("constexpr bool kFlat = OP == EXP || OP == EXPM1 || OP == LOG "
+            "||\n    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;"
             in cu)
+
+
+# ---------------------------------------------------------------------------
+# exp: exp22_fma where its test on r passes, exp22 elsewhere
+
+EXP_EDGES = mv.exp_log_edges("cpu")["exp"]
+# the classes whose elements the test sends to exp22, in part
+EXP_FAR = {"+-0, |x| around 2^-48", "r cancelling near k ln2",
+           "lo beyond hi", "subnormal limbs", "non-finite"}
+
+
+def exp_body(xh, xl, seen=None):
+    """exp22 on exp_poly_fma; (hi, lo, ok), ok the kernel's test as
+    math_variants.dekker_elements emulates it (chip_smoke holds that to
+    the card's)."""
+    eh, el, _ok = exp22_fma(xh, xl, seen)
+    return eh, el, ~mv.dekker_elements("exp", xh, xl)
+
+
+BODY["exp"] = exp_body
+
+
+def _exp_timed():
+    """The operators phase's |N(0,1)| + 0.5 and x uniform in (-20, 20),
+    lo ~ hi 1e-8."""
+    g = torch.Generator().manual_seed(19)
+    h = {"|N(0,1)| + 0.5": torch.randn(20000, generator=g).abs() + 0.5,
+         "uniform (-20, 20)": torch.rand(20000, generator=g) * 40 - 20}
+    return {k: (v, v * 1e-8 * torch.randn(v.shape, generator=g))
+            for k, v in h.items()}
+
+
+EXP_TIMED = _exp_timed()
+
+
+@pytest.mark.parametrize("kind", list(EXP_EDGES) + list(EXP_TIMED))
+def test_exp_fma_path_is_the_plain_function(kind):
+    """Bit for bit exp22, signed zeros included, on each edge class; the
+    classes meant to reach exp22 do, and only those."""
+    xh, xl = {**EXP_EDGES, **EXP_TIMED}[kind]
+    gh, gl, ok = device("exp", xh, xl)
+    ph, pl = ffmath.exp22(xh, xl)
+    assert not (differs(gh, ph) | differs(gl, pl)).any()
+    rh = ffmath._exp_reduce(torch.where(xh != xh, ffmath._EXP_CLIP_LO, xh),
+                            xl)[0]
+    assert torch.equal(ok, in_domain(rh))          # exp22_fma's test
+    assert bool(ok.any())
+    assert bool((~ok).any()) == (kind in EXP_FAR)
+
+
+def test_exp_fma_path_is_the_reference():
+    """On the timed inputs, whose limbs and results stay normal (XLA:CPU
+    flushes subnormals, ROADMAP's FTZ policy)."""
+    for xh, xl in EXP_TIMED.values():
+        gh, gl, ok = device("exp", xh, xl)
+        rh, rl = ref_math.UNARY22["exp"](jnp.asarray(xh.numpy()),
+                                         jnp.asarray(xl.numpy()))
+        assert bool(ok.all())
+        assert np.array_equal(np.asarray(rh).view(np.int32),
+                              gh.numpy().view(np.int32))
+        assert np.array_equal(np.asarray(rl).view(np.int32),
+                              gl.numpy().view(np.int32))
+
+
+def test_exp_timed_inputs_take_the_fma_path():
+    """Every element of the timed inputs (and of x uniform in (-30, 30))
+    takes the FMA path: none runs exp22."""
+    for xh, xl in list(EXP_TIMED.values()) + [_inputs("uniform (-30, 30)")]:
+        assert bool(BODY["exp"](xh, xl)[2].all())
+
+
+def test_exp_test_is_expm1s_on_every_class():
+    """exp and expm1 share exp22_fma's test, and dekker_elements shares its
+    code: the two masks agree on every input of either's classes."""
+    for cls in list(EXP_EDGES.values()) + list(EXPM1_EDGES.values()):
+        assert torch.equal(mv.dekker_elements("exp", *cls),
+                           mv.dekker_elements("expm1", *cls))
+
+
+def test_exp_zero_errors_of_either_sign_leave_no_trace():
+    """On exact products (x = m 2^e, and k ln2 + m 2^e) the FMA path meets
+    errors that Dekker's TwoProd gives as -0 (its own +0), for x of either
+    sign; the outputs are exp22's all the same (exp_poly_fma is exp_poly bit
+    for bit on the domain)."""
+    xh, xl = EXP_EDGES["exact products"]
+    seen = []
+    fh, fl, ok = exp_body(xh, xl, seen)
+    neg = torch.zeros_like(xh, dtype=torch.bool)
+    for a, b in seen:
+        y = T.two_prod(a, b)[1]
+        neg |= (y == 0) & (y.view(torch.int32) < 0)
+    for side in (xh > 0, xh < 0):
+        assert bool((neg & ok & side).any())
+    ph, pl = ffmath.exp22(xh, xl)
+    assert not ((differs(fh, ph) | differs(fl, pl)) & ok).any()
+
+
+def test_exp_guard_is_conservative():
+    """exp's outputs do not show its guard: on every edge class the bare FMA
+    form is exp22 bit for bit, also on the elements the test sends away
+    (a reduced argument below 2^-48 leaves Dekker's partial products'
+    underflow far under lo's last bit, beneath the +1; lo limbs beyond hi
+    overflow both forms alike)."""
+    away = 0
+    for xh, xl in EXP_EDGES.values():
+        fh, fl, ok = exp_body(xh, xl)
+        ph, pl = ffmath.exp22(xh, xl)
+        assert not (differs(fh, ph) | differs(fl, pl)).any()
+        away += int((~ok).sum())
+    assert away > 0
+
+
+def test_exp_device_body_is_exp22s():
+    """exp22_fma runs exp22's ops and selections on exp_poly_fma, with the
+    test on r; exp22_fmapath takes it where the test passes and exp22 (out
+    of line) elsewhere; EXP calls the path and takes the flat loop."""
+    def statements(fn):
+        text = re.sub(r"//[^\n]*", "", _body(fn).split("{", 1)[1])
+        return [re.sub(r"\s+", "", t) for t in text.split(";") if t.strip()]
+    plain = [t.replace("exp_poly(r)", "exp_poly_fma(r)")
+             for t in statements("ff2 exp22(float xh")]
+    fma = statements("ff2 exp22_fma(")
+    assert [t for t in fma if not t.startswith(("constfloatar", "*ok"))] \
+        == plain
+    assert "*ok = ar <= 0.5f && (ar >= 0x1p-48f || ar == 0.0f);" \
+        in _body("ff2 exp22_fma(")
+    path = _body("ff2 exp22_fmapath(")
+    assert "ff2 r = exp22_fma(xh, xl, &ok);" in path
+    assert "if (!ok) r = exp22_far(xh, xl);" in path
+    assert "return exp22(xh, xl);" in _body("ff2 exp22_far(")
+    assert "__device__ __noinline__ ff2 exp22_far(" in SRC
+    cu = (Path(core_ff.__file__).resolve().parents[1] / "csrc"
+          / "ff_math.cu").read_text()
+    assert "if constexpr (OP == EXP) return exp22_fmapath(h, l);" in cu
+    assert "constexpr bool kFlat = OP == EXP ||" in cu
 

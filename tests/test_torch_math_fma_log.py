@@ -493,8 +493,8 @@ def test_device_constants_are_the_emulated_ones():
     assert "  if (!ok) r = log22(xh, xl);\n" in _body("ff2 log22_fmapath(")
     assert "ff2 r = log22_fma(xh, xl, &ok);" in _body("ff2 log22_fmapath(")
     cu = (CSRC / "ff_math.cu").read_text()
-    assert ("constexpr bool kFlat = OP == EXPM1 || OP == LOG ||\n"
-            "    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;"
+    assert ("constexpr bool kFlat = OP == EXP || OP == EXPM1 || OP == LOG "
+            "||\n    OP == SIGMOID || OP == SILU || OP == LOG1P || OP == POW;"
             in cu)
     assert "return log22_fmapath(h, l);" in cu
     assert "return log1p22_fma(h, l);" in cu
