@@ -13,7 +13,9 @@ Phases (any failed check raises, so the script exits non-zero):
      others — ``mean_sq`` to <= 1 ulp, FF attention (and its plain
      version) to <= 2^-40 of a float64 oracle on the card, the AdamW
      update, in place as the optimizer runs it on whole leaves (``tok``,
-     ``w_gate``), to 0 ulp on all four outputs;
+     ``w_gate``) and on lengths off its 4-wide packs through its 16-byte
+     path, and on leaves 1-3 floats into their buffers through its
+     4-byte loop, to 0 ulp on all four outputs;
   3. the FF matmul path: the hybrid, Ozaki and Dot2 kernels against their
      plain versions (Ozaki and Dot2 bit for bit, hybrid within 2 bk u S
      and bit for bit on integer operands, hybrid and Dot2 bit for bit on
@@ -50,7 +52,12 @@ Phases (any failed check raises, so the script exits non-zero):
      with the kernels' launch counts read around it; each kernel timed;
   5. the paper's operators and ff.math: ``elementwise`` (Add22, Mul22,
      Div22, Sqrt22, TwoSum, TwoProd at scalar, row, column and full
-     operands), ``ff_rowsum`` and ``math_elementwise`` (ten functions on
+     operands; each path ``elementwise_plan`` picks: 16-byte accesses at
+     lengths off the 4-wide packs and beside a scalar, 4-byte ones on
+     each operand 1-3 floats off a 16-byte boundary, the strided loop for
+     a (1, C) and a transposed operand; the edge classes of
+     ``stream_variants.elementwise_edges``), ``ff_rowsum`` and
+     ``math_elementwise`` (ten functions on
      inputs that cover every branch; erf and gelu also on the band-sorted
      kernel's cases: bands interleaved, each band alone, ragged edges,
      row and column planes) bit for bit their plain versions on the card,
@@ -110,7 +117,9 @@ Phases (any failed check raises, so the script exits non-zero):
      and training runs launch none of the fused-composite kernels, nor
      (but for the ``ff_math`` run) this slice's;
   9. timing: each kernel, its plain version and a PyTorch yardstick with
-     CUDA events at the main paths' shapes, beside its bound.
+     CUDA events at the main paths' shapes, beside its bound; the
+     elementwise rows at (4096, 4096) and AdamW at ``w_gate`` must have
+     taken the 16-byte path (the path each took is logged).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -288,24 +297,33 @@ def rel_err(got, want) -> float:
     return float(((got - want).abs() / den).max())
 
 
-def adamw_leaves(torch, g, shape):
+def adamw_leaves(torch, g, shape, off=0):
     """g, m, v, w, wlo on the card: the moments and the master weight's
-    low limb at their typical scales (tests/test_fusion.py)."""
+    low limb at their typical scales (tests/test_fusion.py); each ``off``
+    floats into a buffer of its own where ``off`` is not 0."""
+    from repro_torch.benchmarks.stream_variants import offset_view
     mk = lambda sc=1.0: torch.randn(shape, generator=g,  # noqa: E731
                                     device="cuda") * sc
-    return mk(), mk(0.1), mk(0.01).abs(), mk(), mk(1e-8)
+    leaves = (mk(), mk(0.1), mk(0.01).abs(), mk(), mk(1e-8))
+    return tuple(offset_view(t, off) for t in leaves) if off else leaves
 
 
-def adamw_check(torch, g, shape, scal) -> float:
-    """The AdamW kernel in place on one leaf, against the plain version on
-    copies of the inputs taken before it ran, slice by slice (one layer of
-    w_gate at most, where the plain version's temporaries fit): 0 ulp on
-    w, wlo, m and v; g unchanged.  Returns the largest absolute error."""
+def adamw_check(torch, g, shape, scal, off=0) -> float:
+    """The AdamW kernel in place on one leaf (``off`` floats into its
+    buffer), against the plain version on copies of the inputs taken
+    before it ran, slice by slice (one layer of w_gate at most, where the
+    plain version's temporaries fit): 0 ulp on w, wlo, m and v; g
+    unchanged; the 16-byte path on aligned leaves, the 4-byte loop on the
+    others.  Returns the largest absolute error."""
     from repro_torch.kernels import ff_fused
-    leaves = adamw_leaves(torch, g, shape)            # g, m, v, w, wlo
+    leaves = adamw_leaves(torch, g, shape, off)       # g, m, v, w, wlo
     before = [t.clone() for t in leaves]
     ff_fused.adamw_update(*leaves, *scal, eps=ADAMW_EPS, wd=ADAMW_WD)
     torch.cuda.synchronize()
+    path = ff_fused.adamw_update.last_path
+    if path != ("flat" if off % 4 else "vector"):
+        raise AssertionError(f"adamw_update {shape} offset {off}: the "
+                             f"{path} path")
     if not torch.equal(leaves[0], before[0]):
         raise AssertionError(f"adamw_update wrote its gradient at {shape}")
     new = [t.view(-1) for t in leaves]
@@ -320,8 +338,9 @@ def adamw_check(torch, g, shape, scal) -> float:
             worst_u = max(worst_u, ulp_diff(new[i][sl], want[i]))
             worst_abs = max(worst_abs,
                             float((new[i][sl] - want[i]).abs().max()))
-    log(f"adamw_update {shape} in place: kernel vs plain {worst_u} ulp "
-        f"(w, wlo, m, v; {math.ceil(n / ADAMW_SLICE)} slices)")
+    log(f"adamw_update {shape} offset {off} floats in place ({path} "
+        f"path): kernel vs plain {worst_u} ulp (w, wlo, m, v; "
+        f"{math.ceil(n / ADAMW_SLICE)} slices)")
     if worst_u != 0:
         raise AssertionError(f"adamw_update kernel {worst_u} ulp from "
                              f"plain at {shape} (limit 0)")
@@ -435,9 +454,15 @@ def phase_kernel_checks(torch):
     worst_abs = 0.0
     scal = [torch.tensor(x, device="cuda") for x in ADAMW_SCALARS]
     # odd sizes, and the leaves tok (vocab x d) and w_gate (L x d x d_ff)
-    # whole, as the optimizer updates them
-    for shape in ((33, 257), (1_000_003,), (49155, 2048), (40, 2048, 8192)):
+    # whole, as the optimizer updates them; lengths off the 4-wide packs,
+    # and leaves 1-3 floats into their buffers (the 4-byte loop)
+    for shape in ((33, 257), (1_000_003,), (49155, 2048), (40, 2048, 8192),
+                  (1,), (3,), (5,), (67,)):
         worst_abs = max(worst_abs, adamw_check(torch, g, shape, scal))
+    for off in (1, 2, 3):
+        for shape in ((33, 257), (1_000_003,)):
+            worst_abs = max(worst_abs, adamw_check(torch, g, shape, scal,
+                                                   off))
     checks["adamw_update"] = worst_abs
     return checks
 
@@ -1713,7 +1738,8 @@ def phase_ops_checks(torch):
     """Each new kernel against its plain version on the card, bit for bit,
     and within its NUMERICS.md contract of a float64 oracle on the card:
     ``elementwise`` (six ops; scalar, row, column and full operands) at
-    EW_SHAPES, ``ff_rowsum`` at ROWSUM_SHAPES, ``math_elementwise`` (ten
+    EW_SHAPES, then on each of its paths and the edge classes,
+    ``ff_rowsum`` at ROWSUM_SHAPES, ``math_elementwise`` (ten
     functions) on inputs that cover each branch and at (512, 8192), erf
     and gelu also on band_schedule_inputs; then int_division_check.
     Returns the largest kernel-vs-plain differences (0: bit for bit)."""
@@ -1791,6 +1817,50 @@ def phase_ops_checks(torch):
             f"full/row/column/scalar); vs float64 (full operands): "
             + "; ".join(f"{k} {v}" for k, v in errs.items()))
         del ah, bh, al, bl
+
+    # the paths elementwise_plan picks, each held bit for bit to the plain
+    # version: aligned dense planes (16-byte accesses) at lengths off the
+    # 4-wide packs, each operand 1-3 floats off a 16-byte boundary (the
+    # 4-byte flat loop), a scalar beside full planes, a (1, C) and a
+    # transposed operand (the strided loop), and elementwise_edges' classes
+    from repro_torch.benchmarks import stream_variants as sv
+    paths = {}
+
+    def run(what, op, args, want):
+        got = ew.elementwise(op, *args)
+        path = ew.elementwise.last_path
+        check("ff_elementwise", f"{op} {what}", got,
+              ew.elementwise_plain(op, *args))
+        if path != want:
+            raise AssertionError(f"elementwise {op} {what}: the {path} "
+                                 f"path, not the {want} one")
+        paths[path] = paths.get(path, 0) + 1
+
+    (ah, al), (bh, bl) = sv.ff_pair((37, 67), g), sv.ff_pair((37, 67), g,
+                                                             True)
+    edges = sv.elementwise_edges("cuda", SEED)
+    for op in ew.EW_OPS:
+        a = sv.ew_args(op, ah, al, bh, bl)
+        run("(37, 67)", op, a, "vector")
+        for n in (1, 2, 3, 5, 7, 66, 67, 2477):
+            run(f"(1, {n})", op, tuple(x.reshape(-1)[:n] for x in a),
+                "vector")
+        for off in (1, 2, 3):
+            for k in range(len(a)):
+                run(f"operand {k} {off} floats off", op, a[:k] + (
+                    sv.offset_view(a[k], off),) + a[k + 1:], "flat")
+        run("a scalar operand", op, (a[0], a[1][0, 0]) + a[2:], "vector")
+        run("a (1, C) operand beside full ones", op,
+            (a[0], a[1][:1]) + a[2:], "strided")
+        run("a transposed operand", op, (a[0].T.contiguous().T,) + a[1:],
+            "strided")
+        for what, p in edges.items():
+            run(what, op, sv.ew_args(op, *p), "vector")
+    log(f"elementwise paths: kernel == plain bit for bit (6 ops; lengths "
+        f"1-67 and 2477, operands 1-3 floats off, scalar, (1, C), "
+        f"transposed; edge classes {', '.join(edges)}); launches by path "
+        f"{paths}")
+    del ah, bh, al, bl, edges
 
     # the row sum: bitwise, then within 2^-44 of sum |x|
     for R, C in ROWSUM_SHAPES:
@@ -2160,7 +2230,14 @@ def phase_ops_timing(torch, clock_hz):
             EW_BYTES[op] * n, EW_OPS_COUNT[op] * n, peak_ops, 20),
             library="float64 " + {"add22": "add", "two_sum": "add",
                                   "mul22": "mul", "two_prod": "mul",
-                                  "div22": "div", "sqrt22": "sqrt"}[op]))
+                                  "div22": "div", "sqrt22": "sqrt"}[op],
+            path=ew.elementwise.last_path))
+    log("elementwise timed calls' paths: " + ", ".join(
+        f"{r['op']} {r['shape']} {r['path']}"
+        for r in rows["ff_elementwise"]))
+    if any(r["path"] != "vector" for r in rows["ff_elementwise"]):
+        raise AssertionError("elementwise: a timed call missed the 16-byte "
+                             "path")
     del a64, b64, al, bl
     for shape in ((R, C), (512, 49155)):
         x = torch.randn(shape, generator=g, device="cuda")
@@ -3241,6 +3318,11 @@ def adamw_timing(torch, cfg, g, counts, err, peak_ops):
                               wd=ADAMW_WD)
 
     ms, call_ms = graph_ms(step, 10), cuda_ms(step, 10)
+    path = ff_fused.adamw_update.last_path
+    log(f"adamw_update timed call {list(shape)}: the {path} path")
+    if path != "vector":
+        raise AssertionError(f"adamw_update at {shape}: the {path} path, "
+                             f"not the 16-byte one")
     byts, ops = n * ADAMW_BYTES, n * ADAMW_OPS
     sl = [t[0].clone() for t in (gr, m, v, w, wlo)]
     plain_ms = cuda_ms(lambda: ff_fused.adamw_update_plain(
@@ -3260,7 +3342,8 @@ def adamw_timing(torch, cfg, g, counts, err, peak_ops):
         plain_shape=[cfg.d_model, cfg.d_ff],
         bound_ms=1e3 * max(byts / HBM_BYTES_PER_S, ops / peak_ops),
         bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / peak_ops
-        else "operations", library_ms=library_ms, shape=list(shape))
+        else "operations", library_ms=library_ms, shape=list(shape),
+        path=path)
 
 
 def main() -> int:

@@ -23,7 +23,7 @@ counts launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -168,6 +168,79 @@ def launch_planes(lib: str, op: int, planes: Sequence[Tensor],
     return hi, lo
 
 
+# -- the flat streaming path (csrc/ff_stream.cuh) -----------------------------
+
+STREAM_LIMIT = 1 << 30  # the streams' 32-bit index: fewer elements than this
+VECTOR_ALIGN = 16       # bytes of a 16-byte access
+
+
+class Plan(NamedTuple):
+    """An elementwise launch: ``path`` "vector" (the flat loop, 16-byte
+    accesses), "flat" (the flat loop, 4-byte accesses) or "strided";
+    ``scalars`` has bit p set where operand p is a scalar (flat paths)."""
+    path: str
+    scalars: int = 0
+
+
+def _plane_strides(p: Tensor) -> Tuple[int, int]:
+    """The (row, column) element strides the kernel reads ``p`` through
+    (0 along a degenerate extent), as ``launch_planes`` passes them."""
+    return (p.stride(0) if p.shape[0] != 1 else 0,
+            p.stride(1) if p.shape[1] != 1 else 0)
+
+
+def elementwise_plan(planes: Sequence[Tensor], R: int, C: int,
+                     outs: Sequence[Tensor] = ()) -> Plan:
+    """The path of an elementwise launch over ``planes`` (2-D, from
+    ``layout``) into the (R, C) planes ``outs``.  Flat where each plane is
+    dense row-major at (R, C) (element (r, c) at r C + c) or a scalar, and
+    R C < ``STREAM_LIMIT``: "vector" where every dense plane and every
+    output starts on a 16-byte boundary, else "flat"; "strided"
+    otherwise."""
+    if R * C >= STREAM_LIMIT:
+        return Plan("strided")
+    scalars, aligned = 0, all(o.data_ptr() % VECTOR_ALIGN == 0
+                              for o in outs)
+    for k, p in enumerate(planes):
+        rs, cs = _plane_strides(p)
+        if (R == 1 or rs == C) and (C == 1 or cs == 1):
+            aligned = aligned and p.data_ptr() % VECTOR_ALIGN == 0
+        elif (R == 1 or rs == 0) and (C == 1 or cs == 0):
+            scalars |= 1 << k
+        else:
+            return Plan("strided")
+    return Plan("vector" if aligned else "flat", scalars)
+
+
+def launch_flat(op: int, planes: Sequence[Tensor], plan: Plan,
+                hi: Tensor, lo: Tensor) -> None:
+    """One launch of the elementwise kernel's flat path (``plan``) over
+    ``planes`` into the (R, C) planes ``hi`` and ``lo``."""
+    if "ff_elementwise" not in _CHECKED:
+        size = build.entry(
+            "ff_elementwise", "ff_elementwise_planes_bytes", [])()
+        if size != ctypes.sizeof(_Planes):
+            raise RuntimeError(f"ff_elementwise: the kernel's Planes is "
+                               f"{size} bytes, the wrapper's "
+                               f"{ctypes.sizeof(_Planes)}")
+        _CHECKED.add("ff_elementwise")
+    R, C = hi.shape
+    t = _Planes(op=op, n_in=len(planes), rows=R, cols=C,
+                out_hi=hi.data_ptr(), out_lo=lo.data_ptr())
+    for k, p in enumerate(planes):
+        t.inp[k] = p.data_ptr()
+        t.rs[k], t.cs[k] = _plane_strides(p)
+    with torch.cuda.device(hi.device):
+        err = build.entry("ff_elementwise", "ff_elementwise_flat_f32",
+                          [ctypes.POINTER(_Planes), ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p])(
+            ctypes.byref(t), plan.scalars, int(plan.path == "vector"),
+            torch.cuda.current_stream(hi.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ff_elementwise kernel launch failed: CUDA "
+                           f"error {err}")
+
+
 # -- the operators ------------------------------------------------------------
 
 def _ff2(fn: Callable) -> Callable:
@@ -232,10 +305,19 @@ def elementwise(op: str, *arrays, block: Tuple[int, int] = DEFAULT_BLOCK
     if R * C == 0:
         z = torch.empty(out_shape, dtype=torch.float32, device=dev)
         return z, z.clone()
-    hi, lo = launch_planes("ff_elementwise", EW_OPS.index(op), planes,
-                           R, C, dev)
+    plan = elementwise_plan(planes, R, C)
+    if plan.path == "strided":
+        hi, lo = launch_planes("ff_elementwise", EW_OPS.index(op), planes,
+                               R, C, dev)
+    else:
+        hi = torch.empty((R, C), dtype=torch.float32, device=dev)
+        lo = torch.empty_like(hi)
+        plan = elementwise_plan(planes, R, C, (hi, lo))
+        launch_flat(EW_OPS.index(op), planes, plan, hi, lo)
     elementwise.launches += 1
+    elementwise.last_path = plan.path
     return hi.reshape(out_shape), lo.reshape(out_shape)
 
 
 elementwise.launches = 0   # kernel launches since the last reset
+elementwise.last_path = None   # the last launch's path (elementwise_plan)

@@ -23,7 +23,9 @@ The general Program executor and two dedicated programs of
   * ``adamw_update``, the AdamW leaf update with an FF master weight
     (``csrc/ff_adamw.cu``).  Purely elementwise and correctly rounded op
     by op, so the kernel and the plain version (``_adamw_chain`` of
-    ``repro.ff.dispatch``, same op order) agree bit for bit.
+    ``repro.ff.dispatch``, same op order) agree bit for bit.  It streams
+    the leaves with 16-byte accesses where ``adamw_plan`` finds them
+    aligned.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from repro_torch.core import ff as core_ff
 from repro_torch.core import transforms as T
 from repro_torch.core.ff import FF, sqrt_rn
 from repro_torch.kernels import build
-from repro_torch.kernels.ff_elementwise import _to_2d, broadcast_planes
+from repro_torch.kernels.ff_elementwise import (STREAM_LIMIT, VECTOR_ALIGN,
+                                                _to_2d, broadcast_planes)
 from repro_torch.kernels.ref import fold_lanes, lane_cascade
 
 Tensor = torch.Tensor
@@ -102,9 +105,20 @@ mean_sq.launches = 0   # kernel launches since the last reset
 
 # -- adamw_update: the FF-master-weight AdamW leaf update ---------------------
 
-# ff_adamw_f32(g, m, v, w, wlo, scal, eps, wd, n, stream)
+# ff_adamw_f32(g, m, v, w, wlo, scal, eps, wd, n, vector, stream)
 _ADAMW_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
+def adamw_plan(leaves: Sequence[Tensor]) -> str:
+    """The AdamW kernel's path over the leaves ``g, m, v, w, wlo``:
+    "vector" (16-byte accesses, a 32-bit index) where all five start on a
+    16-byte boundary and have fewer than ``STREAM_LIMIT`` elements, else
+    "flat" (the 4-byte loop)."""
+    if leaves[0].numel() < STREAM_LIMIT and all(
+            t.data_ptr() % VECTOR_ALIGN == 0 for t in leaves):
+        return "vector"
+    return "flat"
 
 
 def f32_scalar(x: float) -> float:
@@ -172,18 +186,22 @@ def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
             raise ValueError("adamw_update kernel takes contiguous leaves")
     scal = torch.stack([_scalar(s, g.device)
                         for s in (lr, b1, b2, bc1, bc2)])
+    path = adamw_plan((g, m, v, w, wlo))
     with torch.cuda.device(g.device):
         err = build.entry("ff_adamw", "ff_adamw_f32", _ADAMW_ARGTYPES)(
             *(t.data_ptr() for t in (g, m, v, w, wlo, scal)),
             f32_scalar(eps), f32_scalar(wd), g.numel(),
+            int(path == "vector"),
             torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f"ff_adamw kernel launch failed: CUDA error "
                            f"{err}")
     adamw_update.launches += 1
+    adamw_update.last_path = path
 
 
 adamw_update.launches = 0   # kernel launches since the last reset
+adamw_update.last_path = None   # the last launch's path (adamw_plan)
 
 
 # -- the fixed 128-lane summation order ---------------------------------------
