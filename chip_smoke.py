@@ -11,7 +11,13 @@ Phases (any failed check raises, so the script exits non-zero):
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the shapes the serving and training paths give it among
      others — ``mean_sq`` to <= 1 ulp, FF attention (and its plain
-     version) to <= 2^-40 of a float64 oracle on the card, the AdamW
+     version) to <= 2^-40 of a float64 oracle on the card on
+     ``attention_variants.CASES`` (the main paths' shapes, q tiles that
+     skip K/V tiles, ``q_offset > 0`` with Sq < Skv, ragged tiles, G = 1,
+     3, 4, 8, f32 and bf16, weights below 2^-100 of the row's largest),
+     the kernel under its own plan, each tile configuration and one head
+     a block (its instances' registers and spills logged at the build),
+     the AdamW
      update, in place as the optimizer runs it on whole leaves (``tok``,
      ``w_gate``) and on lengths off its 4-wide packs through its 16-byte
      path, and on leaves 1-3 floats into their buffers through its
@@ -117,7 +123,8 @@ Phases (any failed check raises, so the script exits non-zero):
      and training runs launch none of the fused-composite kernels, nor
      (but for the ``ff_math`` run) this slice's;
   9. timing: each kernel, its plain version and a PyTorch yardstick with
-     CUDA events at the main paths' shapes, beside its bound; the
+     CUDA events at the main paths' shapes, beside its bound (FF
+     attention at the prefill, training and long-step shapes); the
      elementwise rows at (4096, 4096) and AdamW at ``w_gate`` must have
      taken the 16-byte path (the path each took is logged).
 
@@ -269,34 +276,6 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def ff64(pair):
-    return pair.hi.double() + pair.lo.double()
-
-
-def attention_oracle(q, k, v, causal: bool):
-    """float64 softmax attention on the card, scaled by the f32-rounded
-    1/sqrt(hd) as the reference's attention_f64 (an exact f64 scale is
-    itself ~2^-26 off what the FF tiers compute)."""
-    import torch
-    B, Sq, H, hd = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    sc = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
-    q64 = q.double().reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", q64, k.double()) * sc
-    if causal:
-        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bkgqd", p, v.double())
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
-
-
-def rel_err(got, want) -> float:
-    den = want.abs().amax(dim=(1, 3), keepdim=True)
-    return float(((got - want).abs() / den).max())
-
-
 def adamw_leaves(torch, g, shape, off=0):
     """g, m, v, w, wlo on the card: the moments and the master weight's
     low limb at their typical scales (tests/test_fusion.py); each ``off``
@@ -368,6 +347,11 @@ def phase_build(torch):
         info = [ln.strip() for ln in (out / f"lib{name}.log").read_text()
                 .splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: " + " | ".join(info))
+    # the attention kernel's instances: registers and spills
+    from repro_torch.benchmarks import attention_variants as av
+    for label, info in av.ptxas_info(
+            (out / "libff_attention.log").read_text()).items():
+        log(f"  ff_attention {label}: {info}")
     # the Ozaki kernel's pair products run on the tensor cores
     cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     sass = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass",
@@ -401,8 +385,55 @@ def phase_build(torch):
             f"{loop}")
 
 
+def attention_checks(torch, g) -> float:
+    """FF attention on ``attention_variants.CASES`` (the main paths'
+    shapes, q tiles that skip K/V tiles, ``q_offset > 0`` with Sq < Skv,
+    Sq, Skv and heads off the tiles, G = 1, 3, 4, 8, f32 and bf16, scores
+    spread so that weights fall below 2^-100 of the row's largest): the
+    kernel under its own plan, under each tile configuration and with one
+    head a block, and its plain version, each within 2^-40 of the float64
+    oracle.  Returns the largest |kernel - plain| under the kernel's own
+    plan."""
+    from repro_torch.benchmarks import attention_variants as av
+    from repro_torch.kernels import ff_attention as fa
+    worst_abs = 0.0
+    plan = fa.attention_plan
+    forced = [("own plan", plan)] + [
+        (f"config {i}", av.forced_plan(config=i))
+        for i in range(len(fa.CONFIGS))] + [
+        ("one head a block", av.forced_plan(heads=1))]
+    for case, q, k, v, want, plain in av.references(av.CASES, g):
+        errs = {}
+        try:
+            for what, fn in forced:
+                fa.attention_plan = fn
+                got = av.kernel(q, k, v, case)
+                torch.cuda.synchronize()
+                errs[what] = av.rel_err(got, want)
+                if what == "own plan":
+                    used = fa.flash_attention_pallas.last_plan
+                    vs_plain = float((got - plain).abs().max())
+                    worst_abs = max(worst_abs, vs_plain)
+        finally:
+            fa.attention_plan = plan
+        e_p = av.rel_err(plain, want)
+        e_k = max(errs.values())
+        log(f"attention {case.what}: q{(case.B, case.Sq, case.H, case.hd)} "
+            f"Skv={case.Skv} KV={case.KV} causal={case.causal} q_offset="
+            f"{case.q_offset} {'bf16' if case.bf16 else 'f32'}: kernel "
+            f"2^{math.log2(max(e_k, 1e-300)):.1f} (worst of "
+            f"{len(errs)} plans; own plan {tuple(used)}), plain "
+            f"2^{math.log2(max(e_p, 1e-300)):.1f} vs float64; |kernel - "
+            f"plain| <= {vs_plain:.3e}")
+        if not (e_k <= 2.0 ** -40 and e_p <= 2.0 ** -40):
+            raise AssertionError(f"attention {case.what}: error kernel "
+                                 f"{errs}, plain {e_p:.3e} > 2^-40")
+    log(f"attention: kernel vs plain at most {worst_abs:.3e} (own plans)")
+    return worst_abs
+
+
 def phase_kernel_checks(torch):
-    from repro_torch.kernels import ff_attention, ff_fused
+    from repro_torch.kernels import ff_fused
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = {}
     worst_ulp, worst_abs = 0, 0.0
@@ -423,33 +454,7 @@ def phase_kernel_checks(torch):
                                  f"{shape} (limit 1)")
     checks["mean_sq"] = worst_abs
 
-    worst_abs = 0.0
-    for (B, Sq, Skv, H, KV, hd, causal, dt) in (
-            # the prefill shape, the training shapes (4 x 128, 2 x 1024)
-            (1, 64, 64, 32, 8, 64, True, torch.bfloat16),
-            (4, 128, 128, 32, 8, 64, True, torch.bfloat16),
-            (LONG_BATCH, LONG_SEQ, LONG_SEQ, 32, 8, 64, True, torch.bfloat16),
-            (2, 4, 768, 2, 1, 32, False, torch.float32),
-            # ragged tiles: partial q tiles and a partial last K/V tile
-            (1, 37, 37, 4, 2, 64, True, torch.float32),
-            (2, 50, 130, 4, 1, 32, False, torch.bfloat16)):
-        q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").to(dt)
-        k = torch.randn((B, Skv, KV, hd), generator=g, device="cuda").to(dt)
-        v = torch.randn((B, Skv, KV, hd), generator=g, device="cuda").to(dt)
-        got = ff64(ff_attention.flash_attention_pallas(
-            q, k, v, causal=causal, return_ff=True))
-        plain = ff64(ff_attention.flash_attention_ff(
-            q, k, v, causal=causal, return_ff=True))
-        want = attention_oracle(q, k, v, causal)
-        e_k, e_p = rel_err(got, want), rel_err(plain, want)
-        worst_abs = max(worst_abs, float((got - plain).abs().max()))
-        log(f"attention q{(B, Sq, H, hd)} Skv={Skv} KV={KV} causal={causal} "
-            f"{str(dt)[6:]}: kernel 2^{math.log2(max(e_k, 1e-300)):.1f}, "
-            f"plain 2^{math.log2(max(e_p, 1e-300)):.1f} vs float64")
-        if not (e_k <= 2.0 ** -40 and e_p <= 2.0 ** -40):
-            raise AssertionError(f"attention error kernel {e_k:.3e}, plain "
-                                 f"{e_p:.3e} > 2^-40")
-    checks["attention"] = worst_abs
+    checks["attention"] = attention_checks(torch, g)
 
     worst_abs = 0.0
     scal = [torch.tensor(x, device="cuda") for x in ADAMW_SCALARS]
@@ -3188,7 +3193,6 @@ def _leaves(tree):
 def phase_timing(torch, cfg, launches, errs, clock_hz):
     """``launches``: {path: {kernel: launches}} from the main paths' runs;
     each kernel's ``launches`` is their sum."""
-    import torch.nn.functional as F
     from repro_torch.kernels import ff_attention, ff_fused
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     peak_ops = F32_LANES * clock_hz
@@ -3215,34 +3219,11 @@ def phase_timing(torch, cfg, launches, errs, clock_hz):
         library_ms=graph_ms(lambda: torch.linalg.vecdot(x, x) / cols, 500),
         shape=[rows, cols]))
 
-    # attention at the prefill shape of the longest prompt
-    B, S, H, KV, hd = 1, PROMPT_LENS[1], cfg.num_heads, cfg.num_kv_heads, \
+    # attention at the prefill, training and long-step shapes
+    S, H, KV, hd = PROMPT_LENS[1], cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim
-    q = torch.randn((B, S, H, hd), generator=g, device="cuda").bfloat16()
-    k = torch.randn((B, S, KV, hd), generator=g, device="cuda").bfloat16()
-    v = torch.randn((B, S, KV, hd), generator=g, device="cuda").bfloat16()
-    sc = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
-    ops = attention_ops(B, S, S, H, hd, True, q.dtype == torch.bfloat16,
-                        sc)
-    byts = 2 * (q.numel() + k.numel() + v.numel()) + 2 * 4 * q.numel()
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    kernels.append(dict(
-        name="ff_flash_attention", route="cuda",
-        source="src/repro_torch/csrc/ff_attention.cu",
-        replaces="src/repro/kernels/ff_attention.py:425",
-        **counts("attention"), max_abs_err=errs["attention"],
-        ms=graph_ms(lambda: ff_attention.flash_attention_pallas(
-            q, k, v, causal=True, return_ff=True), 50),
-        call_ms=cuda_ms(lambda: ff_attention.flash_attention_pallas(
-            q, k, v, causal=True, return_ff=True), 50),
-        plain_ms=cuda_ms(lambda: ff_attention.flash_attention_ff(
-            q, k, v, causal=True, return_ff=True), 3),
-        bound_ms=1e3 * max(byts / HBM_BYTES_PER_S, ops / peak_ops),
-        bound_by="bytes" if byts / HBM_BYTES_PER_S >= ops / peak_ops
-        else "operations",
-        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 200),
-        shape=[B, S, H, hd, KV]))
+    kernels.append(attention_timing(torch, g, cfg, counts("attention"),
+                                    errs["attention"], peak_ops))
     # per-call times of the decode step's pieces at its shapes (plain
     # torch) and of mean_sq at the longest prefill's shape
     from repro_torch.core.policy import FF_REDUCE
@@ -3299,6 +3280,60 @@ def phase_timing(torch, cfg, launches, errs, clock_hz):
             f"{kd['plain_ms']:.3f} ms, bound {kd['bound_ms']:.5f} ms "
             f"({kd['bound_by']}), library {kd['library_ms']}")
     return kernels
+
+
+def attention_timing(torch, g, cfg, counts, err, peak_ops):
+    """The attention kernel at the shapes of its launches on the main
+    paths: the prefill of the longest prompt (1, 64), a training step (4,
+    128) and the long step (2, 1024); granite-3-2b's heads, bf16, causal.
+    Kernel ms by CUDA-graph replay, one call's ms, the bound
+    (``attention_ops``), SDPA's ms (bf16 attention: another function, a
+    yardstick of speed only); the plain version at the prefill shape only
+    (it takes seconds beyond).  The entry's numbers are the prefill
+    shape's, every shape under ``by_shape``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ff_attention
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    sc = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    rows = []
+    for what, B, S, iters in (("prefill", 1, PROMPT_LENS[1], 50),
+                              ("train", TRAIN_BATCH, TRAIN_SEQ, 20),
+                              ("long step", LONG_BATCH, LONG_SEQ, 3)):
+        q = torch.randn((B, S, H, hd), generator=g,
+                        device="cuda").bfloat16()
+        k = torch.randn((B, S, KV, hd), generator=g,
+                        device="cuda").bfloat16()
+        v = torch.randn((B, S, KV, hd), generator=g,
+                        device="cuda").bfloat16()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def call():
+            return ff_attention.flash_attention_pallas(
+                q, k, v, causal=True, return_ff=True)
+
+        plain = cuda_ms(lambda: ff_attention.flash_attention_ff(
+            q, k, v, causal=True, return_ff=True), 3) \
+            if what == "prefill" else None
+        row = dict(shape=[B, S, H, hd, KV], what=what, **time_kernel(
+            call, call, plain, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            2 * (q.numel() + k.numel() + v.numel()) + 2 * 4 * q.numel(),
+            attention_ops(B, S, S, H, hd, True, True, sc), peak_ops, iters))
+        row["plan"] = list(ff_attention.flash_attention_pallas.last_plan)
+        rows.append(row)
+        log(f"ff_flash_attention {what} {row['shape']} (plan "
+            f"{row['plan']}): kernel {row['ms']:.4f} ms (call "
+            f"{row['call_ms']:.4f}), plain {row['plain_ms']}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.1%}), SDPA "
+            f"{row['library_ms']:.4f} ms")
+        del q, k, v, qt, kt, vt
+    return dict(name="ff_flash_attention", route="cuda",
+                source="src/repro_torch/csrc/ff_attention.cu",
+                replaces="src/repro/kernels/ff_attention.py:425", **counts,
+                max_abs_err=err, **{k: rows[0][k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}, by_shape=rows)
 
 
 def adamw_timing(torch, cfg, g, counts, err, peak_ops):

@@ -21,8 +21,9 @@ contract: <= 2^-40 relative to the per-row max of an f64 oracle.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,9 +36,8 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
-# the CUDA kernel's limits (csrc/ff_attention.cu: kHDMax, grid.y)
+# the CUDA kernel's head-dim limit (csrc/ff_attention.cu: kHDMax)
 KERNEL_MAX_HEAD_DIM = 64
-KERNEL_MAX_BATCH_HEADS = 65535
 
 
 def _dims(q: Tensor, k: Tensor) -> Tuple[int, int, int, int, int, int]:
@@ -229,9 +229,58 @@ def flash_attention_ff(q: Tensor, k: Tensor, v: Tensor, *,
 # ===========================================================================
 
 # ff_attention_fwd(q, k, v, out_hi, out_lo, is_bf16, B, Sq, Skv, H, KV, hd,
-#                  causal, q_offset, scale, stream)
+#                  causal, q_offset, scale, plan, hb_shift, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+# the kernel's tile configurations (csrc/ff_attention.cu: Big, Small): rows
+# a block, threads a block, blocks an SM (__launch_bounds__)
+CONFIGS = ((64, 256, 1), (16, 256, 2))
+# the kernel's grid.y: q tiles
+KERNEL_MAX_Q_TILES = 65535
+
+
+class Plan(NamedTuple):
+    """One launch of the attention kernel: ``config`` indexes ``CONFIGS``,
+    ``heads`` query heads of one KV head share a block's staged K/V tile,
+    ``positions`` q positions a block (rows = heads x positions); the grid
+    is (B * H / heads, q tiles), its y walked from the last q tile (the
+    most keys under a causal mask) to the first."""
+    config: int
+    heads: int
+    positions: int
+    grid: Tuple[int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def plan_with(config: int, heads: int, B: int, Sq: int, H: int) -> Plan:
+    """The launch of configuration ``config`` with ``heads`` query heads a
+    block."""
+    pos = CONFIGS[config][0] // heads
+    return Plan(config, heads, pos, (B * H // heads, -(-Sq // pos)))
+
+
+def attention_plan(B: int, Sq: int, H: int, KV: int,
+                   sms: int = 132) -> Plan:
+    """The tiles of one kernel launch: the largest configuration whose
+    blocks occupy every one of the ``sms`` SMs, else the smallest (the
+    most blocks).  A block serves the largest of 4, 2, 1 query heads that
+    divides H / KV."""
+    G = H // KV
+    heads = 4 if G % 4 == 0 else 2 if G % 2 == 0 else 1
+    for i in range(len(CONFIGS)):
+        plan = plan_with(i, heads, B, Sq, H)
+        if plan.blocks >= sms or i == len(CONFIGS) - 1:
+            return plan
+    raise AssertionError("unreachable")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention_pallas(q: Tensor, k: Tensor, v: Tensor, *,
@@ -243,10 +292,11 @@ def flash_attention_pallas(q: Tensor, k: Tensor, v: Tensor, *,
     dispatch routes a per-row ``kv_len`` to the ``ff`` tier).
 
     On a CUDA tensor: the CUDA kernel, which raises if it cannot launch
-    (f32 or bf16 operands of one dtype, contiguous, hd <= 64).  Its tiles
-    are fixed (16 q rows x 64 keys); ``block_q``/``block_kv`` shape only
-    the plain version.  On a CPU tensor: the plain version,
-    :func:`flash_attention_ff`."""
+    (f32 or bf16 operands of one dtype, contiguous, hd <= 64, at most
+    ``KERNEL_MAX_Q_TILES`` q tiles).  Its tiles are its own
+    (:func:`attention_plan`: 64-key K/V tiles, 64 or 16 rows a block);
+    ``block_q``/``block_kv`` shape only the plain version.  On a CPU
+    tensor: the plain version, :func:`flash_attention_ff`."""
     if q.device.type == "cpu":
         return flash_attention_ff(q, k, v, causal=causal, block_q=block_q,
                                   block_kv=block_kv, q_offset=q_offset,
@@ -268,10 +318,15 @@ def flash_attention_pallas(q: Tensor, k: Tensor, v: Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention kernel takes contiguous q, k, v")
-    if hd > KERNEL_MAX_HEAD_DIM or B * H > KERNEL_MAX_BATCH_HEADS:
+    plan = attention_plan(B, Sq, H, KV, _sms(q.device.index
+                                             if q.device.index is not None
+                                             else torch.cuda.current_device()))
+    if hd > KERNEL_MAX_HEAD_DIM or plan.grid[1] > KERNEL_MAX_Q_TILES \
+            or plan.grid[0] >= 2 ** 31:
         raise ValueError(f"attention kernel takes head_dim <= "
-                         f"{KERNEL_MAX_HEAD_DIM} and B*H <= "
-                         f"{KERNEL_MAX_BATCH_HEADS}, got {hd}, {B * H}")
+                         f"{KERNEL_MAX_HEAD_DIM}, at most "
+                         f"{KERNEL_MAX_Q_TILES} q tiles and < 2^31 head "
+                         f"groups, got {hd}, grid {plan.grid}")
     oh = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
     ol = torch.empty_like(oh)
     with torch.cuda.device(q.device):
@@ -279,14 +334,17 @@ def flash_attention_pallas(q: Tensor, k: Tensor, v: Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), oh.data_ptr(),
             ol.data_ptr(), int(q.dtype == torch.bfloat16), B, Sq, Skv, H,
             KV, hd, int(causal), int(q_offset), _resolve_scale(scale, hd),
+            plan.config, plan.heads.bit_length() - 1,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"ff_attention kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention_pallas.launches += 1
+    flash_attention_pallas.last_plan = plan
     if return_ff:
         return FF(oh, ol)
     return oh.to(q.dtype)
 
 
 flash_attention_pallas.launches = 0   # kernel launches since the last reset
+flash_attention_pallas.last_plan = None   # the last launch's Plan
