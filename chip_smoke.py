@@ -91,7 +91,13 @@ Phases (any failed check raises, so the script exits non-zero):
      float above it, ``|hi|`` below 2^-102); ``guard_probe`` with the
      kernel and the jnp impl giving equal counts; the ``ff.add`` /
      ``sub`` / ``mul`` gradients of the kernel tier bit for bit the plain
-     tier's; ``ff.fused`` raising on a gradient-requiring operand;
+     tier's; ``ff.fused`` raising on a gradient-requiring operand; the
+     gradients of ``div``, ``sqrt``, ``two_sum``, ``two_prod``,
+     ``softmax`` (accurate; the fast one within 4 ulps), ``norm_stats``
+     and the ten ``ff.math`` functions on their branch inputs, kernel
+     tier bit for bit the plain tier's (the ``ff_math`` launches of the
+     backward counted); the ``f64`` attention tier within 2^-40 of
+     float64 at the prefill's and the training step's shapes;
   7. serving: a reduced granite-3-2b engine on the card against the same
      engine on the CPU (plain versions), also under ``guard="degrade"``
      with an ``oob``, a ``free`` and a ``dup`` block-table flip (the same
@@ -113,15 +119,20 @@ Phases (any failed check raises, so the script exits non-zero):
      device-busy share;
   8. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
-     the sequence-chunked loss; then, with the serving engine freed,
+     the sequence-chunked loss, each also under ``ff_math`` with
+     ``ff.use(silu="pallas")``; then, with the serving engine freed,
      granite-3-2b at full width (random weights from a seed) trained 4
      steps on ``SyntheticLM`` batches of 4 x 128 tokens and one step on
      2 x 1024 tokens (longer than ``loss_chunk``: the chunked loss) with
      FF-master-weight AdamW under ``policy("ff_reduce",
      attention="pallas")``, with the kernels' launch counts read around
-     those steps; then one more step under ``torch.profiler``; the serving
-     and training runs launch none of the fused-composite kernels, nor
-     (but for the ``ff_math`` run) this slice's;
+     those steps; then one more step under ``torch.profiler``; then 3
+     steps under ``ff_math`` with ``ff.use(silu="pallas")`` on the same
+     weights and optimizer state, ``ff_math`` launched 3 times a layer
+     (the forward, remat's recompute, the backward's ``sigmoid22``), the
+     launch counts read around them, and one more under the profiler; the serving and training runs launch
+     none of the fused-composite kernels, nor (but for the ``ff_math``
+     runs) this slice's;
   9. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound (FF
      attention at the prefill, training and long-step shapes); the
@@ -176,6 +187,8 @@ ADAMW_BYTES = 9 * 4              # g, m, v, w, wlo read; w, wlo, m, v written
 ADAMW_SCALARS = (1e-3, 0.9, 0.95, 0.1, 0.05)   # lr, b1, b2, bc1, bc2
 ADAMW_EPS, ADAMW_WD = 1e-8, 0.1
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 128
+FF_MATH_TRAIN_STEPS = 3                  # full width under ff_math (+ 1
+                                         # profiled)
 LONG_BATCH, LONG_SEQ = 2, 1024           # S > loss_chunk: the chunked loss
 ADAMW_SLICE = 2048 * 8192                # one layer of w_gate
 # card against CPU, f32 compute: the summation orders of the matrix
@@ -2442,21 +2455,21 @@ def guard_operands(torch, g, shape):
     return hi, lo
 
 
-def grad_bits(torch, ff, op, impl, a, b, w):
+def grad_bits(torch, ff, op, impl, args, w):
     """The gradient limbs of ``(r.hi * w[0] + r.lo * w[1]).sum()`` for
-    ``r = ff.<op>(a, b, impl=impl)``; a and b are f32 tensors or (hi, lo)
-    pairs, fresh leaves each call."""
+    ``r = ff.<op>(*args, impl=impl)``; each arg an f32 tensor or a (hi,
+    lo) pair, fresh leaves each call."""
     from repro_torch.core.ff import FF
-    leaves, args = [], []
-    for x in (a, b):
+    leaves, xs = [], []
+    for x in args:
         if isinstance(x, tuple):
             ls = [t.detach().clone().requires_grad_() for t in x]
-            args.append(FF(*ls))
+            xs.append(FF(*ls))
         else:
             ls = [x.detach().clone().requires_grad_()]
-            args.append(ls[0])
+            xs.append(ls[0])
         leaves += ls
-    r = getattr(ff, op)(*args, impl=impl)
+    r = getattr(ff, op)(*xs, impl=impl)
     (r.hi * w[0] + r.lo * w[1]).sum().backward()
     return [t.grad for t in leaves]
 
@@ -2511,7 +2524,7 @@ def phase_guard_checks(torch, cfg):
             grads = {}
             for impl in ("jnp", "pallas"):
                 n0 = ew.elementwise.launches
-                grads[impl] = grad_bits(torch, ff, op, impl, x, y, w)
+                grads[impl] = grad_bits(torch, ff, op, impl, (x, y), w)
                 n = ew.elementwise.launches - n0
                 if n != (impl == "pallas"):
                     raise AssertionError(f"{op} grad ({impl}): {n} "
@@ -2526,7 +2539,7 @@ def phase_guard_checks(torch, cfg):
                      ("mul", lambda bb: 2.0 * bb)):
         for impl in ("jnp", "pallas"):
             ones = [torch.ones_like(ah), torch.ones_like(ah)]
-            d_hi, d_lo, _ = grad_bits(torch, ff, op, impl, a, bh, ones)
+            d_hi, d_lo, _ = grad_bits(torch, ff, op, impl, (a, bh), ones)
             if not (torch.equal(d_hi, want(bh)) and not d_lo.any()):
                 raise AssertionError(f"{op} ({impl}): d/d a = ({d_hi}, "
                                      f"{d_lo}), want (2{'b' * (op == 'mul')},"
@@ -2545,6 +2558,175 @@ def phase_guard_checks(torch, cfg):
     del a, b, ah, bh, w
     torch.cuda.synchronize()
     return 0.0
+
+
+# the FF functions a kernel-tier backward runs through the ff_math kernel
+# (autodiff.MATH_BWD; the rest of each rule is plain FF products): sigmoid22
+# for silu, exp22 for erf, erf22 and exp22 for gelu, log22 for pow
+MATH_BWD_LAUNCHES = {"silu": 1, "erf": 1, "gelu": 2, "pow": 1}
+# the f64 attention tier's shapes (B, S): the prefill and the training step
+F64_ATTENTION_SHAPES = ((1, 64), (4, 128))
+
+
+def grads_equal(torch, name, got, want):
+    torch.cuda.synchronize()
+    for i, (p, q) in enumerate(zip(got, want)):
+        if not (p.shape == q.shape and same_nan(p, q)):
+            raise AssertionError(f"{name}: kernel tier != plain tier in "
+                                 f"gradient plane {i}")
+
+
+def phase_grad_checks(torch, cfg):
+    """The gradients of the ops whose backward the port gained, kernel tier
+    against plain tier on the card, bit for bit: ``div``, ``sqrt``,
+    ``two_sum``, ``two_prod`` (``impl="pallas"``: one ``ff_elementwise``
+    launch a forward, the backward's Div22 / Mul22 / Mul212 plain) against
+    ``impl="jnp"``, FF and f32 operands, full and broadcast; ``softmax``
+    (accurate) and ``norm_stats`` through their kernels against the same
+    Function over the kernels' plain versions (the fast softmax, whose
+    forward is within 1 ulp of its plain version, within 4 ulps of
+    max |g| |y| a row); the ten ``ff.math`` functions on
+    ``math_branch_inputs``, FF and f32 operands: ``impl="pallas"`` (the
+    forward and the backward's FF functions through the ``ff_math``
+    kernel, its launches counted) against ``impl="jnp"``.  Then the
+    ``f64`` attention tier at granite-3-2b's heads within 2^-40 of a
+    float64 oracle at the prefill's and the training step's shapes, and
+    its gradient (the fast recurrence's) finite."""
+    import repro_torch.ff as ff
+    from repro_torch.benchmarks import attention_variants as av
+    from repro_torch.ff import autodiff
+    from repro_torch.kernels import ff_elementwise as ew
+    from repro_torch.kernels import ff_fused
+    from repro_torch.kernels import ff_math as km
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    R, C = 512, 2048
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    ah, bh = randn(R, C), randn(R, C)
+    a = (ah, ah * 2.0 ** -25 * torch.rand((R, C), generator=g,
+                                          device="cuda"))
+    b = (bh, bh * 2.0 ** -25 * torch.rand((R, C), generator=g,
+                                          device="cuda"))
+    w = [randn(R, C), randn(R, C)]
+    forms = {"div": ((a, b), (a, bh), (ah, b), (a, (b[0][0], b[1][0])),
+                     (ah[:, :1], b)),
+             "sqrt": (((a[0].abs(), a[1].abs()),), (ah.abs(),)),
+             "two_sum": ((ah, bh), (ah, bh[0]), (ah[:, :1], bh)),
+             "two_prod": ((ah, bh), (ah, bh[0]), (ah[:, :1], bh))}
+    n_cases = 0
+    for op, cases in forms.items():
+        for args in cases:
+            grads = {}
+            for impl in ("jnp", "pallas"):
+                n0 = ew.elementwise.launches
+                grads[impl] = grad_bits(torch, ff, op, impl, args, w)
+                if ew.elementwise.launches - n0 != (impl == "pallas"):
+                    raise AssertionError(f"{op} grad ({impl}): "
+                                         f"{ew.elementwise.launches - n0} "
+                                         f"elementwise launches")
+            grads_equal(torch, f"{op} grad", grads["pallas"], grads["jnp"])
+            n_cases += 1
+    log(f"div/sqrt/two_sum/two_prod gradients: kernel tier == plain tier "
+        f"bit for bit in {n_cases} cases (FF and f32 operands, full and "
+        f"broadcast, {(R, C)})")
+    del a, b, ah, bh
+
+    x = randn(R, C) * 3.0
+    wx = randn(R, C)
+    line = []
+    for impl, accurate in (("ff", True), ("pallas", False)):
+        n0 = ff_fused.ff_softmax.launches
+        xk = x.clone().requires_grad_()
+        y = ff.softmax(xk, impl=impl)
+        (y * wx).sum().backward()
+        if ff_fused.ff_softmax.launches - n0 != 1:
+            raise AssertionError(f"softmax grad ({impl}): not one launch")
+        xp = x.clone().requires_grad_()
+        yp = autodiff.Softmax.apply(
+            xp, lambda t, axis, acc=accurate: ff_fused.ff_softmax_plain(
+                t, "softmax", acc), -1)
+        (yp * wx).sum().backward()
+        y, yp = y.detach(), yp.detach()
+        torch.cuda.synchronize()
+        if accurate:
+            grads_equal(torch, "softmax (accurate) grad", [xk.grad],
+                        [xp.grad])
+            line.append("accurate bit for bit")
+        else:
+            scale = (wx.abs() * yp).amax(-1, keepdim=True) \
+                + wx.abs().amax(-1, keepdim=True) * yp
+            d = (xk.grad - xp.grad).abs()
+            u = float((d / (scale * 2.0 ** -24)).max())
+            if not u <= 4:
+                raise AssertionError(f"softmax (fast) grad: {u:.2f} ulps of "
+                                     f"max |g| |y| from the plain version's")
+            line.append(f"fast {u:.2f} ulps of max |g| |y| "
+                        f"({'bit for bit' if not d.any() else 'not bitwise'};"
+                        f" forward {ulp_diff(y, yp)} ulp)")
+    xn = randn(R, C) * 2.0 + 1.0
+    wm, wv = randn(R), randn(R)
+    n0 = ff_fused.ff_norm_stats.launches
+    xk = xn.clone().requires_grad_()
+    mu, var = ff.norm_stats(xk, impl="pallas")
+    (mu * wm + var * wv).sum().backward()
+    xp = xn.clone().requires_grad_()
+    mu, var = autodiff.NormStats.apply(xp, ff_fused.ff_norm_stats_plain)
+    (mu * wm + var * wv).sum().backward()
+    if ff_fused.ff_norm_stats.launches - n0 != 1:
+        raise AssertionError("norm_stats grad: not one launch")
+    grads_equal(torch, "norm_stats grad", [xk.grad], [xp.grad])
+    log(f"softmax gradient, kernel vs plain version {(R, C)}: "
+        f"{'; '.join(line)}; norm_stats gradient bit for bit")
+    del x, wx, xn, xk, xp
+
+    counts = {}
+    for op in km.MATH_OPS:
+        planes = math_branch_inputs(torch, op, g)
+        wm = [torch.randn(planes[0].shape, generator=g, device="cuda")
+              for _ in range(2)]
+        forms = ([(planes[0], planes[1]), (planes[2], planes[3])],
+                 [planes[0], planes[2]]) if op == "pow" else \
+            ([(planes[0], planes[1])], [planes[0]])
+        for args in forms:
+            grads = {}
+            for impl in ("jnp", "pallas"):
+                n0 = km.math_elementwise.launches
+                grads[impl] = grad_bits(torch, ff, op, impl, args, wm)
+                n = km.math_elementwise.launches - n0
+                want = (1 + MATH_BWD_LAUNCHES.get(op, 0)) \
+                    if impl == "pallas" else 0
+                if n != want:
+                    raise AssertionError(f"{op} grad ({impl}): {n} ff_math "
+                                         f"launches, want {want}")
+            grads_equal(torch, f"{op} grad", grads["pallas"], grads["jnp"])
+        counts[op] = planes[0].numel()
+    log(f"ff.math gradients: kernel tier == plain tier bit for bit, FF and "
+        f"f32 operands, on the branch inputs (elements {counts}); "
+        f"ff_math launches a forward and backward: 1 + {MATH_BWD_LAUNCHES}")
+
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    errs = []
+    for B, S in F64_ATTENTION_SHAPES:
+        q = randn(B, S, H, hd).bfloat16()
+        k, v = randn(B, S, KV, hd).bfloat16(), randn(B, S, KV, hd).bfloat16()
+        got = ff.attention(q, k, v, impl="f64", return_ff=True)
+        e = av.rel_err(av.ff64(got), av.oracle(q, k, v, causal=True))
+        errs.append(e)
+        if not e <= 2.0 ** -40:
+            raise AssertionError(f"f64 attention {(B, S)}: {e:.3e} > 2^-40 "
+                                 f"of float64")
+        qg = q.clone().requires_grad_()
+        ff.attention(qg, k, v, impl="f64").float().sum().backward()
+        if not bool(torch.isfinite(qg.grad).all()):
+            raise AssertionError(f"f64 attention {(B, S)}: gradient not "
+                                 f"finite")
+    log(f"f64 attention tier, causal bf16, {H} heads / {KV} KV, hd {hd}: "
+        + ", ".join(f"{shape} 2^{math.log2(max(e, 1e-300)):.1f}"
+                    for shape, e in zip(F64_ATTENTION_SHAPES, errs))
+        + " of float64 (<= 2^-40); gradients finite")
+    torch.cuda.synchronize()
 
 
 def flip_block_table(kv, slot, mode, rng):
@@ -3003,7 +3185,11 @@ def phase_small_train(torch):
     """A reduced granite model (f32 compute) trained 2 steps on the card
     against the same steps on the CPU, where every kernel is its plain
     version: with the whole loss (S = 32), and with remat and the chunked
-    loss over a padded last chunk (S = 40, ``loss_chunk`` 24)."""
+    loss over a padded last chunk (S = 40, ``loss_chunk`` 24); each under
+    ``policy("ff_reduce", attention="pallas")`` and under it with
+    ``ff_math=True`` and ``ff.use(silu="pallas")``, where the card's step
+    launches ``ff_math`` once a layer in the forward, once more in remat's
+    recompute and once in the backward (``sigmoid22``)."""
     import repro_torch.ff as ff
     from repro_torch.configs.granite_3_2b import CONFIG
     from repro_torch.models import init_params
@@ -3012,26 +3198,40 @@ def phase_small_train(torch):
     for seq, extra in ((32, {}), (40, dict(loss_chunk=24, remat=True))):
         cfg = CONFIG.reduced(compute_dtype="float32", **extra)
         params = init_params(cfg, torch.Generator().manual_seed(SEED))
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            p = to_device(params, dev)
-            opt = AdamW(learning_rate=cosine_schedule(3e-4, 10, 2))
-            state = opt.init(p)
-            with ff.policy("ff_reduce", attention="pallas"):
-                step = make_train_step(cfg, None, opt)
-            runs[dev] = []
-            for batch in train_batches(cfg.vocab_size, seq, 4, 2, dev):
-                p, state, m = step(p, state, batch)
-                runs[dev].append((float(m["loss"]), float(m["grad_norm"])))
-        for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
-            for name, x, y in zip(("loss", "grad norm"), a, b):
-                if not abs(x - y) <= SMALL_TRAIN_RTOL * abs(y):
-                    raise AssertionError(
-                        f"reduced training {extra} step {i}: {name} card "
-                        f"{x!r} vs CPU {y!r}")
-        log(f"reduced training (2 layers, f32, S={seq}, {extra}): card vs "
-            f"CPU (loss, grad norm) per step {runs['cuda']} vs "
-            f"{runs['cpu']}")
+        for ff_math in (False, True):
+            runs, n_math = {}, []
+            for dev in ("cuda", "cpu"):
+                p = to_device(params, dev)
+                opt = AdamW(learning_rate=cosine_schedule(3e-4, 10, 2))
+                state = opt.init(p)
+                with ff.policy("ff_reduce", attention="pallas",
+                               ff_math=ff_math):
+                    step = make_train_step(cfg, None, opt)
+                runs[dev] = []
+                with ff.use(**({"silu": "pallas"} if ff_math else {})):
+                    for batch in train_batches(cfg.vocab_size, seq, 4, 2,
+                                               dev):
+                        n0 = launch_counts()["ff_math"]
+                        p, state, m = step(p, state, batch)
+                        runs[dev].append((float(m["loss"]),
+                                          float(m["grad_norm"])))
+                        if dev == "cuda":
+                            n_math.append(launch_counts()["ff_math"] - n0)
+            want = cfg.num_layers * (3 if cfg.remat else 2) * ff_math
+            if n_math != [want] * len(n_math):
+                raise AssertionError(f"reduced training {extra} ff_math="
+                                     f"{ff_math}: ff_math launches "
+                                     f"{n_math} a step, want {want}")
+            for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+                for name, x, y in zip(("loss", "grad norm"), a, b):
+                    if not abs(x - y) <= SMALL_TRAIN_RTOL * abs(y):
+                        raise AssertionError(
+                            f"reduced training {extra} ff_math={ff_math} "
+                            f"step {i}: {name} card {x!r} vs CPU {y!r}")
+            log(f"reduced training (2 layers, f32, S={seq}, {extra}, "
+                f"ff_math={ff_math}): card vs CPU (loss, grad norm) per "
+                f"step {runs['cuda']} vs {runs['cpu']}; ff_math launches a "
+                f"step {n_math}")
 
 
 def phase_train(torch, card: str):
@@ -3165,6 +3365,88 @@ def phase_train(torch, card: str):
         for name, pol in (("ff_reduce", FF_REDUCE), ("baseline", BASELINE))}
     log(f"cross-entropy forward at ({TRAIN_BATCH}, {TRAIN_SEQ}, "
         f"{cfg.vocab_size}), host ms with sync: {json.dumps(loss_ms)}")
+    del logits
+    ff_math_launches = train_ff_math(
+        torch, cfg, opt, params, state, batches[:FF_MATH_TRAIN_STEPS + 1],
+        training["steady_step_ms"], peak_gb, card)
+    return launches, ff_math_launches
+
+
+def train_ff_math(torch, cfg, opt, params, state, batches, plain_ms,
+                  plain_peak_gb, card):
+    """FF_MATH_TRAIN_STEPS more steps of 4 x 128 tokens on the plain
+    steps' ``params`` and ``state`` (a second copy of the model and its FF
+    AdamW state would not fit beside them), from a step function built
+    under ``policy("ff_reduce", attention="pallas", ff_math=True)`` and
+    run under ``ff.use(silu="pallas")``: the FF silu gate in every layer.
+    Each step launches ``ff_math`` 3 times a layer (the forward, remat's
+    recompute, and ``sigmoid22`` in the gate's backward) and every other
+    kernel as the plain step does; finite loss and grad norm.  Then one
+    more step (the last batch) under ``torch.profiler``."""
+    import repro_torch.ff as ff
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.train_step import make_train_step
+    *batches, profiled_batch = batches
+    with ff.policy("ff_reduce", attention="pallas", ff_math=True), \
+            ff.use(silu="pallas"):
+        step = make_train_step(cfg, None, opt)
+    L, tokens = cfg.num_layers, TRAIN_BATCH * TRAIN_SEQ
+    if not cfg.remat:
+        raise AssertionError("granite-3-2b trains with remat")
+    want = {**{k: 0 for k in launch_fns()},
+            "mean_sq": 2 * L + 1 + 2 * L, "attention": 2 * L,
+            "adamw_update": n_leaves(params), "ff_math": 3 * L}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    prev, recs = launch_counts(), []
+    with ff.use(silu="pallas"):
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            now = launch_counts()
+            rec = {"step": i + 1, "loss": loss, "grad_norm": gnorm,
+                   "step_ms": dt * 1e3, "tokens_per_s": tokens / dt,
+                   "launches": {k: now[k] - prev[k] for k in now}}
+            prev = now
+            log(f"train step (ff_math, silu=pallas): {json.dumps(rec)}")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"ff_math training step {i + 1}: loss "
+                                     f"{loss}, grad norm {gnorm}")
+            if rec["launches"] != want:
+                raise AssertionError(f"ff_math training step {i + 1}: "
+                                     f"launches {rec['launches']} != {want}")
+            recs.append(rec)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            ff.use(silu="pallas"):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, profiled_batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_ops, busy = device_busy_us(prof)
+    steady = [r["step_ms"] for r in recs[1:]]
+    summary = {"steps": len(recs), "tokens_per_step": tokens,
+               "step_ms": [r["step_ms"] for r in recs],
+               "steady_step_ms": sum(steady) / len(steady),
+               "plain_steady_step_ms": plain_ms,
+               "peak_allocated_gb": peak_gb,
+               "plain_peak_allocated_gb": plain_peak_gb,
+               "ff_math_launches_per_step": want["ff_math"],
+               "profiled_step": {"device_ops": n_ops,
+                                 "device_busy_ms": busy / 1e3,
+                                 "step_wall_ms": wall * 1e3},
+               "card": card}
+    log(f"training under ff_math: {json.dumps(summary)}")
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    log("profiled ff_math training step, device time by kernel (name, "
+        "launches, ms): " + json.dumps([(e.key[:70], e.count,
+                                         e.device_time_total / 1e3)
+                                        for e in top[:12]]))
     return launches
 
 
@@ -3418,6 +3700,7 @@ def main() -> int:
     mark("operators and math")
     from repro_torch.configs.granite_3_2b import CONFIG
     guard_err = phase_guard_checks(torch, CONFIG)
+    phase_grad_checks(torch, CONFIG)
     gc.collect()
     torch.cuda.empty_cache()
     phase_small_engine(torch)
@@ -3437,7 +3720,7 @@ def main() -> int:
         f"GB still allocated")
     mark("serving")
     phase_small_train(torch)
-    train_launches = phase_train(torch, card)
+    train_launches, train_ff_math_launches = phase_train(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     mark("training")
@@ -3445,7 +3728,8 @@ def main() -> int:
                 "matmul": matmul_launches, "table": table_launches,
                 "tune": tune_launches, "default_calls": default_launches,
                 "serve_ff_math": ff_math_launches,
-                "serve_guard": guard_launches}
+                "serve_guard": guard_launches,
+                "train_ff_math": train_ff_math_launches}
     kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
                + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
                + fused_kernel_entries(launches, fused_worst, fused_rows)

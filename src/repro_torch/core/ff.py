@@ -38,8 +38,8 @@ class FF:
         """FF nearest a numpy float64 value: hi = fl32(x), lo =
         fl32(x - hi) (test and oracle convenience, on the host)."""
         x64 = np.asarray(x, np.float64)
-        hi = x64.astype(np.float32)
-        lo = (x64 - hi.astype(np.float64)).astype(np.float32)
+        hi = np.asarray(x64.astype(np.float32))
+        lo = np.asarray((x64 - hi.astype(np.float64)).astype(np.float32))
         return cls(torch.from_numpy(hi).to(device),
                    torch.from_numpy(lo).to(device))
 
@@ -75,6 +75,12 @@ def add12(a: Tensor, b: Tensor) -> FF:
     """Paper Theorem 2 (Knuth Add12): exact a+b as an FF."""
     s, r = T.two_sum(a, b)
     return FF(s, r)
+
+
+def mul12(a: Tensor, b: Tensor) -> FF:
+    """Paper Theorem 4 (Dekker Mul12): exact a*b as an FF."""
+    x, y = T.two_prod(a, b)
+    return FF(x, y)
 
 
 def add22(a: FF, b: FF) -> FF:
@@ -147,6 +153,11 @@ def sqrt22(a: FF) -> FF:
     return FF(rh, rl)
 
 
+def normalize(a: FF) -> FF:
+    """Re-establish |lo| <= ulp(hi)/2 (Fast2Sum renormalisation)."""
+    return FF(*T.fast_two_sum(a.hi, a.lo))
+
+
 def fma22(a: FF, b: FF, c: FF) -> FF:
     """a*b + c in FF (fused at the algorithm level: one renormalization)."""
     th, tl = T.two_prod(a.hi, b.hi)
@@ -160,3 +171,22 @@ def fma22(a: FF, b: FF, c: FF) -> FF:
 def to_f32(a: FF) -> Tensor:
     """The f32 rounding of an FF value: its hi limb."""
     return a.to_f32()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, FF):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_from_f32(tree):
+    """Each f32 leaf of a nested dict (list, tuple) as an FF with lo = 0."""
+    return _tree_map(FF.from_f32, tree)
+
+
+def tree_to_f32(tree):
+    """Each FF leaf of a nested dict (list, tuple) rounded to f32 (its hi
+    limb); other leaves pass through."""
+    return _tree_map(lambda x: x.to_f32() if isinstance(x, FF) else x, tree)

@@ -6,7 +6,9 @@ same bits.
   * ``two_sum``       — Add12 / Knuth TwoSum (branch-free, 6 flops).
   * ``fast_two_sum``  — Dekker Fast2Sum (3 flops, requires |a| >= |b|).
   * ``split``         — Dekker splitting at s=12 for p=24 (f32).
+  * ``split_safe``    — ``split`` with the overflow guard (|a| >= 2^115).
   * ``two_prod``      — Mul12 / Dekker product via ``split`` (no FMA).
+  * ``two_prod_safe`` — ``two_prod`` through ``split_safe``.
   * ``two_diff``      — TwoSum of a and -b.
   * ``pairwise_sum_compensated`` — a two_sum tree over one axis.
 
@@ -36,6 +38,9 @@ Operand = Union[Tensor, float]
 
 # Dekker split point for binary32: p = 24, s = 12  ->  2^s + 1.
 SPLIT_CONST = 4097.0
+# |a| above this can overflow split's (2^s + 1) * a (f32 max ~ 2^128):
+# ``split_safe`` rescales it
+SPLIT_OVERFLOW_THRESH = 2.0 ** 115
 
 
 def _f32(x: Operand) -> Operand:
@@ -78,17 +83,37 @@ def split(a: Tensor) -> Tuple[Tensor, Tensor]:
     return a_hi, a_lo
 
 
-def two_prod(a: Operand, b: Operand) -> Tuple[Tensor, Tensor]:
-    """Mul12 (Dekker, paper Theorem 4): x + y == a * b exactly."""
-    a, b = _tensor(_f32(a)), _tensor(_f32(b))
+def split_safe(a: Tensor) -> Tuple[Tensor, Tensor]:
+    """Overflow-guarded ``split``: |a| >= 2^115 is scaled by 2^-16 before
+    the split and its halves by 2^16 after (branch-free, a select)."""
+    a = _f32(a)
+    big = a.abs() >= SPLIT_OVERFLOW_THRESH
+    one = torch.ones_like(a)
+    scale_dn = torch.where(big, 2.0 ** -16, one)
+    scale_up = torch.where(big, 2.0 ** 16, one)
+    hi, lo = split(a * scale_dn)
+    return hi * scale_up, lo * scale_up
+
+
+def _two_prod_with(a: Tensor, b: Tensor, split_fn) -> Tuple[Tensor, Tensor]:
     x = a * b
-    a_hi, a_lo = split(a)
-    b_hi, b_lo = split(b)
+    a_hi, a_lo = split_fn(a)
+    b_hi, b_lo = split_fn(b)
     err1 = x - (a_hi * b_hi)
     err2 = err1 - (a_lo * b_hi)
     err3 = err2 - (a_hi * b_lo)
     y = (a_lo * b_lo) - err3
     return x, y
+
+
+def two_prod(a: Operand, b: Operand) -> Tuple[Tensor, Tensor]:
+    """Mul12 (Dekker, paper Theorem 4): x + y == a * b exactly."""
+    return _two_prod_with(_tensor(_f32(a)), _tensor(_f32(b)), split)
+
+
+def two_prod_safe(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """Mul12 through ``split_safe`` (for |a| or |b| near the f32 max)."""
+    return _two_prod_with(_tensor(_f32(a)), _tensor(_f32(b)), split_safe)
 
 
 def _tensor(x: Operand) -> Tensor:

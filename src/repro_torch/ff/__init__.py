@@ -7,6 +7,8 @@
     ff.mean_sq(x)                            # fused CUDA kernel on the card
     s = ff.sum(x)                            # compensated sum -> FF
     s = ff.sum(x, axis=-1, impl="pallas_rowsum")   # the row-sum kernel
+    m = ff.mean(x, axis=-1)                  # compensated mean -> FF
+    d = ff.dot(a, b)                         # TwoProd + Dot3 cascade -> FF
     z = ff.div(a, b, impl="pallas")          # Div22, one CUDA kernel
     y = ff.silu(x)                           # FF elementary function
     ff.tune("silu", shapes=[(512, 8192)])    # time the impls, cache winners
@@ -24,22 +26,23 @@
         y = ff.log(x)
     ff.guard_probe(x, impl="pallas")         # GuardCounts, one CUDA kernel
 
-``add``, ``sub``, ``mul``, ``sum``, ``logsumexp``, ``mean_sq``, ``matmul``
-and ``attention`` carry their reference gradients
-(:mod:`repro_torch.ff.autodiff`); ``softmax``, ``norm_stats``, ``div``,
-``sqrt``, ``two_sum``, ``two_prod``, the ``ff.math`` functions and
-``fused`` are forward only and raise on an input that requires a
-gradient.
+Every op the reference differentiates carries its reference gradient
+(:mod:`repro_torch.ff.autodiff`): ``add``, ``sub``, ``mul``, ``div``,
+``sqrt``, ``two_sum``, ``two_prod``, ``sum``, ``mean``, ``dot``,
+``logsumexp``, ``softmax``, ``mean_sq``, ``norm_stats``, ``matmul``,
+``attention`` (``kv_len`` too) and the ten ``ff.math`` functions.
+``adamw_update`` (an optimizer step) and ``fused`` carry none; ``fused``
+raises on an input that requires a gradient.
 """
 
-from repro_torch.core.ff import FF
+from repro_torch.core.ff import FF, normalize, tree_from_f32, tree_to_f32
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.ff import fusion, math, tuning
 from repro_torch.ff.dispatch import (adamw_update, add, attention, div,
-                                     impls, logsumexp, matmul, mean_sq, mul,
-                                     norm_stats, ops, resolve_name,
-                                     resolve_opts, softmax, sqrt, sub, sum,
-                                     two_prod, two_sum)
+                                     dot, impls, logsumexp, matmul, mean,
+                                     mean_sq, mul, norm_stats, ops,
+                                     resolve_name, resolve_opts, softmax,
+                                     sqrt, sub, sum, two_prod, two_sum)
 from repro_torch.ff.fusion import fused
 from repro_torch.ff.guard import (FFError, FFGuardWarning, FFNonFiniteError,
                                   FFNormalizationError, FFResourceError,
@@ -61,10 +64,10 @@ __all__ = ["FF", "FFError", "FFGuardWarning", "FFNonFiniteError",
            "FFNormalizationError", "FFResourceError", "FFTuneWarning",
            "GuardCounts", "PrecisionPolicy", "adamw_update", "add",
            "assert_healthy", "attention", "current_guard", "current_policy",
-           "div", "erf", "exp", "expm1", "fused", "fusion", "gelu", "guard",
-           "guard_probe", "health_mask", "impls", "log",
-           "log1p", "logsumexp", "math", "matmul", "mean_sq", "mul",
-           "norm_stats", "ops", "policy", "pow", "resolve_name",
+           "div", "dot", "erf", "exp", "expm1", "fused", "fusion", "gelu",
+           "guard", "guard_probe", "health_mask", "impls", "log",
+           "log1p", "logsumexp", "math", "matmul", "mean", "mean_sq", "mul",
+           "normalize", "norm_stats", "ops", "policy", "pow", "resolve_name",
            "resolve_opts", "resolve_policy", "sigmoid", "silu", "softmax",
-           "sqrt", "sub", "sum", "tanh", "to_f32", "tune", "tuning",
-           "two_prod", "two_sum", "use"]
+           "sqrt", "sub", "sum", "tanh", "to_f32", "tree_from_f32",
+           "tree_to_f32", "tune", "tuning", "two_prod", "two_sum", "use"]

@@ -33,9 +33,10 @@ as ``"tpu"`` is the reference's.  The ``f64`` tiers are real device tiers
 default lands on them (``jnp`` stays the CPU default).
 
 The public calls route through the ``torch.autograd.Function``s of
-:mod:`repro_torch.ff.autodiff` when an input requires a gradient
-(``softmax``, ``norm_stats``, ``div``, ``sqrt``, ``two_sum``,
-``two_prod`` and the ``ff.math`` functions have none yet and raise).
+:mod:`repro_torch.ff.autodiff` when an input requires a gradient, and
+run the resolved implementation directly otherwise: every op the
+reference differentiates is differentiable here, with its closed form
+(``adamw_update`` and ``ff.fused`` carry no gradient, as there).
 """
 
 from __future__ import annotations
@@ -299,6 +300,24 @@ register("sum", "cascade", _sum_cascade)
 register("sum", "pallas_rowsum", _sum_pallas_rowsum)
 
 
+# -- mean, dot: the compensated mean and dot product ---------------------------
+
+def _dot_jnp(a: Tensor, b: Tensor, axis=None, **_kw) -> FF:
+    return compensated.ff_dot(a, b, axis=axis)
+
+
+def _mean_jnp(x: Tensor, axis=None, *, block: int = 128, **_kw) -> FF:
+    """The blocked compensated sum over n in FF (Div22 by n as FF, exact
+    to 2^48: an f32-rounded 1/n would cap the mean at ~2^-24)."""
+    s = compensated.ff_sum_blocked(x, axis=axis, block=block)
+    return core_ff.div22(s, FF.from_f64(float(compensated.axis_size(
+        x, axis)), device=x.device))
+
+
+register("dot", "jnp", _dot_jnp, default_for=("*",))
+register("mean", "jnp", _mean_jnp, default_for=("*",))
+
+
 # -- mean_sq: the RMSNorm statistic ------------------------------------------
 
 register("mean_sq", "jnp", ff_fused.mean_sq_plain, default_for=("*",))
@@ -548,10 +567,31 @@ def _attention_pallas(q, k, v, *, block=128, **kw):
     return ff_attention.flash_attention_pallas(q, k, v, **kw)
 
 
+# the f64 tier's size guard: B H Sq Skv scores materialised at most
+ATTENTION_F64_MAX_SCORES = 1 << 24
+
+
+def _attention_f64(q, k, v, *, causal=True, q_offset=0, kv_len=None,
+                   scale=None, return_ff=False, **_kw):
+    """Float64 attention on the device (``ff_attention.attention_f64``,
+    the (Sq, Skv) score plane materialised) up to
+    ``ATTENTION_F64_MAX_SCORES``; past that size guard the ``ff`` tier,
+    with a warning, as in the reference."""
+    B, Sq, H = q.shape[0], q.shape[1], q.shape[2]
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, scale=scale,
+              return_ff=return_ff)
+    if B * H * Sq * k.shape[1] <= ATTENTION_F64_MAX_SCORES:
+        return ff_attention.attention_f64(q, k, v, **kw)
+    _fallback_warn("f64", "attention",
+                   "materialized f64 score plane exceeds the size guard")
+    return ff_attention.flash_attention_ff(q, k, v, **kw)
+
+
 register("attention", "fast", ff_attention.flash_attention_fast,
          default_for=("*",))
 register("attention", "ff", ff_attention.flash_attention_ff)
 register("attention", "pallas", _attention_pallas)
+register("attention", "f64", _attention_f64)
 
 
 # -- the FF elementary functions (ff.math) ------------------------------------
@@ -687,8 +727,10 @@ def _resolved(op: str, impl: Optional[str], device, opts: dict,
     """The implementation of ``op`` a call on ``device`` (tuning bucket
     ``shape``) runs, with the call's options bound over the tuned ones."""
     name = resolve_name(op, impl, device, shape)
-    return functools.partial(lookup(op, name), **autodiff.merge_tuned(
+    fn = functools.partial(lookup(op, name), **autodiff.merge_tuned(
         op, name, shape, opts, device))
+    fn.impl = name                  # the resolved name (ff.math's tier)
+    return fn
 
 
 def _limbs(x):
@@ -704,13 +746,6 @@ def _ew_call(op: str, impl: Optional[str], opts: dict, *xs):
     shape = autodiff.bucket2d(torch.broadcast_shapes(
         *(x.shape for x in xs)))
     return _resolved(op, impl, dev, opts, shape), xs
-
-
-def _forward_only(op: str, *xs) -> None:
-    if autodiff.needs_grad(*(t for x in xs for t in _limbs(x))):
-        raise NotImplementedError(
-            f"the gradient of ff.{op} is not ported yet (ROADMAP, queue "
-            f"item 2): call it on a tensor that needs no gradient")
 
 
 def _binary(grad_fn, fn: Callable, a, b) -> FF:
@@ -742,40 +777,44 @@ def mul(a, b, *, impl: Optional[str] = None, **opts) -> FF:
 
 
 def div(a, b, *, impl: Optional[str] = None, **opts) -> FF:
-    """FF division (Dekker quotient + one correction).  Forward only."""
+    """FF division (Dekker quotient + one correction).  Accepts FF or f32
+    operands; differentiable (``autodiff.Div``)."""
     fn, (a, b) = _ew_call("div", impl, opts, a, b)
-    _forward_only("div", a, b)
-    return fn(a, b)
+    return _binary(autodiff.Div, fn, a, b)
 
 
 def sqrt(a, *, impl: Optional[str] = None, **opts) -> FF:
     """FF square root (correctly rounded f32 root + one Newton
-    correction).  Forward only."""
+    correction); differentiable (``autodiff.Sqrt``)."""
     fn, (a,) = _ew_call("sqrt", impl, opts, a)
-    _forward_only("sqrt", a)
-    return fn(a)
+    if not autodiff.needs_grad(*_limbs(a)):
+        return fn(a)
+    return FF(*autodiff.Sqrt.apply(*autodiff.limb_pair(a), fn))
+
+
+def _eft(op: str, grad_fn, impl: Optional[str], opts: dict, a, b) -> FF:
+    """An EFT of two f32 tensors, through ``grad_fn`` (the operands
+    broadcast outside it) when one needs a gradient."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    b = torch.as_tensor(b, dtype=torch.float32)
+    dev = ff_elementwise.operand_device([a, b])
+    fn = functools.partial(lookup(op, resolve_name(op, impl, dev)), **opts)
+    if not autodiff.needs_grad(a, b):
+        return fn(a, b)
+    a, _, b, _ = autodiff.broadcast2(a, b)
+    return FF(*grad_fn.apply(a, b, fn))
 
 
 def two_sum(a, b, *, impl: Optional[str] = None, **opts) -> FF:
-    """Exact a + b of two f32 tensors as FF (paper Theorem 2).  Forward
-    only."""
-    a = torch.as_tensor(a, dtype=torch.float32)
-    b = torch.as_tensor(b, dtype=torch.float32)
-    _forward_only("two_sum", a, b)
-    dev = ff_elementwise.operand_device([a, b])
-    return functools.partial(lookup("two_sum", resolve_name(
-        "two_sum", impl, dev)), **opts)(a, b)
+    """Exact a + b of two f32 tensors as FF (paper Theorem 2);
+    differentiable (``autodiff.TwoSum``)."""
+    return _eft("two_sum", autodiff.TwoSum, impl, opts, a, b)
 
 
 def two_prod(a, b, *, impl: Optional[str] = None, **opts) -> FF:
     """Exact a * b of two f32 tensors as FF (paper Theorem 4, Dekker's
-    split).  Forward only."""
-    a = torch.as_tensor(a, dtype=torch.float32)
-    b = torch.as_tensor(b, dtype=torch.float32)
-    _forward_only("two_prod", a, b)
-    dev = ff_elementwise.operand_device([a, b])
-    return functools.partial(lookup("two_prod", resolve_name(
-        "two_prod", impl, dev)), **opts)(a, b)
+    split); differentiable (``autodiff.TwoProd``)."""
+    return _eft("two_prod", autodiff.TwoProd, impl, opts, a, b)
 
 
 def sum(x: Tensor, axis=None, *, impl: Optional[str] = None,
@@ -786,6 +825,30 @@ def sum(x: Tensor, axis=None, *, impl: Optional[str] = None,
     if autodiff.needs_grad(x):
         return FF(*autodiff.Sum.apply(x, fn, axis))
     return fn(x, axis=axis)
+
+
+def mean(x: Tensor, axis=None, *, impl: Optional[str] = None,
+         **opts) -> FF:
+    """Compensated mean of an f32 tensor -> FF (the blocked sum over n,
+    Div22); differentiable (``autodiff.Mean``)."""
+    x = torch.as_tensor(x).to(torch.float32)
+    fn = _resolved("mean", impl, x.device, opts)
+    if autodiff.needs_grad(x):
+        return FF(*autodiff.Mean.apply(x, fn, axis))
+    return fn(x, axis=axis)
+
+
+def dot(a: Tensor, b: Tensor, axis=None, *, impl: Optional[str] = None,
+        **opts) -> FF:
+    """Compensated dot product of two f32 tensors of one shape over
+    ``axis`` (all axes by default) -> FF (TwoProd products, Dot3-quality
+    cascade); differentiable (``autodiff.Dot``)."""
+    a = torch.as_tensor(a).to(torch.float32)
+    b = torch.as_tensor(b).to(torch.float32)
+    fn = _resolved("dot", impl, a.device, opts)
+    if autodiff.needs_grad(a, b):
+        return FF(*autodiff.Dot.apply(a, b, fn, axis))
+    return fn(a, b, axis=axis)
 
 
 def mean_sq(x: Tensor, *, impl: Optional[str] = None, **opts) -> Tensor:
@@ -815,20 +878,26 @@ def softmax(x: Tensor, axis: int = -1, *, impl: Optional[str] = None,
             **opts) -> Tensor:
     """Compensated softmax -> f32: one kernel on the card for rows up to
     ``MAX_FUSED_COLS`` (longer rows take the jnp impl, with a warning).
-    Forward only."""
+    Differentiable (``autodiff.Softmax``)."""
     x = x.to(torch.float32)
-    _forward_only("softmax", x)
-    return _resolved("softmax", impl, x.device, opts,
-                     autodiff.bucket2d(x.shape))(x, axis=axis % x.ndim)
+    fn = _resolved("softmax", impl, x.device, opts,
+                   autodiff.bucket2d(x.shape))
+    axis = axis % x.ndim
+    if autodiff.needs_grad(x):
+        return autodiff.Softmax.apply(x, fn, axis)
+    return fn(x, axis=axis)
 
 
 def norm_stats(x: Tensor, *, impl: Optional[str] = None, **opts):
     """Compensated LayerNorm statistics over the last axis -> (mean, var),
-    both f32: one kernel on the card, reading x once.  Forward only."""
+    both f32: one kernel on the card, reading x once.  Differentiable
+    (``autodiff.NormStats``)."""
     x = x.to(torch.float32)
-    _forward_only("norm_stats", x)
-    return _resolved("norm_stats", impl, x.device, opts,
-                     autodiff.bucket2d(x.shape))(x)
+    fn = _resolved("norm_stats", impl, x.device, opts,
+                   autodiff.bucket2d(x.shape))
+    if autodiff.needs_grad(x):
+        return autodiff.NormStats.apply(x, fn)
+    return fn(x)
 
 
 def adamw_update(g: Tensor, m: Tensor, v: Tensor, w: Tensor, wlo: Tensor,
@@ -886,7 +955,9 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H = KV * G (GQA).
     ``kv_len``: optional (B,) per-row valid-key counts (ragged serving
-    batches).  ``return_ff=True`` returns the FF limb pair."""
+    batches).  ``return_ff=True`` returns the FF limb pair.  The accurate
+    tiers (``ff``, ``pallas``, ``f64``) back-propagate through the fast
+    recurrence (``autodiff.Attention``), with ``kv_len`` too."""
     bshape = autodiff.bucket2d((q.shape[1], k.shape[1]))
     name = resolve_name("attention", impl, q.device, bshape)
     fn = lookup("attention", name)
@@ -897,7 +968,4 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if name == "fast" or return_ff or not autodiff.needs_grad(q, k, v):
         # the fast tier's gradient is plain autograd, as in the reference
         return fn(q, k, v, kv_len=kv_len, return_ff=return_ff, **call)
-    if kv_len is not None:
-        raise NotImplementedError("the gradient of attention with a per-row "
-                                  "kv_len is not ported yet")
-    return autodiff.Attention.apply(q, k, v, fn, call)
+    return autodiff.Attention.apply(q, k, v, fn, call, kv_len)

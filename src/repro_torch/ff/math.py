@@ -13,11 +13,13 @@ polynomials, :mod:`repro_torch.core.ffmath`) behind the registry::
 Each function resolves per call like every other op: ``jnp`` (the
 default), ``pallas`` (the ``ff_math`` kernel), ``f64`` or ``fast``, by
 ``impl=``, an ``ff.use`` scope or the ``ff.tune`` table for the call's
-(device, (R, C) bucket).  Forward only: an input that requires a
-gradient raises (the FF gradients are not ported yet).  Each result
-passes through the ambient ``ff.guard`` scope (:func:`repro_torch.ff.
-guard.protect`): counted under ``check``, repaired and the op degraded
-one class under ``degrade``, untouched under ``off``.
+(device, (R, C) bucket).  Each is differentiable with the reference's FF
+derivative rule (``autodiff.Math1``, ``autodiff.Pow``); on the kernel
+tier the backward's FF functions (``sigmoid22`` for silu, ...) run
+through the ``ff_math`` kernel too.  Each result passes through the
+ambient ``ff.guard`` scope (:func:`repro_torch.ff.guard.protect`),
+after the gradient's Function: counted under ``check``, repaired and the
+op degraded one class under ``degrade``, untouched under ``off``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.core.ff import FF
-from repro_torch.ff import dispatch
+from repro_torch.ff import autodiff, dispatch
 from repro_torch.ff.guard import protect
 
 UNARY = ("exp", "expm1", "log", "log1p", "tanh", "sigmoid", "erf", "gelu",
@@ -35,8 +37,15 @@ __all__ = list(UNARY) + ["pow"]
 
 def _call(op: str, impl: Optional[str], opts: dict, *xs) -> FF:
     fn, xs = dispatch._ew_call(op, impl, opts, *xs)
-    dispatch._forward_only(op, *xs)
-    return protect(op, fn(*xs))
+    limbs = [t for x in xs for t in dispatch._limbs(x)]
+    if not autodiff.needs_grad(*limbs):
+        return protect(op, fn(*xs))
+    if op == "pow":
+        r = autodiff.Pow.apply(*autodiff.broadcast2(*xs), fn, fn.impl)
+    else:
+        r = autodiff.Math1.apply(*autodiff.limb_pair(xs[0]), fn, op,
+                                 fn.impl)
+    return protect(op, FF(*r))
 
 
 def exp(a, *, impl: Optional[str] = None, **opts) -> FF:

@@ -11,6 +11,9 @@
            ``csrc/ff_attention.cu`` (the reference's Pallas kernel
            ``flash_attention_pallas`` translated); on a CPU tensor its
            plain version, ``flash_attention_ff``.
+  f64    — ``attention_f64``: scores, softmax and ``p @ v`` in float64 on
+           the tensors' device (the H100 has f64 units), the (Sq, Skv)
+           score plane materialised; the dispatch guards its size.
 
 All tiers take q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) with H = KV * G
 (GQA) and return (B, Sq, H, hd): q's dtype, or an FF pair of f32 planes
@@ -222,6 +225,50 @@ def flash_attention_ff(q: Tensor, k: Tensor, v: Tensor, *,
     if return_ff:
         return FF(hi, _assemble(ols, B, Sq, H, hd))
     return hi.to(q.dtype)
+
+
+# ===========================================================================
+# f64 tier: materialised float64 scores
+# ===========================================================================
+
+def attention_f64(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                  q_offset: int = 0, kv_len: Optional[Tensor] = None,
+                  scale: Optional[float] = None, return_ff: bool = False):
+    """Float64 softmax attention over the materialised (Sq, Skv) score
+    plane (the reference's ``attention_f64``): the f32-rounded scale, the
+    masked scores set to the f32 -1e30 (float64's exp takes it to an
+    exact 0 against any real row max), the f64 result rounded to f32, or
+    split into FF limbs with ``return_ff=True``."""
+    B, Sq, H, hd, Skv, KV = _dims(q, k)
+    G = H // KV
+    f64 = torch.float64
+    sc = torch.tensor(_resolve_scale(scale, hd), dtype=torch.float32)
+    q64 = q.to(torch.float32).to(f64).reshape(B, Sq, KV, G, hd)
+    k64 = k.to(torch.float32).to(f64)
+    v64 = v.to(torch.float32).to(f64)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q64, k64) * sc.to(f64).item()
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
+    mask = (kv_pos[None, :] <= q_pos[:, None]) if causal else \
+        torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    full = mask[None, None, None].expand(s.shape)
+    if kv_len is not None:
+        rag = kv_pos[None, :] < kv_len.to(q.device)[:, None]
+        full = full & rag[:, None, None, None]
+    neg = float(torch.tensor(NEG_INF, dtype=torch.float32))
+    s = torch.where(full, s, neg)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bkgqs,bskd->bkgqd", p / p.sum(dim=-1, keepdim=True),
+                     v64)
+    hi = o.to(torch.float32)
+    lo = (o - hi.to(f64)).to(torch.float32)
+
+    def assemble(x):
+        return x.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+    if return_ff:
+        return FF(assemble(hi), assemble(lo))
+    return assemble(hi).to(q.dtype)
 
 
 # ===========================================================================

@@ -31,20 +31,15 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig, policy: PrecisionPolicy,
-                    training: bool = False) -> None:
-    """The port models the dense GQA family; it serves under ``ff_math``
-    but does not train under it yet."""
+def check_supported(cfg: ModelConfig) -> None:
+    """The port models the dense GQA family, serving and training, under
+    every policy (``ff_math`` included: the FF functions carry their
+    reference gradients)."""
     if cfg.family != "dense" or cfg.use_mla or cfg.moe_num_experts:
         raise NotImplementedError(
             f"repro_torch models the dense GQA family only; got family="
             f"{cfg.family!r}, use_mla={cfg.use_mla}, moe_num_experts="
             f"{cfg.moe_num_experts}")
-    if policy.ff_math and training:
-        raise NotImplementedError(
-            "training under policy ff_math=True is not ported yet: the "
-            "gradients of ff.silu and ff.tanh (the FF elementary functions) "
-            "are missing (ROADMAP, queue item 2)")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -85,7 +80,7 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """Random dense-family weights from ``generator`` (on the generator's
     device): normal / sqrt(fan_in) matrices, unit norm weights."""
-    check_supported(cfg, PrecisionPolicy())
+    check_supported(cfg)
     dev = generator.device
     L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
 
@@ -225,7 +220,7 @@ def train_forward(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
     Returns ``(loss, {"loss", "aux"})``; the dense family has no auxiliary
     loss, so ``aux`` is 0 and the total is the loss."""
     policy = ff.resolve_policy(policy)
-    check_supported(cfg, policy, training=True)
+    check_supported(cfg)
     tokens, targets = batch["tokens"], batch["targets"]
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, compute_dtype(cfg))
@@ -274,7 +269,7 @@ def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
     """Run the prompt through the model, filling the cache.  Returns
     (last-position logits (B, V), cache)."""
     policy = ff.resolve_policy(policy)
-    check_supported(cfg, policy)
+    check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, compute_dtype(cfg))
@@ -298,7 +293,7 @@ def decode_step(params: Params, token: Tensor, pos: int, cache: Params,
     """One decode step.  token: (B, 1) int; pos: the write index.
     Returns (logits (B, V), cache)."""
     policy = ff.resolve_policy(policy)
-    check_supported(cfg, policy)
+    check_supported(cfg)
     x = embed_apply(params["embed"], token, compute_dtype(cfg))
 
     def attn(p, z, lcache):

@@ -165,7 +165,7 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.policy = resolve_policy(policy)
-        check_supported(cfg, self.policy)
+        check_supported(cfg)
         w_dev = params["final_norm"].device
         if w_dev.type != self.device.type:
             raise ValueError(f"params lie on {w_dev}, the engine runs on "

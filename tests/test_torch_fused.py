@@ -478,14 +478,33 @@ def test_mul_matches_reference():
         assert _ulp(r.hi, p.hi.numpy()) == 0 and _ulp(r.lo, p.lo.numpy()) == 0
 
 
-def test_softmax_and_norm_stats_are_forward_only():
-    x = torch.randn(2, 8, requires_grad=True)
-    for call in (port_ff.softmax, port_ff.norm_stats):
-        with pytest.raises(NotImplementedError, match="queue item 2"):
-            call(x)
+def test_softmax_and_norm_stats_gradients_match_reference():
+    """The calls that refused a gradient give the reference's: softmax
+    with the accurate impl ``ff`` (the same bits forward) within 4 ulps
+    of max |g| |y| (``sum(g y)`` adds in another order), norm_stats
+    bitwise; under no_grad the call runs without a graph."""
+    import jax
+    rng = np.random.default_rng(83)
+    x = rng.standard_normal((2, 8)).astype(np.float32)
+    w = rng.standard_normal((2, 8)).astype(np.float32)
+    want = np.asarray(jax.grad(lambda a: jnp.sum(
+        ref_ff.softmax(a, impl="ff") * w))(jnp.asarray(x)))
+    t = T(x).requires_grad_()
+    (port_ff.softmax(t, impl="ff") * T(w)).sum().backward()
+    assert np.abs(want - t.grad.numpy()).max() <= \
+        4 * 2.0 ** -24 * np.abs(w).max()
+    want = np.asarray(jax.grad(lambda a: jnp.sum(
+        ref_ff.norm_stats(a, impl="jnp")[1] * w[:, 0]))(jnp.asarray(x)))
+    t = T(x).requires_grad_()
+    (port_ff.norm_stats(t)[1] * T(w[:, 0])).sum().backward()
+    assert _ulp(want, t.grad.numpy()) == 0
     with torch.no_grad():
-        assert port_ff.softmax(x).shape == (2, 8)
-    # logsumexp keeps its gradient whatever impl resolves
+        assert port_ff.softmax(t).grad_fn is None
+
+
+def test_logsumexp_grad_on_every_impl():
+    """logsumexp keeps its gradient, the softmax, whatever impl
+    resolves."""
     for impl in ("jnp", "pallas", "ff", "f64"):
         y = torch.randn(2, 8, requires_grad=True)
         port_ff.logsumexp(y, impl=impl).sum().backward()

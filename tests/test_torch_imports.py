@@ -130,8 +130,9 @@ def test_dispatch_defaults_and_resolution_order():
     with repro_torch.ff.use(mean_sq="jnp"):
         assert dispatch.resolve_name("mean_sq", device="cuda") == "jnp"
         assert dispatch.resolve_name("mean_sq", "fused", "cuda") == "fused"
+    assert dispatch.resolve_name("attention", "f64") == "f64"
     with pytest.raises(KeyError, match="available"):
-        dispatch.resolve_name("attention", "f64")
+        dispatch.resolve_name("attention", "ozaki")
     with repro_torch.ff.policy("ff_reduce", attention="pallas") as p:
         assert p.ff_reductions and p.attention == "pallas"
         assert repro_torch.ff.resolve_policy(None) is p

@@ -18,7 +18,8 @@ and ``ff.tune`` in the port, against the reference.
   * a reduced granite-3-2b served under ``ff_math=True`` gives the
     reference's greedy tokens, both with ``ff.use(silu="jnp")``; the
     soft-cap's ``ff.tanh`` branch is bitwise the reference's on exact
-    logits; training under ``ff_math`` raises;
+    logits; the functions' gradients and a training forward's under
+    ``ff_math`` are the reference's;
   * ``ff.tune``: the tables equal the reference's, ``bucket_key`` gives
     its keys, and ``tests/test_tune.py``'s cases hold on the port (with
     ``impls=`` given and a ``tmp_path`` sidecar).
@@ -338,12 +339,26 @@ def test_math_calls_match_reference(op, impl):
         assert _same(want.hi, got.hi) and _same(want.lo, got.lo)
 
 
-def test_math_calls_are_forward_only():
-    x = torch.ones(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_ff.silu(x)
+def test_math_calls_give_reference_gradients():
+    """The calls that refused a gradient give the reference's: each of the
+    ten functions at x = (0.5, 1, 1.5) (pow at (x, x)), the hi limb as
+    the loss, bitwise on the jnp and kernel tiers (the kernel's plain
+    version here).  ``tests/test_torch_grad.py`` covers the branches and
+    the operand forms."""
+    x = np.float32([0.5, 1.0, 1.5])
+    for op in port_dispatch.MATH_OPS:
+        def call(f, impl, op=op):
+            if op == "pow":
+                return lambda t: f.pow(t, t, impl=impl)
+            return lambda t: getattr(f, op)(t, impl=impl)
+        want = jax.grad(lambda t: jnp.sum(call(ref_ff, "jnp")(t).hi))(
+            jnp.asarray(x))
+        for impl in ("jnp", "pallas"):
+            t = T(x.copy()).requires_grad_()
+            call(port_ff, impl)(t).hi.sum().backward()
+            assert _same(want, t.grad), (op, impl)
     with torch.no_grad():
-        assert port_ff.silu(x).hi.shape == (3,)
+        assert port_ff.silu(T(x).requires_grad_()).hi.grad_fn is None
 
 
 # -- the ff_math model switch ----------------------------------------------------
@@ -438,16 +453,43 @@ def test_softcap_branch_takes_ff_tanh():
     np.testing.assert_allclose(plain.numpy(), np.asarray(want), rtol=2e-6)
 
 
-def test_training_under_ff_math_raises():
-    from repro_torch.models import init_params
+def test_training_under_ff_math_gives_reference_gradients():
+    """The call that raised: train_forward of a one-layer granite under
+    ``PrecisionPolicy(ff_math=True)`` now gives the reference's loss
+    within 1e-6 relative and its parameter gradients within 1e-5 of each
+    leaf's largest element (f32; the matrix products add in other
+    orders), both with the FF silu gate (``silu="jnp"``)."""
+    from repro.models import init_params as ref_init
+    from repro.models.model import train_forward as ref_train_forward
+    from repro_torch.interop import params_from_numpy
     from repro_torch.models.model import train_forward
-    _, cfg = _granite_cfgs(num_layers=1)
-    params = init_params(cfg, torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.ones((1, 4), dtype=torch.long),
-             "targets": torch.ones((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="gradients of ff.silu"):
-        train_forward(params, batch, cfg, port_ff.PrecisionPolicy(
-            ff_math=True))
+    from repro_torch.optim.adamw import tree_leaves
+    ref_cfg, cfg = _granite_cfgs(num_layers=1)
+    ref_w = ref_init(ref_cfg, jax.random.PRNGKey(5))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, ref_w),
+                               device="cpu")
+    rng = np.random.default_rng(139)
+    tokens = rng.integers(1, cfg.vocab_size, (2, 6)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    with ref_ff.use(silu="jnp", logsumexp="jnp"):
+        (want_loss, _), want = jax.value_and_grad(
+            lambda w: ref_train_forward(
+                w, {"tokens": jnp.asarray(tokens),
+                    "targets": jnp.asarray(targets)}, ref_cfg,
+                ref_ff.PrecisionPolicy(ff_math=True)), has_aux=True)(ref_w)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with port_ff.use(silu="jnp"):
+        loss, _ = train_forward(
+            params, {"tokens": torch.from_numpy(tokens).long(),
+                     "targets": torch.from_numpy(targets).long()}, cfg,
+            port_ff.PrecisionPolicy(ff_math=True))
+    grads = torch.autograd.grad(loss, leaves)
+    assert abs(float(loss) - float(want_loss)) <= 1e-6 * abs(float(want_loss))
+    for a, b in zip(jax.tree_util.tree_leaves(want), grads):
+        a = np.asarray(a)
+        assert np.abs(a - b.numpy()).max() <= 1e-5 * np.abs(a).max()
 
 
 # -- ff.tune -----------------------------------------------------------------------

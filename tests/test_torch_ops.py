@@ -239,13 +239,25 @@ def test_eft_calls_match_reference(op):
         assert _same(want.hi, got.hi) and _same(want.lo, got.lo), impl
 
 
-def test_forward_only_calls_refuse_gradients():
-    x = torch.ones(3, requires_grad=True)
-    for call in (lambda: port_ff.div(x, x), lambda: port_ff.sqrt(x),
-                 lambda: port_ff.two_sum(x, x),
-                 lambda: port_ff.two_prod(x, x)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+def test_div_sqrt_eft_gradients_match_reference():
+    """The calls that refused a gradient give the reference's: div(x, x),
+    sqrt(x), two_sum(x, x) and two_prod(x, x) at x = 1 + i/4 on both
+    tiers, the hi limb as the loss (bitwise; the gradients of one operand
+    used twice add up).  ``tests/test_torch_grad.py`` covers every operand
+    form."""
+    import jax
+    x = (1.0 + np.arange(3) / 4.0).astype(np.float32)
+    calls = {"div": lambda f, i: lambda t: f.div(t, t, impl=i),
+             "sqrt": lambda f, i: lambda t: f.sqrt(t, impl=i),
+             "two_sum": lambda f, i: lambda t: f.two_sum(t, t, impl=i),
+             "two_prod": lambda f, i: lambda t: f.two_prod(t, t, impl=i)}
+    for name, call in calls.items():
+        want = jax.grad(lambda t: jnp.sum(call(ref_ff, "jnp")(t).hi))(
+            jnp.asarray(x))
+        for impl in ("jnp", "pallas"):
+            t = T(x.copy()).requires_grad_()
+            call(port_ff, impl)(t).hi.sum().backward()
+            assert _same(want, t.grad), (name, impl)
 
 
 @pytest.mark.parametrize("impl", ["cascade", "pallas_rowsum", "blocked"])

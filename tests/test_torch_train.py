@@ -8,8 +8,9 @@
   * ``SyntheticLM`` batches are the reference's bit for bit;
   * a reduced granite-3-2b takes 3 ``make_train_step`` steps in both
     packages from the same weights and optimizer state under
-    ``policy("ff_reduce", attention="pallas")``; ``Trainer.run`` and the
-    launcher run end to end.
+    ``policy("ff_reduce", attention="pallas")``, and under it with
+    ``ff_math=True`` (the FF silu gate, with ``silu="jnp"`` in both);
+    ``Trainer.run`` and the launcher run end to end.
 
 The reference runs with explicit non-f64 impls (its CPU defaults include
 f64 tiers the installed JAX cannot run, and the CPU tuning table):
@@ -315,15 +316,22 @@ def test_cosine_schedule_and_grad_norm_match_reference():
 # (compute dtype, microbatches, loss_chunk or None, seq, rel tol on loss and
 # grad norm, rel tol on m and v of the leaf's largest element, and the
 # master weights: at most the fraction ``w_frac`` of the elements differ by
-# more than ``w_tol`` * sum(lr))
+# more than ``w_tol`` * sum(lr); ff_math: the policy's FF silu gate)
 STEP_CASES = {
     # f32: only the summation orders differ
-    "f32": ("float32", 1, None, 32, 1e-5, 1e-5, 1e-3, 1e-3),
+    "f32": ("float32", 1, None, 32, 1e-5, 1e-5, 1e-3, 1e-3, False),
     # bf16 activations: the two frameworks round at other places, ~2^-8
-    "bf16": ("bfloat16", 1, None, 32, 2e-3, 1e-1, 1e-1, 1e-2),
+    "bf16": ("bfloat16", 1, None, 32, 2e-3, 1e-1, 1e-1, 1e-2, False),
     # microbatches with the FF loss carry; the chunked CE over a padded
     # last chunk; remat through torch.utils.checkpoint
-    "f32-mb2-chunked-remat": ("float32", 2, 24, 40, 1e-5, 1e-5, 1e-3, 1e-3),
+    "f32-mb2-chunked-remat": ("float32", 2, 24, 40, 1e-5, 1e-5, 1e-3, 1e-3,
+                              False),
+    # under ff_math: the gate is the FF silu in both (bitwise, with its FF
+    # gradient); only the summation orders differ, as in "f32"
+    "f32-ff_math": ("float32", 1, None, 32, 1e-5, 1e-5, 1e-3, 1e-3, True),
+    # ... and its recompute under remat, microbatches, the chunked loss
+    "f32-mb2-chunked-remat-ff_math": ("float32", 2, 24, 40, 1e-5, 1e-5,
+                                      1e-3, 1e-3, True),
 }
 STEPS, LR, WARMUP = 3, 3e-4, 10
 
@@ -346,8 +354,10 @@ def test_train_steps_match_reference(case):
     step, and no more.  Such elements are few: all but the fraction
     ``w_frac`` lie within ``w_tol`` * sum(lr), where three steps move the
     median element by ~sum(lr) / 2, so an update that is skipped or wrong
-    fails."""
-    dtype, mb, chunk, seq, tol, mv_tol, w_tol, w_frac = STEP_CASES[case]
+    fails.  Under ``ff_math`` the reference pins ``silu="jnp"`` and the
+    port runs its steps inside ``ff.use(silu="jnp")``."""
+    (dtype, mb, chunk, seq, tol, mv_tol, w_tol, w_frac,
+     ff_math) = STEP_CASES[case]
     rcfg = _reduced(ref_get_config, dtype, chunk)
     pcfg = _reduced(port_get_config, dtype, chunk)
     rparams = ref_init_params(rcfg, jax.random.PRNGKey(0))
@@ -363,8 +373,9 @@ def test_train_steps_match_reference(case):
                                   global_batch=4))
     batches = [data.batch(i) for i in range(STEPS)]
 
-    with ref_ff.policy("ff_reduce", attention="pallas"), \
-            ref_ff.use(**REF_PINS):
+    pins = dict(silu="jnp") if ff_math else {}
+    with ref_ff.policy("ff_reduce", attention="pallas", ff_math=ff_math), \
+            ref_ff.use(**REF_PINS, **pins):
         rstep = jax.jit(ref_make_train_step(rcfg, None, ropt,
                                             microbatches=mb))
         ref_m = []
@@ -372,13 +383,15 @@ def test_train_steps_match_reference(case):
             rparams, rstate, m = rstep(
                 rparams, rstate, {k: jnp.asarray(x) for k, x in b.items()})
             ref_m.append({k: float(x) for k, x in m.items()})
-    with port_ff.policy("ff_reduce", attention="pallas"):
+    with port_ff.policy("ff_reduce", attention="pallas", ff_math=ff_math):
         pstep = make_train_step(pcfg, None, popt, microbatches=mb)
     port_m = []
-    for b in batches:
-        pparams, pstate, m = pstep(
-            pparams, pstate, {k: torch.from_numpy(x) for k, x in b.items()})
-        port_m.append({k: float(x) for k, x in m.items()})
+    with port_ff.use(**pins):
+        for b in batches:
+            pparams, pstate, m = pstep(
+                pparams, pstate,
+                {k: torch.from_numpy(x) for k, x in b.items()})
+            port_m.append({k: float(x) for k, x in m.items()})
 
     for i, (a, b) in enumerate(zip(ref_m, port_m)):
         assert np.isfinite(b["loss"]) and np.isfinite(b["grad_norm"])
@@ -405,6 +418,41 @@ def test_train_steps_match_reference(case):
                         port_adamw.tree_leaves(getattr(pstate, name))):
             a = np.asarray(a)
             assert np.abs(a - b.numpy()).max() <= mv_tol * np.abs(a).max()
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+def test_ff_math_gate_grad_matches_reference(impl):
+    """The gradient of the SwiGLU MLP under ``ff_math`` (the FF silu
+    gate, its FF derivative s (1 + x (1 - s)) through the f32 boundary)
+    with respect to the input and the three weights: within 1e-6 of each
+    one's largest element against the reference with ``silu="jnp"`` (the
+    gate's gradient is bitwise; the three products add in other orders),
+    and bit for bit between the port's tiers (the kernel tier's backward
+    runs sigmoid22 through ``math_elementwise``, its plain version
+    here)."""
+    from repro.models.layers import mlp_apply as ref_mlp
+    from repro_torch.models.layers import mlp_apply
+    rng = np.random.default_rng(59)
+    p = {k: (rng.standard_normal(s) / 4).astype(np.float32) for k, s in
+         (("w_gate", (16, 40)), ("w_up", (16, 40)), ("w_down", (40, 16)))}
+    x = (rng.standard_normal((3, 5, 16)) * 2).astype(np.float32)
+    r = rng.standard_normal((3, 5, 16)).astype(np.float32)
+    with ref_ff.use(silu="jnp"):
+        want = jax.grad(lambda w, a: jnp.sum(ref_mlp(w, a, ff_math=True) * r),
+                        argnums=(0, 1))(
+            {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    got = {}
+    for tier in ("jnp", impl):
+        pt = {k: _t(v).requires_grad_() for k, v in p.items()}
+        xt = _t(x).requires_grad_()
+        with port_ff.use(silu=tier):
+            (mlp_apply(pt, xt, ff_math=True) * _t(r)).sum().backward()
+        got[tier] = {**{k: t.grad for k, t in pt.items()}, "x": xt.grad}
+    for k in ("w_gate", "w_up", "w_down", "x"):
+        a = np.asarray(want[1] if k == "x" else want[0][k])
+        b = got[impl][k].numpy()
+        assert np.abs(a - b).max() <= 1e-6 * np.abs(a).max(), k
+        assert torch.equal(got["jnp"][k], got[impl][k]), k
 
 
 def test_remat_gives_the_same_step():
