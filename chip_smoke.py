@@ -101,11 +101,22 @@ Phases (any failed check raises, so the script exits non-zero):
   7. serving: a reduced granite-3-2b engine on the card against the same
      engine on the CPU (plain versions), also under ``guard="degrade"``
      with an ``oob``, a ``free`` and a ``dup`` block-table flip (the same
-     statuses and tokens, the audit's rebuild, clean metadata after),
-     then granite-3-2b at full width
+     statuses and tokens, the audit's rebuild, clean metadata after), in
+     ``ff_bf16`` pages (the ``lo`` planes not all 0) and under
+     ``reserve="prompt"`` with a preemption (the same statuses, tokens
+     and preemptions); ``launch.serve --reduced --engine --snapshot-dir``
+     and its ``--resume``; then granite-3-2b at full width
      (random weights from a seed) serving 8 requests under
      ``policy("ff_reduce", attention="pallas")``, with the kernels' launch
-     counts read around that run; then 4 requests under ``ff_math=True``
+     counts read around that run; then the first 4 of them through engine
+     A with ``reserve="prompt"`` on a pool that forces a preemption,
+     ``sync_every=4``, a request journal and ``deadline_steps`` on one,
+     snapshotted after a few iterations and dropped, and engine B from
+     ``resume_engine`` run to the end: the tokens and both scores bit for
+     bit the 8-request run's (the deadline request ``TIMEOUT`` with a
+     prefix of them), a preemption, an empty journal, clean metadata and
+     exact launch counts (``serve_durable``); then 4 requests under
+     ``ff_math=True``
      with ``ff.use(silu="pallas")`` (``ff_math`` launched once per layer
      of every prefill and decode step) and again with the jnp silu (the
      same greedy tokens); then guarded serving, 4 requests: under
@@ -120,7 +131,9 @@ Phases (any failed check raises, so the script exits non-zero):
   8. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
      the sequence-chunked loss, each also under ``ff_math`` with
-     ``ff.use(silu="pallas")``; then, with the serving engine freed,
+     ``ff.use(silu="pallas")``; 2 steps with a ``ckpt_dir``, a crash and a
+     restored third step, bit for bit 3 uninterrupted steps on the card;
+     then, with the serving engine freed,
      granite-3-2b at full width (random weights from a seed) trained 4
      steps on ``SyntheticLM`` batches of 4 x 128 tokens and one step on
      2 x 1024 tokens (longer than ``loss_chunk``: the chunked loss) with
@@ -2960,6 +2973,57 @@ def phase_small_engine(torch):
     log(f"reduced engine (2 layers, f32): card == CPU tokens for "
         f"{len(prompts)} requests")
 
+    # ff_bf16 limb pages, and reserve="prompt" on a pool small enough to
+    # preempt (sync_every=3): the same statuses, tokens and preemptions
+    for name, kw in (("ff_bf16 pages", dict(kv_mode="ff_bf16")),
+                     ("reserve=prompt, 6 pages", dict(
+                         reserve="prompt", num_pages=6, sync_every=3))):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with ff.policy("ff_reduce", attention="pallas"):
+                eng = ServeEngine(to_device(params, dev), cfg, device=dev,
+                                  max_batch=3, page_size=16, max_ctx=64,
+                                  **kw)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new=12))
+            res = eng.run()
+            runs[dev] = ({u: (r.status, r.tokens.tolist())
+                          for u, r in res.items()},
+                         eng.guard_stats["preempted"])
+            lo = float(eng.kv.planes["k_lo"].abs().max()) \
+                if "k_lo" in eng.kv.planes else None
+            if dev == "cuda" and name.startswith("ff_bf16") and not lo:
+                raise AssertionError("ff_bf16 pages: the lo planes are 0")
+        if runs["cuda"] != runs["cpu"] or any(
+                v[0] != "OK" for v in runs["cuda"][0].values()) or (
+                "reserve" in kw and runs["cuda"][1] < 1):
+            raise AssertionError(f"reduced engine, {name}: card "
+                                 f"{runs['cuda']} vs CPU {runs['cpu']}")
+        log(f"reduced engine, {name}: card == CPU statuses and tokens, "
+            f"{runs['cuda'][1]} preemptions on each"
+            + (f"; the card's k_lo plane up to {lo:.3g}" if lo else ""))
+
+    # the serving launcher on the card, with snapshots and the journal
+    import tempfile
+    from repro_torch.launch import serve as launch_serve
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "snap")
+        res = launch_serve.main(["--arch", "granite-3-2b", "--reduced",
+                                 "--engine", "--snapshot-dir", snap,
+                                 "--snapshot-every", "2", "--max-new", "6"])
+        wal = os.path.getsize(os.path.join(snap, "wal.jsonl"))
+        back = launch_serve.main(["--arch", "granite-3-2b", "--reduced",
+                                  "--engine", "--snapshot-dir", snap,
+                                  "--resume", "--max-new", "6"])
+    if any(r.status != "OK" for r in res.values()) or wal or {
+            u: r.tokens.tolist() for u, r in back.items()} != {
+            u: r.tokens.tolist() for u, r in res.items()}:
+        raise AssertionError(f"launch.serve --engine --snapshot-dir: "
+                             f"{res} / journal {wal} B / resumed {back}")
+    log(f"launch.serve --reduced --engine --snapshot-dir on the card: "
+        f"{len(res)} requests OK, journal empty, --resume gives the same "
+        f"results")
+
     # guard="degrade" with one block-table flip of slot 1 after one step,
     # the same flip on both devices: the audit quarantines the untrusted
     # rows (DEGRADED, the fast-tier retry) and rebuilds the free list
@@ -3121,6 +3185,123 @@ def phase_serve_ff_math(torch, params, cfg):
     return launches
 
 
+# the durable serving phase: phase_serve's first four requests through
+# reserve="prompt" on a small pool, sync_every, a deadline, a journal, a
+# snapshot of a dropped engine and resume_engine
+DURABLE_REQUESTS, DURABLE_SYNC, DURABLE_STEPS_A = 4, 4, 6
+DURABLE_ENGINE = dict(max_batch=4, page_size=16, max_ctx=128)
+
+
+def durable_pages(reqs, max_new):
+    """A pool that holds each trajectory alone but, 3 pages short of all
+    of them at once, makes the rows' growth preempt."""
+    ps = DURABLE_ENGINE["page_size"]
+    traj = [-(-(len(r.prompt) + max_new) // ps) for r in reqs]
+    return max(max(traj), sum(traj) - 3)
+
+
+def phase_serve_durable(torch, eng, cfg, card):
+    """granite-3-2b at full width, ``policy("ff_reduce",
+    attention="pallas")``: ``phase_serve``'s first DURABLE_REQUESTS
+    requests (its engine ``eng`` holds their results and the weights)
+    through engine A with ``reserve="prompt"`` on ``durable_pages`` pages,
+    ``sync_every=DURABLE_SYNC``, a request journal and ``deadline_steps``
+    of half its decode steps on the first request; A takes
+    DURABLE_STEPS_A scheduler iterations, ``save_snapshot``, and is
+    dropped as a crash would; engine B = ``resume_engine`` from the
+    snapshot and the journal runs to the end.  Fails unless the requests
+    without a deadline end OK with ``eng``'s tokens and f32 and FF scores
+    bit for bit, the deadline request TIMEOUT with a bitwise prefix of
+    them, at least one row was preempted over A and B, the journal is
+    empty, the paging metadata clean, and the launches exactly ``mean_sq``
+    81 a forward and ``attention`` 40 a prefill (re-prefills included,
+    the rows B restored not).  Returns the launch counts."""
+    import tempfile
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.serve import Request, ServeEngine, resume_engine
+    dev = eng.params["final_norm"].device
+    base = eng.results
+    reqs = serve_requests(np.random.default_rng(SEED),
+                          cfg.vocab_size)[:DURABLE_REQUESTS]
+    max_new = reqs[0].max_new
+    deadline = (max_new - 1) // 2              # half its decode steps
+    pages = durable_pages(reqs, max_new)
+    tmp = tempfile.TemporaryDirectory()
+    snapdir, wal = os.path.join(tmp.name, "snap"), \
+        os.path.join(tmp.name, "wal.jsonl")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with ff.policy("ff_reduce", attention="pallas"):
+        a = ServeEngine(eng.params, cfg, device=dev, reserve="prompt",
+                        sync_every=DURABLE_SYNC, num_pages=pages,
+                        journal=wal, **DURABLE_ENGINE)
+    for i, r in enumerate(reqs):
+        if a.submit(Request(uid=r.uid, prompt=r.prompt, max_new=max_new,
+                            deadline_steps=deadline if i == 0 else None)) \
+                != "QUEUED":
+            raise AssertionError(f"durable serving: {r.uid} not queued")
+    for _ in range(DURABLE_STEPS_A):
+        a.step()
+    a.save_snapshot(snapdir)
+    snap_steps, pf_a = a.decode_steps, len(a.prefill_s)
+    pre_a, dec_s = a.guard_stats["preempted"], list(a.decode_s)
+    del a                                       # the crash
+    gc.collect()
+    torch.cuda.empty_cache()
+    with ff.policy("ff_reduce", attention="pallas"):
+        b = resume_engine(eng.params, cfg, snapdir, journal=wal, device=dev)
+    restored = sum(s is not None for s in b._slots)
+    res = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    n_pf, n_dec = pf_a + len(b.prefill_s), b.decode_steps
+    stats = dict(b.guard_stats)
+    problems = b.kv.check_integrity()
+    dec_s += b.decode_s
+    wal_bytes = os.path.getsize(wal)
+    del b
+    tmp.cleanup()
+    for i, r in enumerate(reqs):
+        got, want = res[r.uid], base[r.uid]
+        n = len(got.tokens)
+        status = "TIMEOUT" if i == 0 else "OK"
+        if got.status != status or (i and n != len(want.tokens)) \
+                or not 0 < n <= len(want.tokens):
+            raise AssertionError(f"durable serving uid {r.uid}: "
+                                 f"{got.status} ({got.detail}), {n} tokens")
+        for name in ("tokens", "logprobs", "logprobs_ff"):
+            x, y = getattr(got, name), getattr(want, name)[:n]
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                raise AssertionError(f"durable serving uid {r.uid}: "
+                                     f"{name} {x} != phase_serve's {y}")
+    if stats["preempted"] < 1 or wal_bytes or problems != ([], set()) \
+            or restored < 1:
+        raise AssertionError(f"durable serving: guard_stats {stats}, "
+                             f"journal {wal_bytes} bytes, integrity "
+                             f"{problems}, {restored} rows restored")
+    norms = 2 * cfg.num_layers + 1
+    want = {**{k: 0 for k in launches}, "mean_sq": norms * (n_pf + n_dec),
+            "attention": cfg.num_layers * n_pf}
+    run = {"wall_s": wall, "decode_steps": n_dec,
+           "decode_steps_before_snapshot": snap_steps, "prefills": n_pf,
+           "rows_restored": restored, "preempted": stats["preempted"],
+           "preempted_before_snapshot": pre_a, "num_pages": pages,
+           "deadline_tokens": len(res[reqs[0].uid].tokens),
+           "decode_step_ms": 1e3 * float(np.mean(dec_s)), "card": card}
+    log(f"durable serving (reserve=prompt, sync_every={DURABLE_SYNC}, "
+        f"snapshot after {DURABLE_STEPS_A} iterations, engine dropped, "
+        f"resume_engine): {json.dumps(run)}; {DURABLE_REQUESTS - 1} "
+        f"requests OK and the deadline request's TIMEOUT prefix bit for "
+        f"bit phase_serve's (tokens, f32 and FF scores); launches "
+        f"{launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"durable serving launches {launches} != "
+                             f"{want}")
+    return launches
+
+
 def device_busy_us(prof):
     """(device operations, the union of their intervals in us) that
     ``torch.profiler`` recorded."""
@@ -3232,6 +3413,74 @@ def phase_small_train(torch):
                 f"ff_math={ff_math}): card vs CPU (loss, grad norm) per "
                 f"step {runs['cuda']} vs {runs['cpu']}; ff_math launches a "
                 f"step {n_math}")
+    small_train_resume(torch)
+
+
+def small_train_resume(torch):
+    """The reduced model on the card: 2 steps with a ``ckpt_dir``, a crash,
+    a new ``Trainer`` that restores and takes step 3, bit for bit 3
+    uninterrupted steps (parameters, optimizer state, the last loss)."""
+    import tempfile
+    import repro_torch.ff as ff
+    from repro_torch.checkpoint.checkpoint import flatten_with_names
+    from repro_torch.configs.granite_3_2b import CONFIG
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = CONFIG.reduced(compute_dtype="float32")
+    batches = train_batches(cfg.vocab_size, 32, 4, 3, "cuda")
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash(step):
+        if step == 2:
+            raise Crash()
+
+    def trainer(ckpt_dir, seed=SEED, fault=None):
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(seed))
+        opt = AdamW(learning_rate=cosine_schedule(3e-4, 10, 3))
+        with ff.policy("ff_reduce", attention="pallas"):
+            step = make_train_step(cfg, None, opt)
+        return Trainer(TrainerConfig(total_steps=3, ckpt_every=2,
+                                     ckpt_dir=ckpt_dir, log_every=100),
+                       step, params, opt.init(params), batches.__getitem__,
+                       fault_hook=fault, log_fn=lambda m: None)
+
+    # one summation order for the embedding's backward (index_put_ with
+    # accumulation), which may otherwise vary run to run
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        whole = trainer(None)
+        want = whole.run()
+        with tempfile.TemporaryDirectory() as tmp:
+            first = trainer(tmp, fault=crash)
+            try:
+                first.run()
+            except Crash:
+                first.ckpt.wait()
+            else:
+                raise AssertionError("the crash hook did not fire")
+            second = trainer(tmp, seed=SEED + 1)
+            if not second.restore() or second.step != 2:
+                raise AssertionError(f"trainer restore: step {second.step}")
+            got = second.run()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    same = got["last_loss"] == want["last_loss"] and all(
+        torch.equal(x, y) for tree in ("params", "opt_state")
+        for (_, x), (_, y) in zip(
+            flatten_with_names(getattr(second, tree)),
+            flatten_with_names(getattr(whole, tree))))
+    if not same:
+        raise AssertionError(f"resumed training: {got} vs {want}, or the "
+                             f"weights differ")
+    log(f"reduced training resumed from a step-2 checkpoint on the card: "
+        f"step 3 bit for bit 3 uninterrupted steps (last loss "
+        f"{got['last_loss']!r})")
 
 
 def phase_train(torch, card: str):
@@ -3706,6 +3955,9 @@ def main() -> int:
     phase_small_engine(torch)
     mark("guard checks, small engine")
     serve_launches, cfg, eng = phase_serve(torch, card)
+    durable_launches = phase_serve_durable(torch, eng, cfg, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     ff_math_launches = phase_serve_ff_math(torch, eng.params, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3729,7 +3981,8 @@ def main() -> int:
                 "tune": tune_launches, "default_calls": default_launches,
                 "serve_ff_math": ff_math_launches,
                 "serve_guard": guard_launches,
-                "train_ff_math": train_ff_math_launches}
+                "train_ff_math": train_ff_math_launches,
+                "serve_durable": durable_launches}
     kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
                + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
                + fused_kernel_entries(launches, fused_worst, fused_rows)

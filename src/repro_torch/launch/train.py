@@ -1,11 +1,14 @@
 """Training launcher (counterpart of ``repro.launch.train``, without
-``--mesh`` and ``--ckpt-dir``)::
+``--mesh``)::
 
     python -m repro_torch.launch.train --arch granite-3-2b --steps 3 \\
-        [--policy ff_reduce] [--reduced] [--device cpu]
+        [--policy ff_reduce] [--reduced] [--device cpu] \\
+        [--ckpt-dir DIR [--ckpt-every N]]
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights come from
-seed 0, batches from ``SyntheticLM``.
+seed 0, batches from ``SyntheticLM``.  With ``--ckpt-dir`` the run
+checkpoints every ``--ckpt-every`` steps (default: a third of ``--steps``)
+and at the end, and first resumes from the latest checkpoint there.
 """
 
 from __future__ import annotations
@@ -36,6 +39,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--policy", default="ff_master")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory; resumes from its latest "
+                         "checkpoint")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="steps between checkpoints (default: steps // 3)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -67,8 +75,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 for k, v in data.batch(i).items()}
 
     trainer = Trainer(
-        TrainerConfig(total_steps=args.steps, log_every=10),
+        TrainerConfig(total_steps=args.steps,
+                      ckpt_every=args.ckpt_every or max(args.steps // 3, 1),
+                      ckpt_dir=args.ckpt_dir, log_every=10),
         step_fn, params, opt_state, data_iter)
+    if args.ckpt_dir:
+        trainer.restore()
     result = trainer.run()
     print(f"[train] done: {result}")
     return result

@@ -1,13 +1,20 @@
-"""The training loop (counterpart of ``repro.train.trainer``): straggler
-detection and a compensated loss accumulator.
+"""The training loop (counterpart of ``repro.train.trainer``):
+checkpoint and resume, straggler detection and a compensated loss
+accumulator.
 
+  * with a ``ckpt_dir``, ``{"params", "opt"}`` is checkpointed every
+    ``ckpt_every`` steps and at the end through an
+    :class:`~repro_torch.checkpoint.AsyncCheckpointer` (copied to the host
+    on the call, written on a thread; the reference's files and leaf
+    names); :meth:`Trainer.restore` resumes from the latest one, copying
+    it into the live tensors in place.  The data pipeline is indexed by
+    step, so a resumed run sees the batches the lost one would have;
+  * an injectable ``fault_hook(step)`` may raise to simulate a failure;
   * per-step wall times go into a ring buffer; a step slower than
     ``median * straggler_factor`` (once 8 steps are in) is logged and
     counted;
   * the running loss is an FF accumulator (``ff.add``), exact over very
     many steps; the mean is taken in Python floats (f64).
-
-Checkpointing and resume are not ported yet: a ``ckpt_dir`` raises.
 """
 
 from __future__ import annotations
@@ -21,13 +28,15 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 import repro_torch.ff as ff
+from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.core.ff import FF
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 100
-    ckpt_dir: Optional[str] = None      # checkpointing: not ported yet
+    ckpt_every: int = 20
+    ckpt_dir: Optional[str] = None
     log_every: int = 10
     straggler_window: int = 32
     straggler_factor: float = 3.0
@@ -38,9 +47,6 @@ class Trainer:
                  opt_state, data_iter: Callable[[int], Dict[str, Any]], *,
                  fault_hook: Optional[Callable[[int], None]] = None,
                  log_fn: Callable[[str], None] = print):
-        if tcfg.ckpt_dir is not None:
-            raise NotImplementedError("checkpointing is not ported yet: "
-                                      "run without ckpt_dir")
         self.tcfg = tcfg
         self.step_fn = step_fn
         self.params = params
@@ -54,6 +60,34 @@ class Trainer:
         z = torch.zeros((), dtype=torch.float32)
         self.loss_acc = FF(z, z)          # on the host, like the reference
         self.loss_count = 0
+        self.ckpt = (ckpt_lib.AsyncCheckpointer(tcfg.ckpt_dir)
+                     if tcfg.ckpt_dir else None)
+
+    def restore(self) -> bool:
+        """Resume from the latest checkpoint, if any: its parameters and
+        optimizer state are copied into the live tensors in place (their
+        devices and dtypes kept).  Returns whether it resumed."""
+        if not self.tcfg.ckpt_dir:
+            return False
+        latest = ckpt_lib.latest_step(self.tcfg.ckpt_dir)
+        if latest is None:
+            return False
+        tree = {"params": self.params, "opt": self.opt_state}
+        restored, step, _extra = ckpt_lib.load(self.tcfg.ckpt_dir, tree,
+                                               latest)
+        names = ckpt_lib.flatten_with_names(tree)
+        for (_, live), (_, saved) in zip(
+                names, ckpt_lib.flatten_with_names(restored)):
+            live.copy_(torch.as_tensor(saved))
+        self.step = step
+        self.log(f"[trainer] resumed from step {step}")
+        return True
+
+    def _maybe_checkpoint(self, force: bool = False) -> None:
+        if self.ckpt and (force or self.step % self.tcfg.ckpt_every == 0):
+            self.ckpt.save(self.step,
+                           {"params": self.params, "opt": self.opt_state},
+                           extra={"step": self.step})
 
     def _record_time(self, dt: float) -> None:
         self.times.append(dt)
@@ -82,6 +116,10 @@ class Trainer:
                 gnorm = float(metrics.get("grad_norm", 0))
                 self.log(f"[trainer] step {self.step} "
                          f"loss {float(loss):.4f} gnorm {gnorm:.3f}")
+            self._maybe_checkpoint()
+        self._maybe_checkpoint(force=True)
+        if self.ckpt:
+            self.ckpt.wait()
         acc = float(self.loss_acc.hi) + float(self.loss_acc.lo)
         return {"step": self.step,
                 "mean_loss": acc / max(self.loss_count, 1),

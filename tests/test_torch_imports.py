@@ -22,7 +22,7 @@ import repro_torch
 from repro_torch.ff import dispatch
 from repro_torch.kernels import build, ff_attention, ff_fused
 from repro_torch.models.config import ModelConfig
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import ServeEngine, resume_engine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -42,7 +42,9 @@ new = {"repro_torch.core.ffmatmul", "repro_torch.kernels.ff_matmul",
        "repro_torch.benchmarks.table_elementwise",
        "repro_torch.kernels.ff_reduce", "repro_torch.kernels.ff_math",
        "repro_torch.ff.math", "repro_torch.ff.guard",
-       "repro_torch.kernels.ff_guard"}
+       "repro_torch.kernels.ff_guard", "repro_torch.checkpoint",
+       "repro_torch.checkpoint.checkpoint", "repro_torch.serve.journal",
+       "repro_torch.launch.serve"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
@@ -64,6 +66,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     params = {"final_norm": torch.ones(64)}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resume_engine(params, cfg, "no-snapshot-here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.resolve_device(None)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")

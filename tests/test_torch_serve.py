@@ -153,9 +153,12 @@ def test_token_logprob_ff_bitwise_and_oracle():
         <= 2.0 ** -40
 
 
-@pytest.mark.parametrize("mode", ["bf16", "f32"])
+@pytest.mark.parametrize("mode", ["bf16", "f32", "ff_bf16"])
 def test_paged_roundtrip_bitwise(mode):
-    """write_prefill -> gather is bitwise the storage cast of the input."""
+    """write_prefill -> gather is bitwise the storage cast of the input
+    (in ff_bf16 mode the merge of its limb split, the reference's)."""
+    from repro.serve.paged_kv import ff_merge as ref_merge
+    from repro.serve.paged_kv import ff_split as ref_split
     from repro_torch.serve import PagedKVCache
     rng = np.random.default_rng(33)
     tensors = {n: torch.from_numpy(rng.standard_normal((2, 21, 2, 8))
@@ -165,9 +168,14 @@ def test_paged_roundtrip_bitwise(mode):
     kv.alloc(1, 21)
     kv.write_prefill(1, tensors)
     back = kv.gather(1)
-    dt = torch.bfloat16 if mode == "bf16" else torch.float32
     for n in ("k", "v"):
-        assert torch.equal(back[n], tensors[n].to(dt))
+        if mode == "ff_bf16":
+            want = torch.from_numpy(np.asarray(ref_merge(
+                *ref_split(jnp.asarray(tensors[n].numpy())))))
+        else:
+            want = tensors[n].to(torch.bfloat16 if mode == "bf16"
+                                 else torch.float32)
+        assert torch.equal(back[n], want)
     kv.free_slot(1)
     assert sorted(kv.free_pages) == list(range(12))
 
