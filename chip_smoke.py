@@ -108,7 +108,12 @@ Phases (any failed check raises, so the script exits non-zero):
      and its ``--resume``; then granite-3-2b at full width
      (random weights from a seed) serving 8 requests under
      ``policy("ff_reduce", attention="pallas")``, with the kernels' launch
-     counts read around that run; then the first 4 of them through engine
+     counts read around that run and its own ``obs.Observer``: 8 requests
+     ``OK`` and the tokens counted, the decode-step histogram's count and
+     sum those of ``decode_s``, the ``mean_sq`` resolutions (on
+     ``backend="cuda"``) as many as its launches, one ``request`` span a
+     request, a Chrome trace that survives a JSON round trip with sorted
+     timestamps; then the first 4 of them through engine
      A with ``reserve="prompt"`` on a pool that forces a preemption,
      ``sync_every=4``, a request journal and ``deadline_steps`` on one,
      snapshotted after a few iterations and dropped, and engine B from
@@ -123,12 +128,21 @@ Phases (any failed check raises, so the script exits non-zero):
      ``guard="check"`` the ``guard="off"`` tokens with every guard count
      0 and ``probe_kv`` equal through the kernel and the jnp impl; under
      ``guard="degrade"`` with NaN written into 2 live K/V positions of
-     slot 0, the kernel probe counting 2, slot 0 ``DEGRADED`` with the
+     slot 0 by ``repro_torch.chaos.ChaosMonkey``, the kernel probe
+     counting 2, slot 0 ``DEGRADED`` with the
      fast-policy ``greedy_generate`` tokens, ``OK`` rows with the check
      run's, the ``ff_guard`` launches read around it; then one more
-     decode step with every row full under ``torch.profiler``, for the
-     device-busy share;
-  8. training: a reduced granite-3-2b trained 2 steps on the card against
+     decode step with every row full under ``torch.profiler`` inside
+     ``obs.enable()``, for the device-busy share and the step's
+     ``serve.decode_step`` range, and one more with its registry and
+     trace calls counted and replayed in a timed loop (host µs a step);
+  8. chaos: ``python -m repro_torch.chaos`` (every fault class on its own
+     small model) on the card and with ``--device cpu``, both exit 0 with
+     equal statuses and tokens, ``guard_flags`` launches read around the
+     card run; ``repro_torch.chaos.restart.run_scenario`` for ``bf16``,
+     ``f32`` and ``ff_bf16`` pages with the child process on the card,
+     SIGKILLed mid-decode and resumed bit for bit;
+  9. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
      the sequence-chunked loss, each also under ``ff_math`` with
      ``ff.use(silu="pallas")``; 2 steps with a ``ckpt_dir``, a crash and a
@@ -146,7 +160,7 @@ Phases (any failed check raises, so the script exits non-zero):
      launch counts read around them, and one more under the profiler; the serving and training runs launch
      none of the fused-composite kernels, nor (but for the ``ff_math``
      runs) this slice's;
-  9. timing: each kernel, its plain version and a PyTorch yardstick with
+  10. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound (FF
      attention at the prefill, training and long-step shapes); the
      elementwise rows at (4096, 4096) and AdamW at ``w_gate`` must have
@@ -1176,9 +1190,10 @@ def phase_matmul(torch, clock_hz):
 # ---------------------------------------------------------------------------
 
 # whole-row shapes: the reference table's two, granite-3-2b's d_model rows
-# of a 4 x 128 step, the longest row the kernels take, a ragged one
+# of a 4 x 128 step, the longest row the kernels take, a ragged one, and
+# the chaos smoke's token scores (1-3 rows over its vocabulary of 256)
 ROW_SHAPES = ((4096, 4096), (256, 1024), (512, 2048), (64, 16384),
-              (3, 1000))
+              (3, 1000), (1, 256), (2, 256), (3, 256))
 TABLE_SHAPES = ((256, 1024), (4096, 4096), (512, 2048))
 # per element: the 128-lane cascade of one value, TwoSum, the row max,
 # Div22; the f32 builtins expf/logf counted as one instruction each (a
@@ -1563,7 +1578,7 @@ TUNE_SHAPES = ((256, 1024), (4096, 4096), (512, 2048), (512, 8192))
 TUNE_OPS = ("add", "mul", "div", "sqrt", "sum", "exp", "expm1", "log",
             "log1p", "tanh", "sigmoid", "erf", "gelu", "silu", "pow")
 DEFAULT_SHAPE = (512, 2048)
-FF_MATH_REQUESTS, FF_MATH_MAX_NEW = 4, 6
+FF_MATH_REQUESTS, FF_MATH_MAX_NEW = 4, 4
 # the one-kernel tier of each tuned op, by the launch counts' names
 KERNEL_TIER = {"pallas": {**{op: "ff_elementwise" for op in
                              ("add", "mul", "div", "sqrt")},
@@ -2424,7 +2439,7 @@ def phase_ops(torch, clock_hz):
 # the guard: guard_flags, the add/sub/mul gradients, guarded serving
 
 GUARD_ENGINE = dict(max_batch=4, page_size=16, max_ctx=128)
-GUARD_REQUESTS, GUARD_MAX_NEW = 4, 6
+GUARD_REQUESTS, GUARD_MAX_NEW = 4, 4
 GUARD_OPS = 7            # f32 ops an element: multiply, compare, 3 selects,
                          # 2 adds (the integer bit tests not counted)
 GUARD_BYTES = 12         # hi and lo read, the code written
@@ -2742,43 +2757,6 @@ def phase_grad_checks(torch, cfg):
     torch.cuda.synchronize()
 
 
-def flip_block_table(kv, slot, mode, rng):
-    """Corrupt one live block-table entry of ``slot`` (the draws of the
-    reference's ``ChaosMonkey.flip_block_table``): ``"oob"`` a page id past
-    the pool, ``"dup"`` another live slot's page, ``"free"`` a page on the
-    free list."""
-    idx = int(rng.integers(kv.pages_for(int(kv.seq_lens[slot]))))
-    if mode == "oob":
-        new = kv.num_pages + int(rng.integers(1, 9))
-    elif mode == "dup":
-        pages = [int(p) for s in range(kv.max_seqs) if s != slot
-                 for p in kv.block_table[s][:kv.pages_for(int(kv.seq_lens[s]))]
-                 if int(p) >= 0]
-        new = pages[int(rng.integers(len(pages)))]
-    else:
-        new = int(kv.free_pages[int(rng.integers(len(kv.free_pages)))])
-    kv.block_table[slot, idx] = new
-
-
-def poison_kv(kv, slot, n, rng):
-    """NaN in ``n`` distinct live K/V positions of ``slot`` (the draws of
-    the reference's ``ChaosMonkey.corrupt_kv_limbs``, repeated until
-    distinct).  Returns their (plane, layer, position, head, dim)."""
-    live, ps = int(kv.seq_lens[slot]), kv.page_size
-    coords = []
-    while len(coords) < n:
-        c = (("k", "v")[rng.integers(2)], int(rng.integers(kv.num_layers)),
-             int(rng.integers(live)), int(rng.integers(kv.num_kv_heads)),
-             int(rng.integers(kv.head_dim)))
-        if c in coords:
-            continue
-        base, layer, pos, head, dim = c
-        page = int(kv.block_table[slot, pos // ps])
-        kv.planes[base][layer, page, pos % ps, head, dim] = float("nan")
-        coords.append(c)
-    return coords
-
-
 def phase_serve_guard(torch, params, cfg):
     """granite-3-2b at full width under ``policy("ff_reduce",
     attention="pallas")``, GUARD_REQUESTS requests: (1) ``guard="check"``,
@@ -2786,13 +2764,15 @@ def phase_serve_guard(torch, params, cfg):
     ``guard="off"``, every guard count 0, ``probe_kv()`` with the kernel
     (``ff.use(guard_probe="pallas")``) equal to the jnp impl's; (2)
     ``guard="degrade"`` with NaN written into 2 live K/V positions of slot
-    0 after one step: the kernel probe counts exactly 2 non-finite, every
+    0 after one step by the port's injector (``ChaosMonkey(SEED +
+    6).corrupt_kv_limbs``): the kernel probe counts exactly 2 non-finite, every
     request ends terminal, slot 0's DEGRADED; each DEGRADED row's tokens
     are ``greedy_generate`` on the card under the engine's fast policy,
     each OK row's those of run (1).  Returns the launch counts of the
     check and degrade runs."""
     import numpy as np
     import repro_torch.ff as ff
+    from repro_torch.chaos import ChaosMonkey
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.train.serve_step import greedy_generate
     t0 = time.perf_counter()
@@ -2845,8 +2825,8 @@ def phase_serve_guard(torch, params, cfg):
     seen = {}
 
     def inject(eng):
-        seen["coords"] = poison_kv(eng.kv, 0, 2, np.random.default_rng(
-            SEED + 6))
+        seen["coords"] = ChaosMonkey(SEED + 6).corrupt_kv_limbs(
+            eng.kv, 0, kind="nan", n=2)
         with ff.use(guard_probe="pallas"):
             seen["probe"] = [int(c) for c in eng.probe_kv()]
 
@@ -2944,6 +2924,7 @@ def phase_small_engine(torch):
     engine on the CPU, where every kernel is its plain version."""
     import numpy as np
     import repro_torch.ff as ff
+    from repro_torch.chaos import ChaosMonkey
     from repro_torch.configs.granite_3_2b import CONFIG
     from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
@@ -3037,7 +3018,7 @@ def phase_small_engine(torch):
             for i, p in enumerate(prompts):
                 eng.submit(Request(uid=i, prompt=p, max_new=4))
             eng.step()
-            flip_block_table(eng.kv, 1, mode, np.random.default_rng(SEED + 7))
+            ChaosMonkey(SEED + 7).flip_block_table(eng.kv, 1, mode=mode)
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", ff.FFGuardWarning)
                 results[dev] = eng.run()
@@ -3057,9 +3038,79 @@ def phase_small_engine(torch):
             f"guard_stats {stats['cuda']}; metadata clean afterwards")
 
 
+# the full-width decode step before the obs tier was wired in (PERF.md
+# section 5; H100 80GB HBM3, 700.00 W), printed beside this run's
+BASELINE_DECODE_STEP_MS = 4022.427208466663
+
+
+def series_total(counters, name, **labels):
+    """The sum of ``name``'s counter series whose labels include
+    ``labels``."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return sum(n for s, n in counters.items()
+               if s.split("{")[0] == name and all(w in s for w in want))
+
+
+def check_serve_obs(eng, res, reqs, before, launches, n_tok):
+    """The full-width run's own metrics and trace (``eng.obs``) and the
+    process-global dispatch telemetry (``obs.REGISTRY``'s delta from
+    ``before``): every request OK and counted, the tokens counted, the
+    decode-step histogram equal to ``decode_s`` (count and sum), the
+    ``mean_sq`` resolutions on ``backend="cuda"`` as many as its kernel's
+    launches and the ``pallas`` attention resolutions one a layer of each
+    forward (a decode step's, with per-row lengths, takes the plain
+    version and launches nothing), one ``request`` span per request with a
+    documented status, and a Chrome trace that survives a JSON round
+    trip with sorted non-negative timestamps."""
+    from repro_torch import obs
+    from repro_torch.serve import STATUSES
+    snap = eng.obs.snapshot()
+    c, h = snap["counters"], snap["histograms"]
+    dec = h["serve_decode_step_seconds"]
+    glob = obs.REGISTRY.delta(before)["counters"]
+    res_name = "ff_dispatch_resolutions_total"
+    got = {"requests_ok": c.get('serve_requests_total{status="OK"}'),
+           "tokens_emitted": c.get("serve_tokens_emitted_total"),
+           "decode_hist_count": dec["count"], "decode_hist_sum": dec["sum"],
+           "prefill_hist_count": h["serve_prefill_seconds"]["count"],
+           "mean_sq_resolutions": series_total(
+               glob, res_name, op="mean_sq", impl="fused", backend="cuda"),
+           "attention_resolutions": series_total(
+               glob, res_name, op="attention", impl="pallas",
+               backend="cuda")}
+    want = {"requests_ok": len(reqs), "tokens_emitted": n_tok,
+            "decode_hist_count": eng.decode_steps,
+            "decode_hist_sum": sum(eng.decode_s),
+            "prefill_hist_count": len(eng.prefill_s),
+            "mean_sq_resolutions": launches["mean_sq"],
+            "attention_resolutions": eng.cfg.num_layers * (
+                len(eng.prefill_s) + eng.decode_steps)}
+    if got != want:
+        raise AssertionError(f"serving metrics {got} != {want}")
+    payload = json.loads(json.dumps(eng.obs.to_chrome_trace()))
+    evs = payload["traceEvents"]
+    spans = [e for e in evs if e["ph"] == "X" and e["name"] == "request"]
+    ts = [e["ts"] for e in evs if e["ph"] != "M"]
+    if sorted(e["args"]["uid"] for e in spans) != sorted(
+            r.uid for r in reqs) or any(
+            e["args"]["status"] not in STATUSES
+            or e["args"]["status"] != res[e["args"]["uid"]].status
+            for e in spans) or ts != sorted(ts) or min(ts) < 0 or any(
+            e["dur"] < 0 for e in evs if e["ph"] == "X"):
+        raise AssertionError(f"serving trace: {len(spans)} request spans, "
+                             f"{len(evs)} events")
+    resolved = sorted(s for s, n in glob.items()
+                      if n and s.startswith(res_name))
+    log(f"serving obs: {json.dumps(got)}; {len(spans)} request spans "
+        f"(statuses {sorted({e['args']['status'] for e in spans})}), "
+        f"{len(evs)} trace events, JSON round trip, timestamps sorted; "
+        f"resolution series {resolved}")
+
+
 def phase_serve(torch, card: str):
     import numpy as np
     import repro_torch.ff as ff
+    from repro_torch import obs
     from repro_torch.configs.granite_3_2b import CONFIG as cfg
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
@@ -3069,13 +3120,14 @@ def phase_serve(torch, card: str):
     n_params = sum(t.numel() for t in _leaves(params))
     with ff.policy("ff_reduce", attention="pallas"):
         eng = ServeEngine(params, cfg, max_batch=4, page_size=16,
-                          max_ctx=128)
+                          max_ctx=128, obs=obs.Observer())
     torch.cuda.synchronize()
     log(f"granite-3-2b: {n_params / 1e9:.3f} B params (f32) + bf16 copy, "
         f"set up in {time.perf_counter() - t0:.1f} s")
     reqs = serve_requests(np.random.default_rng(SEED), cfg.vocab_size)
 
     reset_launch_counts()
+    before = obs.REGISTRY.snapshot()
     t0 = time.perf_counter()
     for r in reqs:
         if eng.submit(r) != "QUEUED":
@@ -3109,6 +3161,7 @@ def phase_serve(torch, card: str):
         if not gap <= 1e-4:
             raise AssertionError(f"uid {r.uid}: FF vs f32 score {gap:.2e}")
         n_tok += len(out.tokens)
+    check_serve_obs(eng, res, reqs, before, launches, n_tok)
     serving = {"requests": len(reqs), "tokens": n_tok,
                "tokens_per_s": n_tok / wall,
                "decode_step_ms": 1e3 * float(np.mean(eng.decode_s)),
@@ -3302,43 +3355,138 @@ def phase_serve_durable(torch, eng, cfg, card):
     return launches
 
 
+def kineto_events(prof):
+    """The raw events of a ``torch.profiler`` capture.  They are read
+    through ``prof.profiler.kineto_results``, which is not public torch
+    API (parsing them into ``prof.events()`` takes minutes for a decode
+    step's ~400,000 launches): if a torch release drops it, this raises
+    rather than let a busy share read 0."""
+    res = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if res is None or not hasattr(res, "events"):
+        raise AssertionError(
+            f"torch {__import__('torch').__version__}: the profiler has no "
+            f"kineto_results.events(); the device-busy shares cannot be read")
+    return res.events()
+
+
 def device_busy_us(prof):
     """(device operations, the union of their intervals in us) that
-    ``torch.profiler`` recorded."""
+    ``torch.profiler`` recorded, from its raw events
+    (:func:`kineto_events`); the device-side copies of
+    ``record_function`` ranges, which span idle gaps, left out."""
     from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in kineto_events(prof)
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.is_user_annotation())
+    busy, end = 0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return len(spans), busy
+    return len(spans), busy / 1e3
+
+
+class ObsCallCounter:
+    """Inside the ``with``: every registry accessor call (``counter``,
+    ``gauge``, ``histogram``) and trace emitter call (``complete``,
+    ``instant``, ``counter``, ``name_request_track``) recorded in
+    ``calls``.  :meth:`host_us` replays them on a fresh registry and
+    trace in a timed loop (each counter incremented, gauge set, histogram
+    observed), host clock, and returns the us one replay takes."""
+
+    def __enter__(self):
+        from repro_torch import obs
+        self.obs, self.calls, self._saved = obs, [], []
+        for cls, names in ((obs.MetricsRegistry, ("counter", "gauge",
+                                                  "histogram")),
+                           (obs.TraceRecorder, ("complete", "instant",
+                                                "counter",
+                                                "name_request_track"))):
+            for name in names:
+                fn = getattr(cls, name)
+                self._saved.append((cls, name, fn))
+
+                def spy(this, *a, _fn=fn, _kind=(cls, name), **k):
+                    self.calls.append((_kind, a, k))
+                    return _fn(this, *a, **k)
+                setattr(cls, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        return False
+
+    def counts(self):
+        n_reg = sum(c[0][0] is self.obs.MetricsRegistry for c in self.calls)
+        return n_reg, len(self.calls) - n_reg
+
+    def host_us(self, reps=2000):
+        reg, trace = self.obs.MetricsRegistry(), self.obs.TraceRecorder()
+        op = {"counter": lambda m: m.inc(), "gauge": lambda m: m.set(1.0),
+              "histogram": lambda m: m.observe(4.0)}
+
+        def replay():
+            for (cls, name), a, k in self.calls:
+                if cls is self.obs.MetricsRegistry:
+                    op[name](getattr(reg, name)(*a, **k))
+                else:
+                    getattr(trace, name)(*a, **k)
+        replay()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            replay()
+        return (time.perf_counter() - t0) / reps * 1e6
 
 
 def phase_decode_profile(torch, eng, cfg):
-    """Device-busy share of one decode step with every row full: the union
-    of the device intervals that torch.profiler records in the step, over
-    the step's wall time on the host clock."""
+    """Device-busy share of one decode step with every row full, inside
+    ``obs.enable()``: the union of the device intervals that
+    torch.profiler records in the step, over the step's wall time on the
+    host clock; the capture must hold the step's ``serve.decode_step``
+    range.  The step's registry and trace calls are counted
+    (:class:`ObsCallCounter`; no row retires in it) and their host time
+    measured by replaying them."""
     import numpy as np
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
     from repro_torch.serve import Request
     unprofiled_ms = 1e3 * float(np.mean(eng.decode_s))   # the served run
     rng = np.random.default_rng(SEED + 2)
     for i in range(eng.max_batch):
         eng.submit(Request(uid=1000 + i, prompt=rng.integers(
             1, cfg.vocab_size, size=PROMPT_LENS[1]).astype(np.int32),
-            max_new=3))
+            max_new=4))
     eng.step()                  # admits (prefills) every row, one decode
     torch.cuda.synchronize()
-    steps, prefills = eng.decode_steps, len(eng.prefill_s)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    steps, prefills, done = (eng.decode_steps, len(eng.prefill_s),
+                             len(eng.results))
+    with obs.enable(), ObsCallCounter() as counter, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()              # one decode step of every row, no admission
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if eng.decode_steps != steps + 1 or len(eng.prefill_s) != prefills:
-        raise AssertionError("profiled step was not one decode step")
+    if eng.decode_steps != steps + 1 or len(eng.prefill_s) != prefills \
+            or len(eng.results) != done:
+        raise AssertionError("profiled step was not one decode step (or "
+                             "a row retired in it)")
+    ranges = sum(e.name() == "serve.decode_step"
+                 and e.device_type() == DeviceType.CPU
+                 for e in kineto_events(prof))
+    if ranges != 1:
+        raise AssertionError(f"the profiled step holds {ranges} "
+                             f"serve.decode_step ranges")
+    n_reg, n_trace = counter.counts()
+    us = counter.host_us()
+    log(f"obs in one full-width decode step: {n_reg} registry calls and "
+        f"{n_trace} trace calls, {us:.1f} host us when replayed; the "
+        f"served run's step {unprofiled_ms:.1f} ms (before the obs tier: "
+        f"{BASELINE_DECODE_STEP_MS:.1f} ms)")
+    while eng.step():
+        pass
     n_ops, busy = device_busy_us(prof)
     if not n_ops:
         log("decode step device-busy share: not measured (the profiler "
@@ -3348,9 +3496,79 @@ def phase_decode_profile(torch, eng, cfg):
                  "step_wall_ms": wall * 1e3,
                  "busy_share": busy / 1e3 / (wall * 1e3),
                  "unprofiled_step_ms": unprofiled_ms,
-                 "busy_share_of_unprofiled": busy / 1e3 / unprofiled_ms}
-    log(f"decode step under torch.profiler: {json.dumps(prof_step)}")
+                 "busy_share_of_unprofiled": busy / 1e3 / unprofiled_ms,
+                 "serve.decode_step_ranges": ranges,
+                 "obs_calls": [n_reg, n_trace], "obs_host_us": us}
+    log(f"decode step under torch.profiler (CPU and CUDA activity, inside "
+        f"obs.enable()): {json.dumps(prof_step)}")
     return prof_step
+
+
+def phase_chaos(torch):
+    """``python -m repro_torch.chaos`` (the guarded-serving smoke over
+    every fault class, on its own small model) on the card and with
+    ``--device cpu``: both exit 0, and every scenario's statuses and
+    tokens are equal on the two devices.  The card run's launches are
+    read around it (the smoke's ``probe_kv`` under
+    ``guard_probe="pallas"`` launches ``guard_flags``).  Returns them."""
+    import contextlib
+    import io
+    from repro_torch.chaos.__main__ import main as chaos_main
+    reports, secs, checks = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cuda":
+            reset_launch_counts()
+        reports[dev], out = {}, io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            code = chaos_main(["--device", dev], report=reports[dev])
+        secs[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = launch_counts()
+        text = out.getvalue()
+        checks[dev] = text.count("  [ok] ")
+        if code != 0 or "[FAIL]" in text:
+            raise AssertionError(f"chaos smoke on {dev} exited {code}:\n"
+                                 + text[-4000:])
+    if reports["cuda"] != reports["cpu"]:
+        diff = {k: (reports["cuda"].get(k), reports["cpu"].get(k))
+                for k in sorted(set(reports["cuda"]) | set(reports["cpu"]))
+                if reports["cuda"].get(k) != reports["cpu"].get(k)}
+        raise AssertionError(f"chaos smoke card != CPU: {diff}")
+    if launches["ff_guard"] < 2:
+        raise AssertionError(f"chaos smoke on the card launched ff_guard "
+                             f"{launches['ff_guard']} times")
+    statuses = {k: sorted({s for s, _ in v.values()})
+                for k, v in reports["cuda"].items()}
+    log(f"chaos smoke: exit 0 on the card ({checks['cuda']} checks, "
+        f"{secs['cuda']:.1f} s) and the CPU ({checks['cpu']} checks, "
+        f"{secs['cpu']:.1f} s); statuses and tokens equal in all "
+        f"{len(reports['cuda'])} scenarios {json.dumps(statuses)}; card "
+        f"launches {launches}")
+    return launches
+
+
+def phase_restart_chaos(torch):
+    """``repro_torch.chaos.restart.run_scenario`` for each ``kv_mode``
+    with the child process on the card: SIGKILLed mid-decode (its
+    ``done`` marker absent), resumed from its newest snapshot that
+    verifies and its journal, every request OK with the tokens, and the
+    FF score limbs bit for bit, of an uninterrupted run (the checks are
+    run_scenario's own)."""
+    import tempfile
+    from repro_torch.chaos.restart import KV_MODES, run_scenario
+    t0 = time.perf_counter()
+    rows = []
+    for mode in KV_MODES:
+        with tempfile.TemporaryDirectory(prefix=f"restart-{mode}-") as d:
+            rep = run_scenario(d, mode, device="cuda", timeout_s=300.0)
+        rows.append({k: rep[k] for k in (
+            "kv_mode", "killed_at_snaps", "killed_at_step",
+            "resumed_from_step", "statuses", "seconds")})
+    log(f"restart chaos on the card (child SIGKILLed mid-decode, resumed, "
+        f"tokens and FF scores bit for bit the uninterrupted run): "
+        f"{json.dumps(rows)}; phase {time.perf_counter() - t0:.1f} s")
 
 
 def train_batches(vocab: int, seq: int, batch: int, n: int, device):
@@ -3569,6 +3787,8 @@ def phase_train(torch, card: str):
         if rec["launches"] != want:
             raise AssertionError(f"step {rec['step']} launches "
                                  f"{rec['launches']} != {want}")
+    telemetry = train_telemetry(torch, step, params, state, batches)
+    params, state = telemetry.pop("params"), telemetry.pop("state")
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3592,7 +3812,7 @@ def phase_train(torch, card: str):
                           "busy_share": busy / 1e3 / (wall * 1e3),
                           "busy_share_of_unprofiled":
                               busy / 1e3 / (sum(steady) / len(steady))},
-        "card": card}
+        "telemetry": telemetry, "card": card}
     log(f"training: {json.dumps(training)}")
     if not n_ops:
         log("training step device-busy share: not measured (the profiler "
@@ -3619,6 +3839,49 @@ def phase_train(torch, card: str):
         torch, cfg, opt, params, state, batches[:FF_MATH_TRAIN_STEPS + 1],
         training["steady_step_ms"], peak_gb, card)
     return launches, ff_math_launches
+
+
+def train_telemetry(torch, step, params, state, batches, pairs=3):
+    """What the process-wide telemetry (dispatch resolutions, tune
+    lookups into ``obs.REGISTRY``) costs a full-width training step: one
+    step's registry calls counted (:class:`ObsCallCounter`) and replayed
+    for host us, then ``pairs`` steps with the hooks off (``obs.record`` a
+    no-op) alternated with as many with them on, host clock with sync.
+    Returns the numbers and the state after the steps."""
+    import statistics
+    from repro_torch import obs
+
+    def timed(i):
+        nonlocal params, state
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i % TRAIN_STEPS])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        if not math.isfinite(loss):
+            raise AssertionError(f"telemetry step: loss {loss}")
+        return (time.perf_counter() - t0) * 1e3
+    with ObsCallCounter() as counter:
+        timed(0)
+    n_reg, n_trace = counter.counts()
+    replay_us = counter.host_us(reps=20)
+    arms = {"off": [], "on": []}
+    saved = obs.record
+    for i in range(2 * pairs):
+        arm = ("off", "on")[i % 2]
+        if arm == "off":
+            obs.record = lambda *a: None
+        try:
+            arms[arm].append(timed(i + 1))
+        finally:
+            obs.record = saved
+    res = {"registry_calls": n_reg, "trace_calls": n_trace,
+           "replay_host_ms": replay_us / 1e3,
+           "step_ms_hooks_off": arms["off"], "step_ms_hooks_on": arms["on"],
+           "median_on_minus_off_ms": statistics.median(arms["on"])
+           - statistics.median(arms["off"])}
+    log(f"telemetry in one full-width training step: {json.dumps(res)}")
+    res.update(params=params, state=state)
+    return res
 
 
 def train_ff_math(torch, cfg, opt, params, state, batches, plain_ms,
@@ -3971,6 +4234,9 @@ def main() -> int:
     log(f"serving engine freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
         f"GB still allocated")
     mark("serving")
+    chaos_launches = phase_chaos(torch)
+    phase_restart_chaos(torch)
+    mark("chaos")
     phase_small_train(torch)
     train_launches, train_ff_math_launches = phase_train(torch, card)
     gc.collect()
@@ -3982,7 +4248,7 @@ def main() -> int:
                 "serve_ff_math": ff_math_launches,
                 "serve_guard": guard_launches,
                 "train_ff_math": train_ff_math_launches,
-                "serve_durable": durable_launches}
+                "serve_durable": durable_launches, "chaos": chaos_launches}
     kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
                + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
                + fused_kernel_entries(launches, fused_worst, fused_rows)

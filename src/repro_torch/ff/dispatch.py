@@ -21,8 +21,12 @@ the call's device where the reference keys it by JAX backend; a winner
 this build does not register falls through to the static default.
 ``resolve_opts`` gives the tuned block config of a resolved impl, which
 the calls merge under their explicit options.  Each resolution is
-counted in ``RESOLUTIONS`` by (op, impl, source, device, bucket), the
-reference's resolution telemetry.  Mesh resolution is not ported yet.
+counted in ``RESOLUTIONS`` by (op, impl, source, device, bucket) and,
+on the same event, in ``repro_torch.obs.REGISTRY``'s
+``ff_dispatch_resolutions_total`` (the reference's resolution telemetry;
+the port runs eagerly, so every call resolves and is counted, where the
+reference counts at trace time only, and the ``backend`` label is the
+device type).  Mesh resolution is not ported yet.
 
 Implementation names are the reference's, so one policy string means the
 same in both packages: ``"pallas"`` (``"pallas_*"`` for matmul and sum)
@@ -49,6 +53,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import compensated, ffmatmul, ffmath
 from repro_torch.core import ff as core_ff
 from repro_torch.core import transforms as T
@@ -146,8 +151,9 @@ def resolve_name(op: str, impl: Optional[str] = None, device=None,
         op, name)
     if final != name:
         name, src = final, "guard_degraded"
-    RESOLUTIONS[(op, name, src, dev,
-                 tuning.bucket_key(shape) if shape else "")] += 1
+    bucket = tuning.bucket_key(shape) if shape else ""
+    RESOLUTIONS[(op, name, src, dev, bucket)] += 1
+    obs.record("record_resolution", op, name, src, dev, bucket)
     return name
 
 
@@ -523,12 +529,14 @@ def _mm_compensated(a, b, *, block_k: int = 512, **_kw) -> FF:
 
 def _mm_ozaki(a, b, *, slices: int = 0, beta: int = 0, block_k: int = 0,
               **_kw) -> FF:
-    """Exact-slice Ozaki matmul (~2^-46)."""
-    if a.device.type == "cuda":
-        return FF(*ff_matmul.ff_matmul_ozaki(a, b, slices=slices, beta=beta,
-                                             bk=block_k or 512))
-    return ffmatmul.matmul_ozaki(a, b, slices=slices, beta=beta,
-                                 block_k=block_k)
+    """Exact-slice Ozaki matmul (~2^-46), annotated ``ff.matmul_ozaki``
+    for profiles inside ``obs.enable()``."""
+    with obs.annotate("ff.matmul_ozaki"):
+        if a.device.type == "cuda":
+            return FF(*ff_matmul.ff_matmul_ozaki(
+                a, b, slices=slices, beta=beta, bk=block_k or 512))
+        return ffmatmul.matmul_ozaki(a, b, slices=slices, beta=beta,
+                                     block_k=block_k)
 
 
 def _mm_pallas_ozaki(a, b, *, slices: int = 0, beta: int = 0, bm: int = 128,

@@ -27,9 +27,11 @@ invariants observable and recoverable:
 
 The port runs eagerly, so :func:`protect` brings its two counts to the
 host (one sync) where the reference hands them to a ``jax.debug.callback``;
-with the mode ``off`` it does nothing.  The reference's ``obs`` telemetry
-calls are left out: ``repro_torch`` has no ``obs`` yet (ROADMAP, queue
-item 5).  Scopes are thread-local Python state, like ``ff.policy``.
+with the mode ``off`` it does nothing.  Every recorded violation also
+counts in ``repro_torch.obs.REGISTRY`` (``ff_guard_violations_total``,
+past the warn-once), and every warning in ``ff_warnings_total``, as in
+the reference.  Scopes are thread-local Python state, like
+``ff.policy``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ff import FF
 from repro_torch.ff import dispatch, tuning
 from repro_torch.kernels.ff_guard import flag_planes, guard_flags
@@ -185,11 +188,13 @@ class GuardScope:
 
     def record(self, op: str, kind: str, count: int = 1) -> None:
         """Count a detected violation; warn once per (op, kind); in
-        ``degrade`` mode mark ``op`` for one-class-lower resolution."""
+        ``degrade`` mode mark ``op`` for one-class-lower resolution.  The
+        obs counter accumulates on every call, past the warn-once."""
         if self.mode == "off" or count <= 0:
             return
         key = (op, kind)
         self.counters[key] = self.counters.get(key, 0) + int(count)
+        obs.record("record_guard_violation", op, kind, int(count))
         if self.mode == "degrade" and kind in _ERRORS:
             self.degraded.add(op)
         if key not in self._warned:
@@ -197,6 +202,7 @@ class GuardScope:
             act = ("degrading ff.%s one accuracy class for this scope"
                    % op if self.mode == "degrade" and kind in _ERRORS
                    else "counting only (mode=%r)" % self.mode)
+            obs.record("record_warning", "guard")
             warnings.warn(f"ff.guard: {count} {kind} FF element(s) in "
                           f"ff.{op} — {act}", FFGuardWarning, stacklevel=2)
 
@@ -304,6 +310,7 @@ def maybe_degrade(op: str, name: str) -> str:
     key = (op, "degrade-resolve")
     if key not in g._warned:
         g._warned.add(key)
+        obs.record("record_warning", "guard")
         warnings.warn(f"ff.guard(mode='degrade'): resolving ff.{op} to "
                       f"fast-class impl {swap!r} (was {name!r}) for this "
                       f"scope", FFGuardWarning, stacklevel=3)

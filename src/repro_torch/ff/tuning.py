@@ -37,6 +37,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 CACHE_ENV = "REPRO_TORCH_FF_TUNE_CACHE"
 SIDECAR = "FF_TUNE_torch.json"
 
@@ -278,6 +280,7 @@ def clear() -> None:
 
 def _warn_tune(msg: str) -> None:
     from repro_torch.ff.guard import FFTuneWarning
+    obs.record("record_warning", "tune")
     warnings.warn(msg, FFTuneWarning, stacklevel=3)
 
 
@@ -360,6 +363,8 @@ def lookup(op: str, shape: Sequence[int], accuracy: str = "fast",
     ``accuracy`` for the shape bucket on ``device`` (None: none)."""
     _ensure_loaded()
     rec = _bucket_store(op, device).get(bucket_key(shape))
+    obs.record("record_tune_lookup",
+               bool(rec) and rec.get(accuracy) is not None)
     return rec.get(accuracy) if rec else None
 
 

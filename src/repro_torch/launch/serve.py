@@ -5,7 +5,8 @@ prefill and greedy decode loop, or the continuous-batching engine::
         [--batch 4] [--prompt-len 32] [--max-new 16] [--device cpu]
     python -m repro_torch.launch.serve --arch granite-3-2b --engine \\
         [--kv-mode bf16|f32|ff_bf16] [--guard off|check|degrade] \\
-        [--snapshot-dir DIR [--snapshot-every N] [--resume]]
+        [--snapshot-dir DIR [--snapshot-every N] [--resume]] \\
+        [--metrics-json FILE] [--trace-out FILE] [--metrics-port PORT]
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights come from
 seed 0, the engine's prompts (lengths between half ``--prompt-len`` and
@@ -17,9 +18,13 @@ FF token scores); with ``--snapshot-dir`` it journals every request to
 restarts from the newest snapshot that verifies and replays the journal
 instead of submitting new requests.
 
-``--mesh`` waits for the port's mesh tier, ``--metrics-json``,
-``--trace-out`` and ``--metrics-port`` for its ``obs`` tier (ROADMAP,
-queue 1, items 8 and 5): each stops with an error.
+``--metrics-json`` writes the engine's metrics and the process-global
+telemetry (:meth:`repro_torch.obs.Observer.dump_metrics`) after the run,
+``--trace-out`` the Chrome trace (open it in Perfetto), and
+``--metrics-port`` serves both registries as Prometheus text on
+``http://127.0.0.1:PORT/metrics`` while the engine runs; each needs
+``--engine``.  ``--mesh`` waits for the port's mesh tier (ROADMAP, queue
+1, item 8) and stops with an error.
 """
 
 from __future__ import annotations
@@ -35,10 +40,38 @@ import torch
 from repro_torch import resolve_device
 
 #: the reference's flags the port does not serve yet -> the ROADMAP item
-_NOT_PORTED = {"--mesh": "queue 1, item 8 (mesh tier)",
-               "--metrics-json": "queue 1, item 5 (obs)",
-               "--trace-out": "queue 1, item 5 (obs)",
-               "--metrics-port": "queue 1, item 5 (obs)"}
+_NOT_PORTED = {"--mesh": "queue 1, item 8 (mesh tier)"}
+
+
+def _start_metrics_server(observer, port: int):
+    """Serve ``observer``'s registry and ``repro_torch.obs.REGISTRY`` as
+    Prometheus text on ``/metrics`` at 127.0.0.1, from a daemon thread.
+    ``port=0`` takes a free port (``srv.server_address[1]``)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            if self.path.rstrip("/") not in ("", "/metrics"):
+                self.send_response(404)
+                self.end_headers()
+                return
+            from repro_torch import obs
+            body = (observer.registry.to_prometheus()
+                    + obs.REGISTRY.to_prometheus()).encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):            # quiet: stats, not access logs
+            pass
+
+    srv = HTTPServer(("127.0.0.1", port), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -70,6 +103,19 @@ def _parser() -> argparse.ArgumentParser:
                     help="--engine: restart from the newest snapshot that "
                          "verifies under --snapshot-dir and replay the "
                          "journal, instead of submitting new requests")
+    ap.add_argument("--metrics-json", default=None,
+                    help="--engine: write the metrics snapshot (the "
+                         "engine's counters, gauges and histograms and the "
+                         "global dispatch/tune/guard/journal telemetry) to "
+                         "this JSON file after the run")
+    ap.add_argument("--trace-out", default=None,
+                    help="--engine: write the Chrome trace-event JSON "
+                         "(per-request spans, per-step events; open in "
+                         "Perfetto) to this file")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="--engine: serve Prometheus text on "
+                         "http://127.0.0.1:PORT/metrics while the engine "
+                         "runs (0 takes a free port)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     for flag, item in _NOT_PORTED.items():
@@ -91,6 +137,10 @@ def main(argv: Optional[Sequence[str]] = None):
         ap.error("--snapshot-every/--resume require --snapshot-dir")
     if args.snapshot_dir and not args.engine:
         ap.error("--snapshot-dir requires --engine")
+    if (args.metrics_json or args.trace_out
+            or args.metrics_port is not None) and not args.engine:
+        ap.error("--metrics-json/--trace-out/--metrics-port require "
+                 "--engine")
 
     import repro_torch.ff as ff
     from repro_torch.configs import get_config
@@ -104,14 +154,23 @@ def main(argv: Optional[Sequence[str]] = None):
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
     max_ctx = args.prompt_len + args.max_new + 8
     if args.engine:
+        from repro_torch import obs
         from repro_torch.serve import Request, ServeEngine, resume_engine
         journal = (os.path.join(args.snapshot_dir, "wal.jsonl")
                    if args.snapshot_dir else None)
+        observer = obs.Observer()
+        metrics_server = None
+        if args.metrics_port is not None:
+            metrics_server = _start_metrics_server(observer,
+                                                   args.metrics_port)
+            print(f"[serve] metrics: http://127.0.0.1:"
+                  f"{metrics_server.server_address[1]}/metrics")
         rng = np.random.default_rng(1)
         lo = max(4, args.prompt_len // 2)
         lens = rng.integers(lo, args.prompt_len + 1, size=args.batch)
         knobs = dict(max_batch=args.batch, max_ctx=max_ctx,
-                     kv_mode=args.kv_mode, guard=args.guard, device=device)
+                     kv_mode=args.kv_mode, guard=args.guard, device=device,
+                     obs=observer)
         if args.resume:
             t0 = time.perf_counter()
             eng = resume_engine(params, cfg, args.snapshot_dir,
@@ -147,6 +206,16 @@ def main(argv: Optional[Sequence[str]] = None):
               f"{mean_lp:.4f}, status {status}")
         if results:
             print(results[sorted(results)[0]].tokens)
+        if args.metrics_json:
+            observer.dump_metrics(args.metrics_json)
+            print(f"[serve] metrics snapshot -> {args.metrics_json}")
+        if args.trace_out:
+            observer.dump_trace(args.trace_out)
+            print(f"[serve] Perfetto trace ({len(observer.trace.events())} "
+                  f"events) -> {args.trace_out}")
+        if metrics_server is not None:
+            metrics_server.shutdown()
+            metrics_server.server_close()
         return results
     gen = torch.Generator(device=device).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -58,7 +58,20 @@ snapshot_every=)`` snapshots on a writer thread, and :func:`resume_engine`
 restores the newest generation that verifies and replays the journal.
 The snapshot and checkpoint files are the reference's format.
 
-Not ported yet: ``obs`` (metrics and trace spans).
+Observability, as in the reference: every engine records into an
+:class:`~repro_torch.obs.Observer` (``obs=``, else its own): request
+counts per status, tokens emitted, the prefill, decode-step and flush
+histograms, tokens/s between flushes, queue depth, active rows and pages
+used per scheduler step, snapshots written, and ``guard_stats`` as a view
+over ``serve_guard_events_total{kind=...}``; its trace holds one
+``request`` span per request with ``queued``, ``prefill`` and ``decode``
+children, instants for quarantines, paging rebuilds, preemptions, host
+syncs and snapshots, and counter tracks per step.  Inside
+``obs.enable()`` the prefill and the decode step are
+``torch.profiler`` ranges (``serve.prefill``, ``serve.decode_step``).
+``serve_decode_step_seconds`` observes the interval ``decode_s`` records
+(a decode step with the flush that follows it), where the reference's
+observes the step's asynchronous dispatch alone.
 """
 
 from __future__ import annotations
@@ -71,6 +84,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.core.policy import PrecisionPolicy
@@ -103,8 +117,8 @@ DEGRADED = "DEGRADED"      # guard quarantined the row; fast-tier retry OK
 FAILED = "FAILED"          # no healthy result on any tier
 STATUSES = (OK, TIMEOUT, REJECTED, DEGRADED, FAILED)
 
-#: the engine's guard and robustness event counts (``guard_stats``, a
-#: plain dict that snapshots carry)
+#: the engine's guard and robustness event categories (one obs counter
+#: each; ``guard_stats``, which snapshots carry)
 GUARD_STAT_KEYS = ("flagged_rows", "quarantined", "preempted",
                    "integrity_rebuilds", "snapshot_errors")
 
@@ -173,6 +187,63 @@ def _request(meta: Dict[str, Any], prompt) -> Request:
                    deadline_steps=meta.get("deadline_steps"))
 
 
+class _GuardStats:
+    """``ServeEngine.guard_stats``: the mutable-mapping surface of a dict
+    (callers and the chaos tests read and mutate it, ``snapshot`` writes
+    it as a plain dict, ``restore`` sets it with ``update``), every count
+    stored in the engine's ``serve_guard_events_total{kind=...}``
+    counters, so the counts show in metrics exports and a restored
+    engine's metrics resume from the snapshot's values."""
+
+    def __init__(self, registry: "obs_mod.MetricsRegistry"):
+        self._registry = registry
+        self._keys = list(GUARD_STAT_KEYS)
+        for k in GUARD_STAT_KEYS:
+            self._counter(k)
+
+    def _counter(self, key: str) -> "obs_mod.Counter":
+        if key not in self._keys:
+            self._keys.append(key)
+        return self._registry.counter("serve_guard_events_total", kind=key)
+
+    def __getitem__(self, key: str) -> int:
+        return self._counter(key).value
+
+    def __setitem__(self, key: str, value: int) -> None:
+        self._counter(key).set(int(value))
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._keys
+
+    def __iter__(self):
+        return iter(tuple(self._keys))
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def keys(self):
+        return tuple(self._keys)
+
+    def items(self):
+        return [(k, self[k]) for k in self._keys]
+
+    def values(self):
+        return [self[k] for k in self._keys]
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self._keys else default
+
+    def update(self, other) -> None:
+        for k, v in dict(other).items():
+            self[k] = v
+
+    def __repr__(self) -> str:
+        return repr(dict(self.items()))
+
+    def __eq__(self, other) -> bool:
+        return dict(self.items()) == other
+
+
 class ServeEngine:
     """Continuous-batching greedy decoder with a paged KV cache.
 
@@ -188,15 +259,19 @@ class ServeEngine:
     construction) switches the per-step health probe, quarantine and the
     paging audit, counted in ``guard_stats``; ``journal`` names a
     write-ahead request log (replayed on attach, see
-    :meth:`attach_journal`).  The attention impl and the RMSNorm
-    statistic follow the ambient ``ff.policy`` at construction.
+    :meth:`attach_journal`); ``obs`` an :class:`~repro_torch.obs.Observer`
+    to record into (None: the engine's own, ``eng.obs``).  The attention
+    impl and the RMSNorm statistic follow the ambient ``ff.policy`` at
+    construction.
     ``device=None`` means the CUDA card (raises without one); pass
     ``device="cpu"`` to run on the CPU.  ``params`` must lie on that
     device; the engine keeps one copy of them in the compute dtype.
 
     ``prefill_s`` records the host time of every prefill (each ends in a
-    device sync); ``decode_s`` the host time of every decode step, with
-    the flush that follows it in the same scheduler iteration."""
+    device sync; the ``prefill`` span and ``serve_prefill_seconds``);
+    ``decode_s`` the host time of every decode step, with the flush that
+    follows it in the same scheduler iteration (what
+    ``serve_decode_step_seconds`` observes)."""
 
     def __init__(self, params: Dict[str, Any], cfg: ModelConfig, *,
                  max_batch: int = 8, page_size: int = 16,
@@ -206,7 +281,8 @@ class ServeEngine:
                  max_queue: Optional[int] = None,
                  reserve: str = "trajectory",
                  guard: Optional[str] = None, sync_every: int = 1,
-                 journal: Optional[str] = None, device=None):
+                 journal: Optional[str] = None, device=None,
+                 obs: Optional["obs_mod.Observer"] = None):
         _check_cfg(cfg)
         if reserve not in ("trajectory", "prompt"):
             raise ValueError(f"reserve {reserve!r}: 'trajectory' | 'prompt'")
@@ -248,7 +324,12 @@ class ServeEngine:
         self._pending: List[Dict[str, Any]] = []   # unsynced decode steps
         self._admit_seq = 0
         self.decode_steps = 0
-        self.guard_stats: Dict[str, int] = dict.fromkeys(GUARD_STAT_KEYS, 0)
+        # a private registry (engines and tests never share counts) and
+        # the request/step trace
+        self.obs = obs if obs is not None else obs_mod.Observer()
+        self.guard_stats = _GuardStats(self.obs.registry)
+        self._req_trace: Dict[int, Dict[str, Any]] = {}
+        self._last_flush_ts = self.obs.trace.now()
         self._auditing = False
         self.journal: Optional[RequestJournal] = None
         self._snap_cover: Optional[set] = None   # uids of the last async save
@@ -345,10 +426,37 @@ class ServeEngine:
 
     # -- request lifecycle -------------------------------------------------
 
+    def _trace_submit(self, uid: int) -> None:
+        """Open a request's span timeline (once per uid: a preempted
+        request keeps its submission time)."""
+        if uid not in self._req_trace:
+            self._req_trace[uid] = {"submit": self.obs.trace.now(),
+                                    "admit": None}
+            self.obs.trace.name_request_track(uid)
+
     def _set_result(self, res: GenResult) -> None:
-        """The one sink of terminal results: records ``res`` and, with a
-        journal attached, durably marks the uid retired."""
+        """The one sink of terminal results: records ``res``, closes its
+        ``decode`` (admission to retirement, when it ran) and ``request``
+        (submission to retirement, with the status) spans, counts it and
+        its tokens, and, with a journal attached, durably marks the uid
+        retired."""
         self.results[res.uid] = res
+        tr = self._req_trace.pop(res.uid, None)
+        if tr is not None:
+            now = self.obs.trace.now()
+            tid = self.obs.trace.request_tid(res.uid)
+            if tr["admit"] is not None:
+                self.obs.trace.complete("decode", tr["admit"],
+                                        now - tr["admit"], tid=tid)
+            self.obs.trace.complete(
+                "request", tr["submit"], now - tr["submit"], tid=tid,
+                args={"status": res.status, "uid": int(res.uid),
+                      "tokens": int(res.tokens.shape[0]),
+                      "detail": res.detail})
+            self.obs.registry.counter("serve_requests_total",
+                                      status=res.status).inc()
+            self.obs.registry.counter("serve_tokens_emitted_total").inc(
+                int(res.tokens.shape[0]))
         if self.journal is not None:
             self.journal.retire(res.uid, res.status)
 
@@ -367,6 +475,7 @@ class ServeEngine:
         """The admission checks and the enqueue.  ``bounded=False``
         (journal replay) skips the queue bound: the request was accepted
         once; structural impossibility still rejects."""
+        self._trace_submit(req.uid)
         S = int(req.prompt.shape[0])
         total = S + req.max_new
         max_ctx = self.kv.max_pages * self.kv.page_size
@@ -430,7 +539,12 @@ class ServeEngine:
             if slot is None or not self.kv.can_alloc(need):
                 break
             self.queue.pop(0)
-            t0 = time.perf_counter()
+            tr = self._req_trace.get(req.uid)
+            ts_adm = self.obs.trace.now()
+            tid = self.obs.trace.request_tid(req.uid)
+            if tr is not None:
+                self.obs.trace.complete("queued", tr["submit"],
+                                        ts_adm - tr["submit"], tid=tid)
             if self.reserve == "trajectory":
                 self.kv.alloc(slot, total)  # reserve the whole trajectory
                 self.kv.seq_lens[slot] = S  # ...but only S tokens are live
@@ -444,16 +558,26 @@ class ServeEngine:
                                device=self.device)
             tokens = torch.as_tensor(np.asarray(req.prompt)[None],
                                      dtype=torch.long, device=self.device)
-            logits, cache = prefill(self._w, {"tokens": tokens}, self.cfg,
-                                    cache, self.policy)
-            self.kv.write_prefill(slot, {"k": cache["layers"]["k"][:, 0],
-                                         "v": cache["layers"]["v"][:, 0]})
-            tok_t = torch.argmax(logits, -1)
-            ff_lp = token_logprob_ff(logits, tok_t)
-            scores = torch.stack([token_logprob(logits, tok_t, self.policy),
-                                  ff_lp.hi, ff_lp.lo]).cpu().numpy()[:, 0]
+            with obs_mod.annotate("serve.prefill"):
+                logits, cache = prefill(self._w, {"tokens": tokens},
+                                        self.cfg, cache, self.policy)
+                self.kv.write_prefill(slot, {
+                    "k": cache["layers"]["k"][:, 0],
+                    "v": cache["layers"]["v"][:, 0]})
+                tok_t = torch.argmax(logits, -1)
+                ff_lp = token_logprob_ff(logits, tok_t)
+                scores = torch.stack([
+                    token_logprob(logits, tok_t, self.policy), ff_lp.hi,
+                    ff_lp.lo]).cpu().numpy()[:, 0]
             tok = int(tok_t[0])
-            self.prefill_s.append(time.perf_counter() - t0)
+            ts_pf = self.obs.trace.now()
+            self.obs.trace.complete("prefill", ts_adm, ts_pf - ts_adm,
+                                    tid=tid, args={"prompt_len": S})
+            self.prefill_s.append((ts_pf - ts_adm) / 1e6)
+            self.obs.registry.histogram("serve_prefill_seconds").observe(
+                self.prefill_s[-1])
+            if tr is not None:
+                tr["admit"] = ts_pf
             state = {"req": req, "prompt_len": S, "tokens": [tok],
                      "logprobs": [float(scores[0])],
                      "logprobs_ff": [(float(scores[1]), float(scores[2]))],
@@ -520,6 +644,8 @@ class ServeEngine:
             self.kv.drop_slot(slot)
         self._clear_slot(slot)
         self.guard_stats["quarantined"] += 1
+        self.obs.trace.instant("quarantine",
+                               args={"uid": int(req.uid), "why": why})
         report_violation("serve.decode", "nonfinite")
         prompt = torch.as_tensor(np.asarray(req.prompt)[None],
                                  dtype=torch.long, device=self.device)
@@ -573,6 +699,8 @@ class ServeEngine:
                     self.kv.drop_slot(slot)
             self.kv.rebuild_free_list()
             self.guard_stats["integrity_rebuilds"] += 1
+            self.obs.trace.instant("integrity_rebuild",
+                                   args={"problems": len(problems)})
         finally:
             self._auditing = False
 
@@ -611,6 +739,11 @@ class ServeEngine:
         self.kv.free_slot(slot)
         self._clear_slot(slot)
         self.guard_stats["preempted"] += 1
+        uid = int(state["req"].uid)
+        self.obs.trace.instant("preempt", args={"uid": uid})
+        tr = self._req_trace.get(uid)
+        if tr is not None:
+            tr["admit"] = None          # decode restarts at re-admission
         self.queue.insert(0, {"req": state["req"], "t_sub": state["t_sub"],
                               "step_sub": state["step_sub"]})
 
@@ -659,7 +792,8 @@ class ServeEngine:
         active = np.asarray([s is not None for s in self._slots])
         lens = np.asarray([self._row_len(s) if s else 0
                            for s in self._slots], np.int32)
-        nxt, lp, lph, lpl, bad = self._decode(lens, active)
+        with obs_mod.annotate("serve.decode_step"):
+            nxt, lp, lph, lpl, bad = self._decode(lens, active)
         self._token_dev = nxt
         self._pending.append({"step": self.decode_steps, "nxt": nxt,
                               "lp": lp, "lph": lph, "lpl": lpl, "bad": bad})
@@ -680,11 +814,17 @@ class ServeEngine:
             return
         entries, self._pending = self._pending, []
         i32 = torch.int32
+        t0 = self.obs.trace.now()
         host = torch.stack([torch.stack([
             e["nxt"].to(i32), e["lp"].to(torch.float32).view(i32),
             e["lph"].view(i32), e["lpl"].view(i32), e["bad"].to(i32)])
             for e in entries]).cpu().numpy()          # (steps, 5, B)
+        t1 = self.obs.trace.now()
+        self.obs.trace.instant("host_sync", args={"steps": len(entries)})
+        self.obs.registry.histogram("serve_flush_seconds").observe(
+            (t1 - t0) / 1e6)
         scores = host[:, 1:4].view(np.float32)
+        n_synced = 0
         flagged = set()
         for n, e in enumerate(entries):
             for slot, state in enumerate(self._slots):
@@ -698,10 +838,17 @@ class ServeEngine:
                 state["logprobs_ff"].append((float(scores[n, 1, slot]),
                                              float(scores[n, 2, slot])))
                 state["pending"] -= 1
+                n_synced += 1
                 self._last_tok[slot] = tok
                 if host[n, 4, slot]:
                     flagged.add(slot)
-        self.guard_stats["flagged_rows"] += len(flagged)
+        # tokens made host-visible per second between consecutive syncs
+        if n_synced and t1 > self._last_flush_ts:
+            self.obs.registry.histogram("serve_tokens_per_s").observe(
+                n_synced / ((t1 - self._last_flush_ts) / 1e6))
+        self._last_flush_ts = t1
+        if flagged:
+            self.guard_stats["flagged_rows"] += len(flagged)
         for slot in flagged:
             if self._slots[slot] is not None:
                 self._quarantine(slot, "per-step probe flagged the row")
@@ -751,6 +898,8 @@ class ServeEngine:
                 self._flush()
             if self.decode_steps > n:
                 self.decode_s.append(time.perf_counter() - t0)
+                self.obs.registry.histogram(
+                    "serve_decode_step_seconds").observe(self.decode_s[-1])
             self._admit()
         elif self.queue:
             self._flush()
@@ -763,8 +912,23 @@ class ServeEngine:
                     "the head request cannot be admitted"))
         elif self._pending:
             self._flush()
+        self._trace_step_counters()
         return (any(s is not None for s in self._slots)
                 or bool(self.queue) or bool(self._pending))
+
+    def _trace_step_counters(self) -> None:
+        """Per-scheduler-step samples of the queue depth, the active rows
+        and the pool's occupancy: registry gauges and Perfetto counter
+        tracks."""
+        depth = len(self.queue)
+        active = sum(1 for s in self._slots if s is not None)
+        free = len(self.kv.free_pages)
+        used = self.kv.num_pages - free
+        self.obs.registry.gauge("serve_queue_depth").set(depth)
+        self.obs.registry.gauge("serve_active_rows").set(active)
+        self.obs.registry.gauge("serve_pages_used").set(used)
+        self.obs.trace.counter("queue", {"depth": depth, "active": active})
+        self.obs.trace.counter("pages", {"used": used, "free": free})
 
     def run(self, *, snapshot_dir: Optional[str] = None,
             snapshot_every: Optional[int] = None) -> Dict[int, GenResult]:
@@ -791,6 +955,9 @@ class ServeEngine:
                     arrays, meta = self.snapshot()
                     ckpt.save(self.decode_steps, arrays, extra=meta)
                     self._snap_cover = set(self.results)
+                    self.obs.trace.instant(
+                        "snapshot", args={"step": self.decode_steps,
+                                          "mode": "async"})
                 except Exception as e:
                     self._snapshot_error(e)
                 last_snap = self.decode_steps
@@ -940,11 +1107,17 @@ class ServeEngine:
                 "pending": 0, "start_step": sm["start_step"],
                 "t_sub": now_m - (sm["elapsed_s"] + downtime_s),
                 "step_sub": sm["step_sub"], "admit_seq": sm["admit_seq"]}
+            # reopen the request's timeline (the spans before the crash
+            # belong to the lost process's trace)
+            self._trace_submit(sm["uid"])
+            self._req_trace[sm["uid"]]["admit"] = self.obs.trace.now()
         self.queue = [
             {"req": _request(qm, arrays[f"queue.{j}.prompt"]),
              "t_sub": now_m - (qm["elapsed_s"] + downtime_s),
              "step_sub": qm["step_sub"]}
             for j, qm in enumerate(meta["queue"])]
+        for qm in meta["queue"]:
+            self._trace_submit(qm["uid"])
         for rm in meta["results"]:
             uid = rm["uid"]
             self.results[uid] = GenResult(
@@ -974,6 +1147,9 @@ class ServeEngine:
         arrays, meta = self.snapshot()
         path = ckpt_lib.save(directory, self.decode_steps, arrays,
                              extra=meta)
+        self.obs.trace.instant("snapshot", args={"step": self.decode_steps,
+                                                 "mode": "sync"})
+        self.obs.registry.counter("serve_snapshots_total").inc()
         if self.journal is not None:
             self.journal.compact(set(self.results))
         return path
@@ -993,6 +1169,8 @@ class ServeEngine:
 
     def _snapshot_error(self, err: BaseException) -> None:
         self.guard_stats["snapshot_errors"] += 1
+        self.obs.trace.instant("snapshot_error",
+                               args={"error": type(err).__name__})
         warnings.warn(
             f"ServeEngine: snapshot write failed "
             f"({type(err).__name__}: {err}) — serving continues, restart "

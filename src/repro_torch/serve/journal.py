@@ -24,8 +24,9 @@ and none is outstanding (clean retirement), and rewritten down to the
 still-unaccounted tail after a snapshot durably covers the results —
 the journal only ever needs to span "since the last durable point".
 
-The reference's ``obs`` telemetry calls are left out: ``repro_torch`` has
-no ``obs`` yet (ROADMAP, queue item 5).
+Every append, retire, truncate and compaction counts in
+``repro_torch.obs.REGISTRY``'s ``serve_journal_events_total{event=...}``,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import warnings
 from typing import Any, Dict, Iterable, List, Set
 
 import numpy as np
+
+from repro_torch import obs
 
 
 class JournalWarning(UserWarning):
@@ -100,6 +103,7 @@ class RequestJournal:
                "t_wall": time.time(), "step_sub": int(step_sub)}
         self._write(rec)
         self._submits[rec["uid"]] = rec
+        obs.record("record_journal_event", "append")
 
     def retire(self, uid: int, status: str) -> None:
         """Record a terminal status; truncates the log once every
@@ -109,6 +113,7 @@ class RequestJournal:
             return
         self._write({"op": "retire", "uid": uid, "status": status})
         self._retired.add(uid)
+        obs.record("record_journal_event", "retire")
         if self._retired >= set(self._submits):
             self.truncate()
 
@@ -120,6 +125,7 @@ class RequestJournal:
         os.fsync(self._f.fileno())
         self._submits.clear()
         self._retired.clear()
+        obs.record("record_journal_event", "truncate")
 
     def compact(self, covered_uids: Iterable[int]) -> None:
         """Rewrite the log keeping only records for uids NOT in
@@ -139,6 +145,7 @@ class RequestJournal:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, self.path)
+        obs.record("record_journal_event", "compact")
         self._submits = {rec["uid"]: rec for rec in keep}
         self._retired = keep_retired
         self._f = open(self.path, "a", encoding="utf-8")

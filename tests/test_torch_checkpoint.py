@@ -367,12 +367,17 @@ def test_launch_serve_engine_snapshot_and_resume(tmp_path):
     (["--metrics-json", "m.json"], "item 5"),
     (["--trace-out", "t.json"], "item 5")])
 def test_launch_serve_refuses_unported_flags(flag, item, capsys):
+    """``--mesh`` waits for item 8 and stops naming it; the obs flags
+    (item 5) are ported and, as in the reference, stop only without
+    ``--engine`` (their runs: ``tests/test_torch_launch_obs.py``)."""
     from repro_torch.launch import serve
+    ported = item == "item 5"
     with pytest.raises(SystemExit) as e:
-        serve.main(SERVE + ["--engine"] + flag)
+        serve.main(SERVE + ([] if ported else ["--engine"]) + flag)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert flag[0] in err and item in err
+    assert flag[0] in err
+    assert ("require --engine" if ported else item) in err
 
 
 def test_launch_serve_needs_cuda_unless_cpu_is_asked(monkeypatch):

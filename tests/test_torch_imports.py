@@ -44,7 +44,11 @@ new = {"repro_torch.core.ffmatmul", "repro_torch.kernels.ff_matmul",
        "repro_torch.ff.math", "repro_torch.ff.guard",
        "repro_torch.kernels.ff_guard", "repro_torch.checkpoint",
        "repro_torch.checkpoint.checkpoint", "repro_torch.serve.journal",
-       "repro_torch.launch.serve"}
+       "repro_torch.launch.serve", "repro_torch.obs",
+       "repro_torch.obs.registry", "repro_torch.obs.trace",
+       "repro_torch.obs.profiling", "repro_torch.obs.__main__",
+       "repro_torch.chaos", "repro_torch.chaos.inject",
+       "repro_torch.chaos.__main__", "repro_torch.chaos.restart"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
@@ -57,6 +61,43 @@ def test_import_every_module_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 20 and bad == "[]", out.stdout
+
+
+_IMPORT_OBS = """
+import sys
+import repro_torch.obs
+import repro_torch.obs.__main__
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             or m.startswith("repro_torch.ff"))
+print(bad)
+"""
+
+
+def test_obs_imports_without_ff():
+    """``repro_torch.obs`` never imports ``repro_torch.ff`` (dispatch,
+    guard and tuning import it, lazily) nor JAX or the reference."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_OBS], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_new_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
+                                                        tmp_path):
+    """The obs and chaos smokes and the restart chaos default to the card
+    and raise without one."""
+    from repro_torch.chaos import __main__ as chaos_main
+    from repro_torch.chaos import restart
+    from repro_torch.obs import __main__ as obs_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: obs_main.main([]), lambda: chaos_main.main([]),
+                 lambda: restart.run_scenario(str(tmp_path)),
+                 lambda: restart.main(["--modes", "bf16"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not os.listdir(tmp_path)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
