@@ -10,11 +10,13 @@ Phases (any failed check raises, so the script exits non-zero):
      ``build/``, one ``nvcc`` per source, all at once);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the shapes the serving and training paths give it among
-     others — ``mean_sq`` to <= 1 ulp, FF attention (and its plain
+     others (``mean_sq`` also at d_model 3072 and 5120) — ``mean_sq`` to
+     <= 1 ulp, FF attention (and its plain
      version) to <= 2^-40 of a float64 oracle on the card on
      ``attention_variants.CASES`` (the main paths' shapes, q tiles that
      skip K/V tiles, ``q_offset > 0`` with Sq < Skv, ragged tiles, G = 1,
-     3, 4, 8, f32 and bf16, weights below 2^-100 of the row's largest),
+     3, 4, 8, f32 and bf16, weights below 2^-100 of the row's largest,
+     the head-dim 128 and 192 instances at the new families' shapes),
      the kernel under its own plan, each tile configuration and one head
      a block (its instances' registers and spills logged at the build),
      the AdamW
@@ -136,13 +138,30 @@ Phases (any failed check raises, so the script exits non-zero):
      ``obs.enable()``, for the device-busy share and the step's
      ``serve.decode_step`` range, and one more with its registry and
      trace calls counted and replayed in a timed loop (host µs a step);
-  8. chaos: ``python -m repro_torch.chaos`` (every fault class on its own
+  8. the decoder-only families beyond dense GQA: reduced olmoe-1b-7b
+     (head dim 128; also under ``ff_math``), deepseek-v2-236b and
+     internvl2-1b (f32) through ``greedy_generate`` on the card against
+     the CPU (equal tokens, prefill logits within SMALL_FAMILY_ATOL);
+     olmoe-1b-7b at full size (6.9 B parameters, bf16, random weights from
+     a seed) through ``greedy_generate``, 4 prompts of 32 tokens, 8 new
+     under ``policy("ff_reduce", attention="pallas")`` (the attention
+     kernel's head-dim 128 instance in the prefill, ``mean_sq`` at every
+     norm) and 4 under ``ff_math`` with ``ff.use(silu="pallas")`` (the
+     experts' silu gate through ``math_elementwise``), the launches
+     counted exactly, and under ``attention="ff"`` (prefill logits' gap,
+     tokens equal or the plain path's top-2 margin); deepseek-v2-236b at
+     full width cut to 2 layers, 2 prompts, 4 new tokens (the MLA prefill
+     through the head-dim 192 instance, the absorbed decode on the ff
+     tier); minitron-4b at full size through ``ServeEngine``, 2 requests
+     of 32 tokens, 4 new (the head-dim 128 instance at G = 3 in the
+     paged engine's prefills);
+  9. chaos: ``python -m repro_torch.chaos`` (every fault class on its own
      small model) on the card and with ``--device cpu``, both exit 0 with
      equal statuses and tokens, ``guard_flags`` launches read around the
      card run; ``repro_torch.chaos.restart.run_scenario`` for ``bf16``,
      ``f32`` and ``ff_bf16`` pages with the child process on the card,
      SIGKILLed mid-decode and resumed bit for bit;
-  9. training: a reduced granite-3-2b trained 2 steps on the card against
+  10. training: a reduced granite-3-2b trained 2 steps on the card against
      the same on the CPU (plain versions), with the whole loss and with
      the sequence-chunked loss, each also under ``ff_math`` with
      ``ff.use(silu="pallas")``; 2 steps with a ``ckpt_dir``, a crash and a
@@ -160,9 +179,10 @@ Phases (any failed check raises, so the script exits non-zero):
      launch counts read around them, and one more under the profiler; the serving and training runs launch
      none of the fused-composite kernels, nor (but for the ``ff_math``
      runs) this slice's;
-  10. timing: each kernel, its plain version and a PyTorch yardstick with
+  11. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound (FF
-     attention at the prefill, training and long-step shapes); the
+     attention at the prefill, training and long-step shapes, and at the
+     new families' prefills at head dims 128 and 192); the
      elementwise rows at (4096, 4096) and AdamW at ``w_gate`` must have
      taken the 16-byte path (the path each took is logged).
 
@@ -477,9 +497,11 @@ def phase_kernel_checks(torch):
     g = torch.Generator(device="cuda").manual_seed(SEED)
     checks = {}
     worst_ulp, worst_abs = 0, 0.0
-    # decode rows, prefill rows, training rows (4 x 128, 2 x 1024), odd
+    # decode rows, prefill rows, training rows (4 x 128, 2 x 1024), odd;
+    # minitron-4b's and deepseek-v2's d_model (3072, 5120): decode and
+    # prefill rows
     for shape in ((4, 2048), (64, 2048), (512, 2048), (2048, 2048),
-                  (3, 1000)):
+                  (3, 1000), (2, 3072), (32, 3072), (2, 5120), (64, 5120)):
         x = torch.randn(shape, generator=g, device="cuda") * 10.0 ** (
             torch.rand(shape, generator=g, device="cuda") * 6 - 3)
         got = ff_fused.mean_sq(x)
@@ -3504,6 +3526,344 @@ def phase_decode_profile(torch, eng, cfg):
     return prof_step
 
 
+# ---------------------------------------------------------------------------
+# the decoder-only families beyond dense GQA: MoE, MLA, the VLM backbone,
+# the head-dim-128 dense configs
+# ---------------------------------------------------------------------------
+
+FAM_PROMPT, FAM_MAX_NEW, FAM_FF_MATH_NEW = 32, 8, 4
+MLA_BATCH, MLA_LAYERS, MLA_MAX_NEW = 2, 2, 4
+MINITRON_REQUESTS, MINITRON_NEW = 2, 4
+# card against CPU, reduced families in f32: the prefill logits (the
+# summation orders of cuBLAS's and the CPU's f32 products, the kernels'
+# <= 1 ulp and <= 2^-40 against their plain versions)
+SMALL_FAMILY_ATOL = 1e-3
+
+
+def small_families(torch):
+    """Reduced olmoe-1b-7b (head dim 128), deepseek-v2-236b and
+    internvl2-1b (f32 compute) through ``greedy_generate`` on the card
+    under ``policy("ff_reduce", attention="pallas")`` (olmoe also under
+    ``ff_math`` with ``ff.use(silu="pallas")``) against the same on the
+    CPU, where every kernel is its plain version: equal tokens, prefill
+    logits within SMALL_FAMILY_ATOL, the kernels launched on the card."""
+    import repro_torch.ff as ff
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, init_cache, prefill
+    from repro_torch.train.serve_step import greedy_generate
+    cases = (("olmoe-1b-7b", dict(head_dim=128), False),
+             ("olmoe-1b-7b", dict(head_dim=128), True),
+             ("deepseek-v2-236b", {}, False), ("internvl2-1b", {}, False))
+    for arch, extra, ff_math in cases:
+        cfg = get_config(arch).reduced(compute_dtype="float32", **extra)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED))
+        g = torch.Generator().manual_seed(SEED + 5)
+        prompt = torch.randint(1, cfg.vocab_size, (2, 12), generator=g)
+        inputs = {}
+        if cfg.family == "vlm":
+            inputs["patches"] = torch.randn((2, cfg.num_patches,
+                                             cfg.d_model), generator=g)
+        cache_len = 12 + 5 + cfg.num_patches
+        out = {}
+        for dev in ("cuda", "cpu"):
+            w = to_device(params, dev) if dev == "cuda" else params
+            x = {k: v.to(dev) for k, v in inputs.items()}
+            reset_launch_counts()
+            with ff.policy("ff_reduce", attention="pallas", ff_math=ff_math), \
+                    ff.use(silu="pallas"), warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # decode: kv_len -> ff
+                toks = greedy_generate(w, cfg, prompt.to(dev), 5, cache_len,
+                                       extra_inputs=x or None)
+                cache = init_cache(cfg, 2, cache_len, device=dev)
+                logits, _ = prefill(w, {"tokens": prompt.to(dev), **x}, cfg,
+                                    cache)
+            out[dev] = (toks.cpu(), logits.cpu(), launch_counts())
+        (tc, lc, n), (tp, lp, _) = out["cuda"], out["cpu"]
+        gap = float((lc - lp).abs().max())
+        log(f"small {arch}{' ff_math' if ff_math else ''} card vs CPU: "
+            f"tokens {tc.tolist()} == {tp.tolist()}: "
+            f"{torch.equal(tc, tp)}; prefill logits within {gap:.3e}; "
+            f"launches { {k: v for k, v in n.items() if v} }")
+        want = {"mean_sq", "attention"} | ({"ff_math"} if ff_math else set())
+        if not (torch.equal(tc, tp) and gap <= SMALL_FAMILY_ATOL
+                and all(n[k] > 0 for k in want)
+                and all(v == 0 for k, v in n.items() if k not in want)):
+            raise AssertionError(f"small {arch}: card vs CPU tokens "
+                                 f"{tc.tolist()} / {tp.tolist()}, logits "
+                                 f"{gap:.3e}, launches {n}")
+
+
+def bf16_params(torch, cfg, seed):
+    """Random weights of ``cfg`` on the card from ``seed``, cast to bf16
+    (the f32 draw freed); returns (params, parameter count)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_params
+    f32 = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    n = sum(t.numel() for t in _leaves(f32))
+    w = cast_params(f32, torch.bfloat16)
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return w, n
+
+
+def greedy_margins(torch, params, cfg, prompt, max_new, cache_len):
+    """``greedy_generate``'s loop (prefill, then decode steps) under the
+    ambient policy, keeping each step's top-2 logit margin; returns
+    (tokens (B, max_new), prefill logits, margins (B, max_new))."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    B, S = prompt.shape
+    cache = init_cache(cfg, B, cache_len, device=prompt.device)
+    logits, cache = prefill(params, {"tokens": prompt}, cfg, cache)
+    first = logits.float()
+    toks, margins = [], []
+    for t in range(max_new):
+        if t:
+            logits, cache = decode_step(params, toks[-1][:, None], S + t - 1,
+                                        cache, cfg)
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        toks.append(torch.argmax(logits, -1).to(torch.int32))
+    return torch.stack(toks, 1), first, torch.stack(margins, 1)
+
+
+def family_greedy(torch, params, cfg, prompt, max_new, cache_len):
+    """``greedy_generate`` under the ambient policy, the launch counts read
+    around it; then one more prefill of the same prompt, timed.  Returns
+    (tokens, prefill logits, launches, wall s, prefill ms)."""
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.train.serve_step import greedy_generate
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = greedy_generate(params, cfg, prompt, max_new, cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    cache = init_cache(cfg, prompt.shape[0], cache_len, device="cuda")
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, {"tokens": prompt}, cfg, cache)
+    torch.cuda.synchronize()
+    return toks, logits.float(), launches, wall, \
+        1e3 * (time.perf_counter() - t0)
+
+
+def family_launches_ok(name, cfg, launches, n_fwd, ff_math_per_layer):
+    """The launches of ``n_fwd`` forwards (one prefill first): mean_sq at
+    every norm, the attention kernel once a layer in the prefill (decode's
+    per-row kv_len takes the ff tier), ff_math ``ff_math_per_layer`` times
+    a layer a forward, nothing else."""
+    L = cfg.num_layers
+    want = {**{k: 0 for k in launches}, "mean_sq": (2 * L + 1) * n_fwd,
+            "attention": L, "ff_math": ff_math_per_layer * L * n_fwd}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != {want}")
+
+
+def phase_serve_moe(torch, card: str):
+    """olmoe-1b-7b at full size (16 layers, d_model 2048, 16 MHA heads at
+    head dim 128, 64 experts top-8, random bf16 weights from a seed)
+    through ``greedy_generate``: FAM_PROMPT-token prompts of 4 rows,
+    FAM_MAX_NEW new tokens under ``policy("ff_reduce", attention=
+    "pallas")`` (the attention kernel's HD = 128 instance in the prefill,
+    mean_sq at every norm), then FAM_FF_MATH_NEW under ``ff_math`` with
+    ``ff.use(silu="pallas")`` (the experts' silu gate through
+    ``math_elementwise``), then the first run's loop under
+    ``attention="ff"`` (no attention kernel): the prefill logits' largest
+    difference, whether the tokens are equal, and the plain path's top-2
+    margin where one is not.  Returns (launches, ff_math launches)."""
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b")
+    t0 = time.perf_counter()
+    params, n_params = bf16_params(torch, cfg, SEED + 7)
+    torch.cuda.synchronize()
+    log(f"olmoe-1b-7b: {n_params:,} params, bf16 "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), set up "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 8)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (4, FAM_PROMPT)).astype(np.int64)).cuda()
+    cache_len = FAM_PROMPT + FAM_MAX_NEW + 8
+    runs = {}
+    for what, pol, n_new in (
+            ("pallas", dict(attention="pallas"), FAM_MAX_NEW),
+            ("ff_math", dict(attention="pallas", ff_math=True),
+             FAM_FF_MATH_NEW)):
+        with ff.policy("ff_reduce", **pol), ff.use(silu="pallas"):
+            toks, logits, launches, wall, pf_ms = family_greedy(
+                torch, params, cfg, prompt, n_new, cache_len)
+        family_launches_ok(f"olmoe {what}", cfg, launches, n_new,
+                           1 if what == "ff_math" else 0)
+        if not (toks.shape == (4, n_new) and bool(torch.isfinite(
+                logits).all()) and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab_size):
+            raise AssertionError(f"olmoe {what}: tokens {toks.shape}, "
+                                 f"logits finite {torch.isfinite(logits).all()}")
+        n_tok = toks.numel()
+        stats = {"tokens_per_s": n_tok / wall, "prefill_ms": pf_ms,
+                 "decode_step_ms": 1e3 * (wall - pf_ms / 1e3)
+                 / max(n_new - 1, 1), "wall_s": wall, "tokens": n_tok,
+                 "card": card}
+        log(f"olmoe-1b-7b {what}: {json.dumps(stats)}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        runs[what] = (toks, logits, launches)
+    # the same prompts without the attention kernel
+    with ff.policy("ff_reduce", attention="ff"), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        reset_launch_counts()
+        toks_ff, logits_ff, margins = greedy_margins(
+            torch, params, cfg, prompt, FAM_MAX_NEW, cache_len)
+        if launch_counts()["attention"]:
+            raise AssertionError("attention='ff' launched the kernel")
+    toks_k, logits_k, _ = runs["pallas"]
+    diff = float((logits_k - logits_ff).abs().max())
+    same = torch.equal(toks_k.cpu(), toks_ff.cpu())
+    log(f"olmoe-1b-7b kernel vs attention='ff': prefill logits differ by "
+        f"at most {diff:.4e} (|logits| <= "
+        f"{float(logits_ff.abs().max()):.3f}); tokens equal: {same}")
+    if not same:
+        rows, steps = torch.nonzero(toks_k.cpu() != toks_ff.cpu(),
+                                    as_tuple=True)
+        for r, s in zip(rows.tolist(), steps.tolist()):
+            log(f"  row {r} step {s}: kernel {int(toks_k[r, s])}, ff "
+                f"{int(toks_ff[r, s])}; ff path's top-2 margin "
+                f"{float(margins[r, s]):.4e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs["pallas"][2], runs["ff_math"][2]
+
+
+def phase_serve_mla(torch, card: str):
+    """deepseek-v2-236b at its full width cut to MLA_LAYERS layers (random
+    bf16 weights from a seed) through ``greedy_generate``: MLA_BATCH
+    FAM_PROMPT-token prompts, MLA_MAX_NEW new tokens under
+    ``policy("ff_reduce", attention="pallas")``: the MLA prefill's q / k
+    at 128 + 64 through the attention kernel's HD = 192 instance, the
+    absorbed decode (one KV head at 576, kv_len) on the ff tier.  Returns
+    the launches."""
+    import dataclasses
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ff_attention as fa
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              num_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    params, n_params = bf16_params(torch, cfg, SEED + 9)
+    torch.cuda.synchronize()
+    log(f"deepseek-v2-236b, {MLA_LAYERS} layers: {n_params:,} "
+        f"params, bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated), set up in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 10)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (MLA_BATCH, FAM_PROMPT)).astype(np.int64)).cuda()
+    with ff.policy("ff_reduce", attention="pallas"), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        toks, logits, launches, wall, pf_ms = family_greedy(
+            torch, params, cfg, prompt, MLA_MAX_NEW,
+            FAM_PROMPT + MLA_MAX_NEW + 8)
+    family_launches_ok("deepseek-v2", cfg, launches, MLA_MAX_NEW, 0)
+    plan = tuple(fa.flash_attention_pallas.last_plan)
+    fell = sum("kv_len" in str(w.message) for w in caught)
+    if not (toks.shape == (MLA_BATCH, MLA_MAX_NEW) and fell
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"deepseek-v2: tokens {toks.shape}, kv_len "
+                             f"warnings {fell}, finite logits "
+                             f"{bool(torch.isfinite(logits).all())}")
+    stats = {"tokens_per_s": toks.numel() / wall, "prefill_ms": pf_ms,
+             "decode_step_ms": 1e3 * (wall - pf_ms / 1e3)
+             / max(MLA_MAX_NEW - 1, 1), "wall_s": wall,
+             "tokens": toks.numel(), "card": card}
+    log(f"deepseek-v2-236b ({MLA_LAYERS} layers): {json.dumps(stats)}; "
+        f"launches { {k: v for k, v in launches.items() if v} }; the "
+        f"prefill's kernel plan {plan} at head dim 192; {fell} kv_len "
+        f"warnings (the absorbed decode on the ff tier); tokens "
+        f"{toks.tolist()}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_minitron(torch, card: str):
+    """minitron-4b at full size (32 layers, d_model 3072, 24 / 8 heads at
+    head dim 128; random weights from a seed) through ``ServeEngine``:
+    MINITRON_REQUESTS requests of FAM_PROMPT tokens, MINITRON_NEW new
+    tokens under ``policy("ff_reduce", attention="pallas")``: every
+    prefill through the attention kernel's HD = 128 instance (G = 3).
+    Returns the launches."""
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("minitron-4b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda")
+                         .manual_seed(SEED + 11))
+    n_params = sum(t.numel() for t in _leaves(params))
+    with ff.policy("ff_reduce", attention="pallas"):
+        eng = ServeEngine(params, cfg, max_batch=MINITRON_REQUESTS,
+                          page_size=16, max_ctx=64)
+    torch.cuda.synchronize()
+    log(f"minitron-4b: {n_params:,} params (f32) + bf16 copy, set up in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    rng = np.random.default_rng(SEED + 12)
+    for uid in range(MINITRON_REQUESTS):
+        eng.submit(Request(uid=uid, prompt=rng.integers(
+            1, cfg.vocab_size, FAM_PROMPT).astype(np.int32),
+            max_new=MINITRON_NEW))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    n_pf, n_dec = len(eng.prefill_s), eng.decode_steps
+    L = cfg.num_layers
+    want = {**{k: 0 for k in launches}, "mean_sq": (2 * L + 1) * (n_pf
+                                                                  + n_dec),
+            "attention": L * n_pf}
+    if launches != want or n_pf != MINITRON_REQUESTS:
+        raise AssertionError(f"minitron-4b: launches {launches} != {want} "
+                             f"({n_pf} prefills)")
+    for uid, r in res.items():
+        if r.status != "OK" or r.tokens.shape != (MINITRON_NEW,) \
+                or not np.isfinite(r.logprobs_ff).all():
+            raise AssertionError(f"minitron-4b uid {uid}: {r.status} "
+                                 f"{r.tokens.shape}")
+    stats = {"tokens_per_s": MINITRON_REQUESTS * MINITRON_NEW / wall,
+             "prefill_ms": 1e3 * float(np.mean(eng.prefill_s)),
+             "decode_step_ms": 1e3 * float(np.mean(eng.decode_s)),
+             "wall_s": wall, "card": card}
+    log(f"minitron-4b engine: {json.dumps(stats)}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_families(torch, card: str):
+    """The decoder-only families: the reduced ones card against CPU, then
+    olmoe-1b-7b, deepseek-v2 (2 layers) and minitron-4b at full width.
+    Returns {path: launches}."""
+    small_families(torch)
+    moe, moe_ff_math = phase_serve_moe(torch, card)
+    mla = phase_serve_mla(torch, card)
+    minitron = phase_serve_minitron(torch, card)
+    return {"serve_moe": moe, "serve_moe_ff_math": moe_ff_math,
+            "serve_mla": mla, "serve_minitron": minitron}
+
+
 def phase_chaos(torch):
     """``python -m repro_torch.chaos`` (the guarded-serving smoke over
     every fault class, on its own small model) on the card and with
@@ -4079,20 +4439,28 @@ def phase_timing(torch, cfg, launches, errs, clock_hz):
 def attention_timing(torch, g, cfg, counts, err, peak_ops):
     """The attention kernel at the shapes of its launches on the main
     paths: the prefill of the longest prompt (1, 64), a training step (4,
-    128) and the long step (2, 1024); granite-3-2b's heads, bf16, causal.
-    Kernel ms by CUDA-graph replay, one call's ms, the bound
+    128) and the long step (2, 1024) at granite-3-2b's heads; the
+    head-dim 128 and 192 instances at olmoe-1b-7b's prefill (4, 32; 16
+    MHA heads), minitron-4b's (1, 32; 24 / 8), phi3-medium's heads (1,
+    32; 40 / 10) and deepseek-v2's MLA prefill (2, 32; 128 heads at 192);
+    bf16, causal.  Kernel ms by CUDA-graph replay, one call's ms, the bound
     (``attention_ops``), SDPA's ms (bf16 attention: another function, a
     yardstick of speed only); the plain version at the prefill shape only
     (it takes seconds beyond).  The entry's numbers are the prefill
     shape's, every shape under ``by_shape``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ff_attention
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    sc = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    g_heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
     rows = []
-    for what, B, S, iters in (("prefill", 1, PROMPT_LENS[1], 50),
-                              ("train", TRAIN_BATCH, TRAIN_SEQ, 20),
-                              ("long step", LONG_BATCH, LONG_SEQ, 3)):
+    for what, B, S, (H, KV, hd), iters in (
+            ("prefill", 1, PROMPT_LENS[1], g_heads, 50),
+            ("train", TRAIN_BATCH, TRAIN_SEQ, g_heads, 20),
+            ("long step", LONG_BATCH, LONG_SEQ, g_heads, 3),
+            ("olmoe prefill", 4, FAM_PROMPT, (16, 16, 128), 20),
+            ("minitron prefill", 1, FAM_PROMPT, (24, 8, 128), 20),
+            ("phi3 heads", 1, FAM_PROMPT, (40, 10, 128), 20),
+            ("MLA prefill", MLA_BATCH, FAM_PROMPT, (128, 128, 192), 10)):
+        sc = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
         q = torch.randn((B, S, H, hd), generator=g,
                         device="cuda").bfloat16()
         k = torch.randn((B, S, KV, hd), generator=g,
@@ -4234,6 +4602,8 @@ def main() -> int:
     log(f"serving engine freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
         f"GB still allocated")
     mark("serving")
+    family_launches = phase_families(torch, card)
+    mark("families")
     chaos_launches = phase_chaos(torch)
     phase_restart_chaos(torch)
     mark("chaos")
@@ -4248,7 +4618,8 @@ def main() -> int:
                 "serve_ff_math": ff_math_launches,
                 "serve_guard": guard_launches,
                 "train_ff_math": train_ff_math_launches,
-                "serve_durable": durable_launches, "chaos": chaos_launches}
+                "serve_durable": durable_launches, "chaos": chaos_launches,
+                **family_launches}
     kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
                + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
                + fused_kernel_entries(launches, fused_worst, fused_rows)

@@ -23,7 +23,8 @@ Every row is held to the float64 oracle (<= 2^-40 of each (batch, head)'s
 largest output) on ``CASES`` (the main paths' shapes, q tiles that skip
 K/V tiles, ``q_offset > 0`` with Sq < Skv, Sq, Skv and heads off the
 tiles, G = 1, 3, 4, 8, f32 and bf16 operands, scores spread so that weights
-fall below 2^-100 of the row's largest), and its largest distance from the
+fall below 2^-100 of the row's largest; the head-dim 128 and 192
+instances at the new families' shapes), and its largest distance from the
 plain version is reported.  Then each row is timed by CUDA-graph replay at
 the prefill (1, 64), training (4, 128) and long-step (2, 1024) shapes of
 granite-3-2b (32 heads, 8 KV heads, hd 64, bf16, causal), in the order of
@@ -104,6 +105,28 @@ CASES = (
     Case("spread scores, f32", 1, 96, 96, 4, 1, 64, True, 0, False, 40.0),
     Case("spread scores, bf16", 2, 130, 130, 8, 2, 64, True, 0, True,
          40.0),
+    # the head-dim 128 and 192 instances: olmoe's prefill (MHA, G = 1),
+    # minitron's 24 / 8 heads (G = 3), phi3's 40 / 10 (G = 4), MLA's
+    # prefill at 128 + 64 (deepseek-v2's 128 heads, G = 1); ragged tiles,
+    # q_offset > 0 with Sq < Skv, f32 operands and spread scores at each
+    Case("hd 128, G = 1 (olmoe)", 4, 32, 32, 16, 16, 128, True, 0, True,
+         1.0),
+    Case("hd 128, G = 3 (minitron)", 2, 32, 32, 24, 8, 128, True, 0, True,
+         1.0),
+    Case("hd 128, G = 4 (phi3)", 1, 32, 32, 40, 10, 128, True, 0, True,
+         1.0),
+    Case("hd 128, ragged, f32", 1, 37, 37, 4, 2, 128, True, 0, False, 1.0),
+    Case("hd 128, q_offset 100", 2, 40, 140, 8, 2, 128, True, 100, True,
+         1.0),
+    Case("hd 128, spread scores, f32", 1, 96, 96, 4, 1, 128, True, 0,
+         False, 40.0),
+    Case("hd 192, G = 1 (MLA)", 2, 32, 32, 128, 128, 192, True, 0, True,
+         1.0),
+    Case("hd 192, ragged, f32", 1, 37, 37, 4, 4, 192, True, 0, False, 1.0),
+    Case("hd 192, q_offset 100", 2, 40, 140, 8, 2, 192, True, 100, True,
+         1.0),
+    Case("hd 192, spread scores, f32", 1, 96, 96, 4, 1, 192, True, 0,
+         False, 40.0),
 )
 
 
@@ -176,8 +199,8 @@ VARIANTS: Dict[str, Variant] = {
     "first q tile first": Variant(switch("kLongestFirst")),
     "exp22 fallback out of line": Variant(switch("kExpInline")),
     "pv loop not unrolled": Variant(((
-        SOURCE, "#pragma unroll 2\n    for (int j = 0; j < jn; ++j) {",
-        "#pragma unroll 1\n    for (int j = 0; j < jn; ++j) {"),)),
+        SOURCE, "#pragma unroll 2\n      for (int j = 0; j < jn; ++j) {",
+        "#pragma unroll 1\n      for (int j = 0; j < jn; ++j) {"),)),
     "score loop not unrolled": Variant(((
         SOURCE, "#pragma unroll 2\n  for (int d = 0; d < hd; ++d) {",
         "#pragma unroll 1\n  for (int d = 0; d < hd; ++d) {"),)),
@@ -208,8 +231,8 @@ def forced_plan(config: Optional[int] = None,
     fixed (each left to the plan where None)."""
     base = fa.attention_plan
 
-    def plan(B, Sq, H, KV, sms=132):
-        p = base(B, Sq, H, KV, sms)
+    def plan(B, Sq, H, KV, sms=132, hd=64):
+        p = base(B, Sq, H, KV, sms, hd=hd)
         return fa.plan_with(p.config if config is None else config,
                             p.heads if heads is None else heads, B, Sq, H)
     return plan
@@ -262,16 +285,18 @@ def apply_edits(d: Path, edits, name: str) -> None:
 
 
 def instance_label(mangled: str) -> Optional[str]:
-    """``Config<R,TR,TK,MINB> f32|bf16`` for an attention kernel instance,
+    """``Config<R,TR,TK,MINB> f32|bf16`` for an attention kernel instance
+    (``Config<...> hd128 bf16`` for a head-dim instance other than 64),
     else None."""
-    m = re.search(r"ConfigILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE(\w+?)EEv",
-                  mangled)
+    m = re.search(r"ConfigILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE"
+                  r"(?:Li(\d+)E)?(\w+?)EEv", mangled)
     if not m:        # another source's kernel (a --baseline)
         return "ff_attention_kernel " + ("bf16" if "bfloat16" in mangled
                                          else "f32") \
             if "ff_attention_kernel" in mangled else None
-    dt = "bf16" if "bfloat16" in m.group(5) else "f32"
-    return f"Config<{','.join(m.group(i) for i in range(1, 5))}> {dt}"
+    dt = "bf16" if "bfloat16" in m.group(6) else "f32"
+    hd = f"hd{m.group(5)} " if m.group(5) not in (None, "64") else ""
+    return f"Config<{','.join(m.group(i) for i in range(1, 5))}> {hd}{dt}"
 
 
 def ptxas_info(log: str) -> Dict[str, dict]:

@@ -1,0 +1,13 @@
+"""OLMoE-1B-7B [arXiv:2409.02060; hf] — 64 experts top-8.
+
+16L, d_model=2048, 16 heads (MHA kv=16), per-expert d_ff=1024,
+vocab=50304.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b", family="moe",
+    num_layers=16, d_model=2048, num_heads=16, num_kv_heads=16,
+    d_ff=1024, vocab_size=50304, head_dim=128,
+    moe_num_experts=64, moe_top_k=8, moe_d_ff=1024,
+)

@@ -74,6 +74,16 @@
 // numerator, four exp22 in flight), so Big runs one block an SM: capped at
 // 128 registers for two it spills and runs 1.08-1.35x slower; a 2 x 2 tile
 // takes ~94.  No library kernel, no tensor cores.
+//
+// Head dims.  The instance's head dim HD (64, 128, 192: the dense and MoE
+// configs' 64 and 128, MLA's prefill 128 + 64) sizes the shared-memory
+// tiles; hd <= HD at run time (hd <= 64 runs the HD = 64 instance, the
+// head dim beyond hd zero).  The score cascade walks hd.  The p*v phase
+// walks the head dim in HD / 64 chunks of 64 cells, the thread's TK cells
+// of each (one Neumaier triple live at a time), so a thread holds
+// TR x TK x HD / 64 FF numerator cells across tiles.  The arithmetic is
+// the same at every HD.  At HD = 192 a Big block takes 184 KB of shared
+// memory and a Small one 121.5 KB: one block an SM for either.
 
 #include <cuda_bf16.h>
 
@@ -82,7 +92,6 @@
 namespace {
 
 constexpr int kBKV = 64;       // keys per shared-memory tile
-constexpr int kHDMax = 64;     // largest head dim the kernel takes
 constexpr float kNegInf = -1e30f;
 
 // Design switches (benchmarks/attention_variants.py edits them).
@@ -100,14 +109,18 @@ struct Config {
   static constexpr int kThreads = R / TR * kKX;
   static constexpr int kQS = R + TR;              // qT, ph, pl row stride
   static constexpr int kKS = kBKV + 4;            // kT row stride
-  static constexpr int kSmemFloats =
-      kHDMax * kQS + kHDMax * kKS + kBKV * kHDMax + 2 * kBKV * kQS;
   static_assert(kKX <= 32 && 32 % kKX == 0, "a row's lanes in one warp");
   static_assert(TR <= kKX && R % TR == 0, "tile shape");
 };
 
 using Big = Config<64, 4, 4, 1>;     // plan 0: 256 threads, 4 x 4 a thread
 using Small = Config<16, 2, 2, 2>;   // plan 1: 256 threads, 2 x 2 a thread
+
+// the shared memory of a block of C at head dim HD: qT, kT, vs, ph and pl
+template <class C, int HD>
+constexpr int smem_floats() {
+  return HD * C::kQS + HD * C::kKS + kBKV * HD + 2 * kBKV * C::kQS;
+}
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -230,7 +243,7 @@ __device__ __forceinline__ void scores(
   }
 }
 
-template <class C, typename T>
+template <class C, int HD, typename T>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
 ff_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, float* __restrict__ out_hi,
@@ -240,13 +253,14 @@ ff_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using namespace ffk;
   constexpr int R = C::kRows, TR = C::kTR, TK = C::kTK, KX = C::kKX;
   constexpr int NT = C::kThreads;
+  constexpr int NC = HD / kBKV;                  // head-dim chunks of 64
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr unsigned kAll = 0xffffffffu;
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);   // [d][R + TR]
-  float* kT = qT + kHDMax * C::kQS;              // [d][key slot]
-  float* vs = kT + kHDMax * C::kKS;              // [key][d]
-  float* ph = vs + kBKV * kHDMax;                // [key][R + TR]
+  float* kT = qT + HD * C::kQS;                  // [d][key slot]
+  float* vs = kT + HD * C::kKS;                  // [key][d]
+  float* ph = vs + kBKV * HD;                    // [key][R + TR]
   float* pl = ph + kBKV * C::kQS;
 
   const int HB = 1 << hb_shift;
@@ -274,13 +288,13 @@ ff_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 : 0.0f;
   }
 
-  float m[TR], dh[TR], dl[TR], nh[TR][TK], nl[TR][TK];
+  float m[TR], dh[TR], dl[TR], nh[TR][NC * TK], nl[TR][NC * TK];
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     m[i] = kNegInf;
     dh[i] = dl[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < TK; ++j) nh[i][j] = nl[i][j] = 0.0f;
+    for (int j = 0; j < NC * TK; ++j) nh[i][j] = nl[i][j] = 0.0f;
   }
 
   // the tiles that hold a key some row of the block can see
@@ -291,14 +305,14 @@ ff_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kBKV;
     __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBKV * kHDMax; i += NT) {
-      const int cidx = i / kHDMax, d = i % kHDMax, kj = k0 + cidx;
+    for (int i = tid; i < kBKV * HD; i += NT) {
+      const int cidx = i / HD, d = i % HD, kj = k0 + cidx;
       const bool ok = kj < Skv && d < hd;
       const size_t off =
           ((static_cast<size_t>(b) * Skv + kj) * KV + kvh) * hd + d;
       kT[d * C::kKS + (cidx % KX) * TK + cidx / KX] =
           ok ? load_f32(k + off) : 0.0f;
-      vs[cidx * kHDMax + d] = ok ? load_f32(v + off) : 0.0f;
+      vs[cidx * HD + d] = ok ? load_f32(v + off) : 0.0f;
     }
     __syncthreads();
 
@@ -410,41 +424,46 @@ ff_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = mn[i];
     }
 
-    // 4. numerator: the p*v cascade over the keys [0, jn)
-    float ps[TR][TK], pc[TR][TK], pcc[TR][TK];
+    // 4. numerator: the p*v cascade over the keys [0, jn), a chunk of 64
+    // head-dim cells at a time
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int cb = 0; cb < NC; ++cb) {
+      float ps[TR][TK], pc[TR][TK], pcc[TR][TK];
 #pragma unroll
-      for (int j = 0; j < TK; ++j) ps[i][j] = pc[i][j] = pcc[i][j] = 0.0f;
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TK; ++j) ps[i][j] = pc[i][j] = pcc[i][j] = 0.0f;
 #pragma unroll 2
-    for (int j = 0; j < jn; ++j) {
-      float xh[TR], xl[TR], vv[TK];
-      lds<TR>(ph + j * C::kQS + TR * ty, xh);
-      lds<TR>(pl + j * C::kQS + TR * ty, xl);
-      lds<TK>(vs + j * kHDMax + TK * tx, vv);
+      for (int j = 0; j < jn; ++j) {
+        float xh[TR], xl[TR], vv[TK];
+        lds<TR>(ph + j * C::kQS + TR * ty, xh);
+        lds<TR>(pl + j * C::kQS + TR * ty, xl);
+        lds<TK>(vs + j * HD + kBKV * cb + TK * tx, vv);
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int e = 0; e < TK; ++e) {
+            ff2 p = tp(xh[i], vv[e]);
+            const float tl = add(p.lo, mul(xl[i], vv[e]));
+            ff2 t = two_sum(ps[i][e], p.hi);
+            ff2 u = two_sum(pc[i][e], t.lo);
+            ps[i][e] = t.hi;
+            pc[i][e] = u.hi;
+            pcc[i][e] = add(add(pcc[i][e], u.lo), tl);
+          }
+      }
 #pragma unroll
       for (int i = 0; i < TR; ++i)
 #pragma unroll
         for (int e = 0; e < TK; ++e) {
-          ff2 p = tp(xh[i], vv[e]);
-          const float tl = add(p.lo, mul(xl[i], vv[e]));
-          ff2 t = two_sum(ps[i][e], p.hi);
-          ff2 u = two_sum(pc[i][e], t.lo);
-          ps[i][e] = t.hi;
-          pc[i][e] = u.hi;
-          pcc[i][e] = add(add(pcc[i][e], u.lo), tl);
+          ff2 pv = two_sum(ps[i][e], pc[i][e]);
+          pv = fast_two_sum(pv.hi, add(pv.lo, pcc[i][e]));
+          const int n = TK * cb + e;
+          ff2 n1 = add22(mul22({nh[i][n], nl[i][n]}, {ah[i], al[i]}), pv);
+          nh[i][n] = n1.hi;
+          nl[i][n] = n1.lo;
         }
     }
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int e = 0; e < TK; ++e) {
-        ff2 pv = two_sum(ps[i][e], pc[i][e]);
-        pv = fast_two_sum(pv.hi, add(pv.lo, pcc[i][e]));
-        ff2 n1 = add22(mul22({nh[i][e], nl[i][e]}, {ah[i], al[i]}), pv);
-        nh[i][e] = n1.hi;
-        nl[i][e] = n1.lo;
-      }
   }
 
 #pragma unroll
@@ -456,10 +475,10 @@ ff_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const ff2 den = {ok ? dh[i] : 1e-30f, ok ? dl[i] : 0.0f};
     const size_t base = ((static_cast<size_t>(b) * Sq + qi) * H + h) * hd;
 #pragma unroll
-    for (int e = 0; e < TK; ++e) {
-      const int d = TK * tx + e;
+    for (int n = 0; n < NC * TK; ++n) {
+      const int d = kBKV * (n / TK) + TK * tx + n % TK;
       if (d < hd) {
-        ff2 o = div22({nh[i][e], nl[i][e]}, den);
+        ff2 o = div22({nh[i][n], nl[i][n]}, den);
         out_hi[base + d] = o.hi;
         out_lo[base + d] = o.lo;
       }
@@ -467,7 +486,7 @@ ff_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <class C, typename T>
+template <class C, int HD, typename T>
 int launch(const void* q, const void* k, const void* v, float* out_hi,
            float* out_lo, int B, int Sq, int Skv, int H, int KV, int hd,
            int causal, int q_offset, float scale, int hb_shift,
@@ -478,8 +497,8 @@ int launch(const void* q, const void* k, const void* v, float* out_hi,
   if (pb < 1 || groups > 0x7fffffffLL || n_qt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (groups == 0 || n_qt == 0) return static_cast<int>(cudaGetLastError());
-  const int smem = C::kSmemFloats * static_cast<int>(sizeof(float));
-  auto kern = ff_attention_kernel<C, T>;
+  const int smem = smem_floats<C, HD>() * static_cast<int>(sizeof(float));
+  auto kern = ff_attention_kernel<C, HD, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -491,18 +510,41 @@ int launch(const void* q, const void* k, const void* v, float* out_hi,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <int HD, typename T>
 int launch_plan(int plan, const void* q, const void* k, const void* v,
                 float* out_hi, float* out_lo, int B, int Sq, int Skv, int H,
                 int KV, int hd, int causal, int q_offset, float scale,
                 int hb_shift, cudaStream_t stream) {
   switch (plan) {
     case 0:
-      return launch<Big, T>(q, k, v, out_hi, out_lo, B, Sq, Skv, H, KV, hd,
+      return launch<Big, HD, T>(q, k, v, out_hi, out_lo, B, Sq, Skv, H, KV, hd,
                             causal, q_offset, scale, hb_shift, stream);
     case 1:
-      return launch<Small, T>(q, k, v, out_hi, out_lo, B, Sq, Skv, H, KV,
+      return launch<Small, HD, T>(q, k, v, out_hi, out_lo, B, Sq, Skv, H, KV,
                               hd, causal, q_offset, scale, hb_shift, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_hd(int plan, const void* q, const void* k, const void* v,
+              float* out_hi, float* out_lo, int B, int Sq, int Skv, int H,
+              int KV, int hd, int causal, int q_offset, float scale,
+              int hb_shift, cudaStream_t stream) {
+  switch (hd <= 64 ? 64 : hd) {
+    case 64:
+      return launch_plan<64, T>(plan, q, k, v, out_hi, out_lo, B, Sq, Skv,
+                                H, KV, hd, causal, q_offset, scale,
+                                hb_shift, stream);
+    case 128:
+      return launch_plan<128, T>(plan, q, k, v, out_hi, out_lo, B, Sq, Skv,
+                                 H, KV, hd, causal, q_offset, scale,
+                                 hb_shift, stream);
+    case 192:
+      return launch_plan<192, T>(plan, q, k, v, out_hi, out_lo, B, Sq, Skv,
+                                 H, KV, hd, causal, q_offset, scale,
+                                 hb_shift, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -511,23 +553,24 @@ int launch_plan(int plan, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), contiguous, f32 (is_bf16 = 0)
-// or bf16 (is_bf16 = 1); out_hi, out_lo: (B, Sq, H, hd) f32.  plan: the
-// tile configuration (0 Big, 1 Small); hb_shift: log2 of the query
-// heads a block (HB, which must divide H / KV).  Returns the CUDA error of
-// the launch (0 on success).
+// or bf16 (is_bf16 = 1); out_hi, out_lo: (B, Sq, H, hd) f32.  hd: 1 to 64
+// (the HD = 64 instance), 128 or 192.  plan: the tile configuration (0
+// Big, 1 Small); hb_shift: log2 of the query heads a block (HB, which must
+// divide H / KV).  Returns the CUDA error of the launch (0 on success).
 extern "C" int ff_attention_fwd(const void* q, const void* k, const void* v,
                                 float* out_hi, float* out_lo, int is_bf16,
                                 int B, int Sq, int Skv, int H, int KV, int hd,
                                 int causal, int q_offset, float scale,
                                 int plan, int hb_shift, cudaStream_t stream) {
-  if (hd < 1 || hd > kHDMax || KV < 1 || H % KV != 0 || hb_shift < 0 ||
-      hb_shift > 2 || (H / KV) % (1 << hb_shift) != 0)
+  if (hd < 1 || (hd > 64 && hd != 128 && hd != 192) || KV < 1 ||
+      H % KV != 0 || hb_shift < 0 || hb_shift > 2 ||
+      (H / KV) % (1 << hb_shift) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return is_bf16
-             ? launch_plan<__nv_bfloat16>(plan, q, k, v, out_hi, out_lo, B,
-                                          Sq, Skv, H, KV, hd, causal,
-                                          q_offset, scale, hb_shift, stream)
-             : launch_plan<float>(plan, q, k, v, out_hi, out_lo, B, Sq, Skv,
-                                  H, KV, hd, causal, q_offset, scale,
-                                  hb_shift, stream);
+             ? launch_hd<__nv_bfloat16>(plan, q, k, v, out_hi, out_lo, B, Sq,
+                                        Skv, H, KV, hd, causal, q_offset,
+                                        scale, hb_shift, stream)
+             : launch_hd<float>(plan, q, k, v, out_hi, out_lo, B, Sq, Skv, H,
+                                KV, hd, causal, q_offset, scale, hb_shift,
+                                stream);
 }

@@ -39,8 +39,9 @@ from repro_torch.kernels import build
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
-# the CUDA kernel's head-dim limit (csrc/ff_attention.cu: kHDMax)
-KERNEL_MAX_HEAD_DIM = 64
+# the CUDA kernel's head-dim instances (csrc/ff_attention.cu: launch_hd);
+# a head dim up to 64 runs the 64 instance, 128 and 192 their own
+KERNEL_HEAD_DIMS = (64, 128, 192)
 
 
 def _dims(q: Tensor, k: Tensor) -> Tuple[int, int, int, int, int, int]:
@@ -283,8 +284,36 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
 # the kernel's tile configurations (csrc/ff_attention.cu: Big, Small): rows
 # a block, threads a block, blocks an SM (__launch_bounds__)
 CONFIGS = ((64, 256, 1), (16, 256, 2))
+# each configuration's rows a thread (TR) in the score and p*v phases
+CONFIG_TR = (4, 2)
 # the kernel's grid.y: q tiles
 KERNEL_MAX_Q_TILES = 65535
+# an H100 SM's shared memory, and the most one block may take (bytes)
+SMEM_PER_SM = 228 * 1024
+SMEM_PER_BLOCK = 227 * 1024
+KERNEL_BKV = 64                      # keys a K/V tile (kBKV)
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The kernel instance (``HD``) that serves head dim ``hd``: 64 for
+    1 <= hd <= 64, else hd itself where it is 128 or 192; any other hd
+    raises ``ValueError``."""
+    if 1 <= hd <= 64:
+        return 64
+    if hd in KERNEL_HEAD_DIMS:
+        return hd
+    raise ValueError(f"attention kernel takes head_dim <= 64, 128 or 192, "
+                     f"got {hd}")
+
+
+def smem_bytes(config: int, hd: int) -> int:
+    """The shared memory of one block of configuration ``config`` at head
+    dim ``hd`` (csrc/ff_attention.cu: smem_floats): the transposed q tile
+    and K tile, the V tile and the two weight planes, in f32."""
+    HD = kernel_head_dim(hd)
+    rows, tr = CONFIGS[config][0], CONFIG_TR[config]
+    qs, ks = rows + tr, KERNEL_BKV + 4
+    return 4 * (HD * qs + HD * ks + KERNEL_BKV * HD + 2 * KERNEL_BKV * qs)
 
 
 class Plan(NamedTuple):
@@ -311,11 +340,13 @@ def plan_with(config: int, heads: int, B: int, Sq: int, H: int) -> Plan:
 
 
 def attention_plan(B: int, Sq: int, H: int, KV: int,
-                   sms: int = 132) -> Plan:
+                   sms: int = 132, hd: int = 64) -> Plan:
     """The tiles of one kernel launch: the largest configuration whose
     blocks occupy every one of the ``sms`` SMs, else the smallest (the
     most blocks).  A block serves the largest of 4, 2, 1 query heads that
-    divides H / KV."""
+    divides H / KV.  Raises ``ValueError`` for a head dim ``hd`` that no
+    kernel instance takes (:func:`kernel_head_dim`)."""
+    kernel_head_dim(hd)
     G = H // KV
     heads = 4 if G % 4 == 0 else 2 if G % 2 == 0 else 1
     for i in range(len(CONFIGS)):
@@ -339,8 +370,8 @@ def flash_attention_pallas(q: Tensor, k: Tensor, v: Tensor, *,
     dispatch routes a per-row ``kv_len`` to the ``ff`` tier).
 
     On a CUDA tensor: the CUDA kernel, which raises if it cannot launch
-    (f32 or bf16 operands of one dtype, contiguous, hd <= 64, at most
-    ``KERNEL_MAX_Q_TILES`` q tiles).  Its tiles are its own
+    (f32 or bf16 operands of one dtype, contiguous, hd <= 64, 128 or 192,
+    at most ``KERNEL_MAX_Q_TILES`` q tiles).  Its tiles are its own
     (:func:`attention_plan`: 64-key K/V tiles, 64 or 16 rows a block);
     ``block_q``/``block_kv`` shape only the plain version.  On a CPU
     tensor: the plain version, :func:`flash_attention_ff`."""
@@ -367,13 +398,12 @@ def flash_attention_pallas(q: Tensor, k: Tensor, v: Tensor, *,
         raise ValueError("attention kernel takes contiguous q, k, v")
     plan = attention_plan(B, Sq, H, KV, _sms(q.device.index
                                              if q.device.index is not None
-                                             else torch.cuda.current_device()))
-    if hd > KERNEL_MAX_HEAD_DIM or plan.grid[1] > KERNEL_MAX_Q_TILES \
-            or plan.grid[0] >= 2 ** 31:
-        raise ValueError(f"attention kernel takes head_dim <= "
-                         f"{KERNEL_MAX_HEAD_DIM}, at most "
+                                             else torch.cuda.current_device()),
+                          hd=hd)
+    if plan.grid[1] > KERNEL_MAX_Q_TILES or plan.grid[0] >= 2 ** 31:
+        raise ValueError(f"attention kernel takes at most "
                          f"{KERNEL_MAX_Q_TILES} q tiles and < 2^31 head "
-                         f"groups, got {hd}, grid {plan.grid}")
+                         f"groups, got grid {plan.grid}")
     oh = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
     ol = torch.empty_like(oh)
     with torch.cuda.device(q.device):

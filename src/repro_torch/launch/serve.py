@@ -3,6 +3,7 @@ prefill and greedy decode loop, or the continuous-batching engine::
 
     python -m repro_torch.launch.serve --arch granite-3-2b [--reduced] \\
         [--batch 4] [--prompt-len 32] [--max-new 16] [--device cpu]
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b   # MoE, MHA
     python -m repro_torch.launch.serve --arch granite-3-2b --engine \\
         [--kv-mode bf16|f32|ff_bf16] [--guard off|check|degrade] \\
         [--snapshot-dir DIR [--snapshot-every N] [--resume]] \\
@@ -17,6 +18,12 @@ FF token scores); with ``--snapshot-dir`` it journals every request to
 ``--snapshot-every`` decode steps and at the end, and ``--resume``
 restarts from the newest snapshot that verifies and replays the journal
 instead of submitting new requests.
+
+``--arch`` takes every decoder-only architecture of
+``repro_torch.configs.PORTED`` (dense GQA, MoE, MLA and the VLM backbone,
+whose batched loop takes zero patch embeddings, as the reference's).  The
+engine serves the dense GQA family only: with ``--engine`` a MoE or MLA
+architecture stops with ``UnsupportedModelError``, as in the reference.
 
 ``--metrics-json`` writes the engine's metrics and the process-global
 telemetry (:meth:`repro_torch.obs.Observer.dump_metrics`) after the run,
@@ -220,9 +227,15 @@ def main(argv: Optional[Sequence[str]] = None):
     gen = torch.Generator(device=device).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"patches": torch.zeros(
+            (args.batch, cfg.num_patches, cfg.d_model), device=device)}
+        max_ctx += cfg.num_patches
     t0 = time.perf_counter()
     toks, lps = greedy_generate(params, cfg, prompt, args.max_new,
-                                cache_len=max_ctx, return_logprobs=True)
+                                cache_len=max_ctx, extra_inputs=extra,
+                                return_logprobs=True)
     # sequence score: the compensated FF sum of the token logprobs
     total = ff.sum(lps.reshape(-1).to(torch.float32))
     mean_lp = (float(total.hi) + float(total.lo)) / lps.numel()

@@ -1,4 +1,5 @@
-"""The dense decoder family in eager PyTorch."""
+"""The decoder-only model families (dense, MoE, MLA, VLM) in eager
+PyTorch."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (chunked_cross_entropy, cross_entropy,

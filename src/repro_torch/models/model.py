@@ -1,5 +1,11 @@
-"""Model assembly for the dense family: params / train_forward / cache /
-prefill / decode (counterpart of ``repro.models.model``).
+"""Model assembly for the decoder-only families: params / train_forward /
+cache / prefill / decode (counterpart of ``repro.models.model``).
+
+The families ``dense``, ``moe`` and ``vlm``, with GQA or MLA attention
+(``cfg.use_mla``) and a dense or MoE FFN (``cfg.moe_num_experts``); the
+``vlm`` family prepends projected patch embeddings (``batch["patches"]``,
+the vision tower a stub as in the reference).  The ``ssm``, ``hybrid``
+and ``encdec`` families are not ported yet.
 
 Params are a dict laid out like the reference's pytree, with the layers
 stacked on a leading L axis (``params["layers"]["attn"]["wq"]`` is
@@ -21,7 +27,9 @@ import repro_torch.ff as ff
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.ff import scope as ff_scope
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import mla
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.config import NOT_PORTED, ModelConfig
 from repro_torch.models.layers import (attn_apply, attn_cache_init,
                                        attn_decode, attn_prefill,
                                        embed_apply, mlp_apply, rms_norm,
@@ -32,14 +40,28 @@ Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port models the dense GQA family, serving and training, under
-    every policy (``ff_math`` included: the FF functions carry their
-    reference gradients)."""
+    """The port models the decoder-only families (``dense``, ``moe``,
+    ``vlm``; GQA or MLA attention, dense or MoE FFN) under every policy.
+    The others raise ``NotImplementedError`` naming their ROADMAP item;
+    interleaved dense/MoE stacks the reference's ``ValueError``."""
+    if cfg.family in NOT_PORTED:
+        raise NotImplementedError(f"repro_torch does not model the "
+                                  f"{cfg.family!r} family yet: "
+                                  f"{NOT_PORTED[cfg.family]}")
+    if cfg.moe_num_experts and cfg.moe_every != 1:
+        raise ValueError("interleaved dense/MoE stacks use the hybrid path")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training (gradients, the Trainer) covers the dense GQA family; the
+    MoE, MLA and VLM families run forward only so far."""
+    check_supported(cfg)
     if cfg.family != "dense" or cfg.use_mla or cfg.moe_num_experts:
         raise NotImplementedError(
-            f"repro_torch models the dense GQA family only; got family="
+            f"repro_torch trains the dense GQA family only (family="
             f"{cfg.family!r}, use_mla={cfg.use_mla}, moe_num_experts="
-            f"{cfg.moe_num_experts}")
+            f"{cfg.moe_num_experts}): training of the MoE, MLA and VLM "
+            f"families is ROADMAP.md §1 item 7's last step")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -78,8 +100,10 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 # ===========================================================================
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Random dense-family weights from ``generator`` (on the generator's
-    device): normal / sqrt(fan_in) matrices, unit norm weights."""
+    """Random weights from ``generator`` (on the generator's device):
+    normal / sqrt(fan_in) matrices, unit norm weights, laid out as the
+    reference's pytree (MLA attention, MoE FFN and the VLM's identity
+    ``patch_proj`` where the config has them)."""
     check_supported(cfg)
     dev = generator.device
     L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
@@ -89,55 +113,84 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
         return torch.randn(shape, generator=generator, device=dev) \
             * (1.0 / math.sqrt(fan_in))
 
+    def stacked(shape):
+        return dense((L,) + shape)
+
     embed = {"tok": dense((cfg.vocab_size, d))}
     if not cfg.tie_embeddings:
         embed["unembed"] = dense((d, cfg.vocab_size))
     ones = torch.ones((L, d), device=dev)
-    layers = {
-        "ln1": ones, "ln2": ones.clone(),
-        "attn": {"wq": dense((L, d, cfg.num_heads * hd)),
-                 "wk": dense((L, d, cfg.num_kv_heads * hd)),
-                 "wv": dense((L, d, cfg.num_kv_heads * hd)),
-                 "wo": dense((L, cfg.num_heads * hd, d))},
-        "ffn": {"w_gate": dense((L, d, cfg.d_ff)),
-                "w_up": dense((L, d, cfg.d_ff)),
-                "w_down": dense((L, cfg.d_ff, d))},
-    }
-    return {"embed": embed, "final_norm": torch.ones((d,), device=dev),
-            "layers": layers}
+    if cfg.use_mla:
+        attn = mla.mla_params(cfg, stacked,
+                              lambda n: torch.ones((L, n), device=dev))
+    else:
+        attn = {"wq": stacked((d, cfg.num_heads * hd)),
+                "wk": stacked((d, cfg.num_kv_heads * hd)),
+                "wv": stacked((d, cfg.num_kv_heads * hd)),
+                "wo": stacked((cfg.num_heads * hd, d))}
+    if cfg.moe_num_experts:
+        ffn = moe_lib.moe_params(cfg, stacked)
+    else:
+        ffn = {"w_gate": stacked((d, cfg.d_ff)),
+               "w_up": stacked((d, cfg.d_ff)),
+               "w_down": stacked((cfg.d_ff, d))}
+    layers = {"ln1": ones, "ln2": ones.clone(), "attn": attn, "ffn": ffn}
+    params = {"embed": embed, "final_norm": torch.ones((d,), device=dev),
+              "layers": layers}
+    if cfg.family == "vlm":
+        params["patch_proj"] = torch.eye(d, device=dev)
+    return params
 
 
 # ===========================================================================
 # training forward + loss
 # ===========================================================================
 
+def _ffn(p: Params, z: Tensor, cfg: ModelConfig, policy: PrecisionPolicy,
+         ff_stats: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
+    """The layer's FFN: the MoE (output, aux) where it has a router, else
+    the SwiGLU MLP and no aux."""
+    if "router" in p:
+        return moe_lib.moe_apply(p, z, cfg, ff_stats=ff_stats,
+                                 ff_math=policy.ff_math)
+    return mlp_apply(p, z, ff_math=policy.ff_math), None
+
+
 def _decoder_layer(x: Tensor, lp: Params, cfg: ModelConfig,
-                   policy: PrecisionPolicy, positions: Tensor) -> Tensor:
+                   policy: PrecisionPolicy, positions: Tensor
+                   ) -> Tuple[Tensor, Optional[Tensor]]:
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, ff_stats=policy.ff_reductions)
-    x = x + attn_apply(lp["attn"], h, cfg, positions=positions,
-                       attn_impl=policy.attention)
+    attn = mla.mla_apply if cfg.use_mla else attn_apply
+    x = x + attn(lp["attn"], h, cfg, positions=positions,
+                 attn_impl=policy.attention)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, ff_stats=policy.ff_reductions)
-    return x + mlp_apply(lp["ffn"], h, ff_math=policy.ff_math)
+    f, aux = _ffn(lp["ffn"], h, cfg, policy, policy.ff_reductions)
+    return x + f, aux
 
 
 def _run_stack(params: Params, x: Tensor, cfg: ModelConfig,
-               policy: PrecisionPolicy, positions: Tensor) -> Tensor:
-    """The layer loop of training.  With ``cfg.remat`` each layer keeps
-    only its input and recomputes the rest in the backward pass."""
+               policy: PrecisionPolicy, positions: Tensor
+               ) -> Tuple[Tensor, Tensor]:
+    """The layer loop of training; returns (hidden, the layers' summed
+    aux loss).  With ``cfg.remat`` each layer keeps only its input and
+    recomputes the rest in the backward pass."""
     scoped = ff_scope.captured()
 
     def body(h, lp):
         with scoped():
             return _decoder_layer(h, lp, cfg, policy, positions)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["layers"], cfg.num_layers):
         if cfg.remat:
             # the layer draws no random numbers: no RNG state to restore
-            x = checkpoint(body, x, lp, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(body, x, lp, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = body(x, lp)
-    return x
+            x, a = body(x, lp)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _gold(logits: Tensor, targets: Tensor) -> Tensor:
@@ -213,25 +266,45 @@ def cross_entropy(logits: Tensor, targets: Tensor,
     return tot / torch.clamp_min(mask.sum(), 1.0)
 
 
+def _embed_inputs(params: Params, batch: Dict[str, Tensor],
+                  cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """The input embeddings and their positions; the ``vlm`` family puts
+    its projected patches (``batch["patches"]``, (B, P, d)) before the
+    text."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dt = compute_dtype(cfg)
+    x = embed_apply(params["embed"], tokens, dt)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(dt) @ params["patch_proj"].to(dt)
+        x = torch.cat([patches, x], dim=1)
+        S += patches.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    return x, positions
+
+
 def train_forward(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
                   policy: Optional[PrecisionPolicy] = None
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """The training loss of a batch ``{"tokens", "targets"}`` (B, S).
-    Returns ``(loss, {"loss", "aux"})``; the dense family has no auxiliary
-    loss, so ``aux`` is 0 and the total is the loss."""
+    """The training loss of a batch ``{"tokens", "targets"}`` (B, S) (and
+    ``"patches"`` for ``vlm``; the loss over the text positions only).
+    Returns ``(loss + 0.01 aux, {"loss", "aux"})``: ``aux`` sums the MoE
+    layers' load-balance losses (0 without experts, where the total is the
+    loss)."""
     policy = ff.resolve_policy(policy)
     check_supported(cfg)
-    tokens, targets = batch["tokens"], batch["targets"]
-    B, S = tokens.shape
-    x = embed_apply(params["embed"], tokens, compute_dtype(cfg))
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    x = _run_stack(params, x, cfg, policy, positions)
+    targets = batch["targets"]
+    S = targets.shape[1]
+    x, positions = _embed_inputs(params, batch, cfg)
+    x, aux = _run_stack(params, x, cfg, policy, positions)
+    if cfg.family == "vlm":
+        x = x[:, -S:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  ff_stats=policy.ff_reductions)
     loss = chunked_cross_entropy(x, params, targets, cfg, policy)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss, "aux": aux}
+    total = loss + 0.01 * aux if cfg.moe_num_experts else loss
+    return total, {"loss": loss, "aux": aux}
 
 
 # ===========================================================================
@@ -240,9 +313,12 @@ def train_forward(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Params:
-    """Layer-stacked KV cache: {"layers": {"k", "v": (L, B, S, KV, hd)}}."""
-    one = attn_cache_init(cfg, batch, max_len, dtype,
-                          resolve_device(device))
+    """Layer-stacked KV cache: {"layers": {"k", "v": (L, B, S, KV, hd)}},
+    or with MLA the latent cache {"layers": {"c_kv": (L, B, S, r),
+    "k_rope": (L, B, S, dr)}}."""
+    check_supported(cfg)
+    init = mla.mla_cache_init if cfg.use_mla else attn_cache_init
+    one = init(cfg, batch, max_len, dtype, resolve_device(device))
     return {"layers": {n: t[None].repeat((cfg.num_layers,) + (1,) * t.ndim)
                        for n, t in one.items()}}
 
@@ -250,7 +326,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _stack(params: Params, x: Tensor, cfg: ModelConfig,
            policy: PrecisionPolicy, cache: Params, attn) -> Tensor:
     """The layer loop shared by prefill and decode; ``attn(lp, z, lcache)``
-    runs one layer's attention and writes its cache."""
+    runs one layer's attention and writes its cache.  The MoE FFN takes
+    the plain load-balance statistic here (its aux is dropped), as the
+    reference's serving path."""
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         lcache = layer(cache["layers"], i)
@@ -259,26 +337,23 @@ def _stack(params: Params, x: Tensor, cfg: ModelConfig,
         x = x + attn(lp["attn"], z, lcache)
         z = rms_norm(x, lp["ln2"], cfg.norm_eps,
                      ff_stats=policy.ff_reductions)
-        x = x + mlp_apply(lp["ffn"], z, ff_math=policy.ff_math)
+        x = x + _ffn(lp["ffn"], z, cfg, policy)[0]
     return x
 
 
 def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
             cache: Params, policy: Optional[PrecisionPolicy] = None
             ) -> Tuple[Tensor, Params]:
-    """Run the prompt through the model, filling the cache.  Returns
-    (last-position logits (B, V), cache)."""
+    """Run the prompt (after the patches, for ``vlm``) through the model,
+    filling the cache.  Returns (last-position logits (B, V), cache)."""
     policy = ff.resolve_policy(policy)
     check_supported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_apply(params["embed"], tokens, compute_dtype(cfg))
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
+    x, positions = _embed_inputs(params, batch, cfg)
+    fill = mla.mla_prefill if cfg.use_mla else attn_prefill
 
     def attn(p, z, lcache):
-        return attn_prefill(p, z, cfg, positions=positions, cache=lcache,
-                            attn_impl=policy.attention)[0]
+        return fill(p, z, cfg, positions=positions, cache=lcache,
+                    attn_impl=policy.attention)[0]
 
     x = _stack(params, x, cfg, policy, cache, attn)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps,
@@ -295,10 +370,11 @@ def decode_step(params: Params, token: Tensor, pos: int, cache: Params,
     policy = ff.resolve_policy(policy)
     check_supported(cfg)
     x = embed_apply(params["embed"], token, compute_dtype(cfg))
+    step = mla.mla_decode if cfg.use_mla else attn_decode
 
     def attn(p, z, lcache):
-        return attn_decode(p, z, cfg, pos=pos, cache=lcache,
-                           attn_impl=policy.attention)[0]
+        return step(p, z, cfg, pos=pos, cache=lcache,
+                    attn_impl=policy.attention)[0]
 
     x = _stack(params, x, cfg, policy, cache, attn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,

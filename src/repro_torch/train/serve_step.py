@@ -74,9 +74,12 @@ def token_logprob_ff(logits: Tensor, token: Tensor) -> FF:
 def greedy_generate(params, cfg: ModelConfig, prompt: Tensor, max_new: int,
                     cache_len: int,
                     policy: Optional[PrecisionPolicy] = None,
+                    extra_inputs: Optional[Dict[str, Tensor]] = None,
                     return_logprobs: bool = False,
                     eos_id: Optional[int] = None):
-    """Greedy decoding, one sequence batch at a time.  prompt: (B, S) int.
+    """Greedy decoding, one sequence batch at a time.  prompt: (B, S) int;
+    ``extra_inputs`` joins the prefill batch (``{"patches": (B, P, d)}``
+    for ``vlm``, whose decode starts at S + num_patches).
 
     ``return_logprobs=True`` also returns the (B, n) chosen-token scores
     (:func:`token_logprob`).  With ``eos_id`` set, rows that emitted it are
@@ -86,14 +89,16 @@ def greedy_generate(params, cfg: ModelConfig, prompt: Tensor, max_new: int,
     cache = init_cache(cfg, B, cache_len, device=prompt.device)
     pf = make_prefill_step(cfg, pol)
     dc = make_decode_step(cfg, pol)
-    logits, cache = pf(params, {"tokens": prompt}, cache)
+    logits, cache = pf(params, {"tokens": prompt, **(extra_inputs or {})},
+                       cache)
     toks = [torch.argmax(logits, -1).to(torch.int32)]
     lps = [token_logprob(logits, toks[-1], pol)] if return_logprobs else None
     done = (toks[-1] == eos_id) if eos_id is not None else None
+    pos0 = S + (cfg.num_patches if cfg.family == "vlm" else 0)
     for t in range(max_new - 1):
         if eos_id is not None and bool(done.all()):
             break
-        logits, cache = dc(params, toks[-1][:, None], S + t, cache)
+        logits, cache = dc(params, toks[-1][:, None], pos0 + t, cache)
         nxt = torch.argmax(logits, -1).to(torch.int32)
         if eos_id is not None:
             nxt = torch.where(done, eos_id, nxt).to(torch.int32)

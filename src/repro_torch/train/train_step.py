@@ -19,7 +19,7 @@ from repro_torch.core.ff import FF
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.ff.scope import resolve_policy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import train_forward
+from repro_torch.models.model import check_trainable, train_forward
 from repro_torch.optim.adamw import (AdamW, AdamWState, clip_by_global_norm,
                                      tree_leaves)
 
@@ -61,6 +61,7 @@ def make_train_step(cfg: ModelConfig,
                         "optional — it falls back to the ambient ff.policy "
                         "scope — but the optimizer is not)")
     _no_mesh(mesh, mesh_axis)
+    check_trainable(cfg)
     policy = resolve_policy(policy)
     loss_fn = make_loss_fn(cfg, policy)
 

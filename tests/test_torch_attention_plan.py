@@ -300,6 +300,44 @@ def test_attention_plan_covers_the_rows(B, Sq, H, KV):
     assert port_attn.plan_with(plan.config, plan.heads, B, Sq, H) == plan
 
 
+@pytest.mark.parametrize("hd", [1, 40, 64, 128, 192])
+@pytest.mark.parametrize("config", [0, 1])
+def test_head_dim_instances_fit_an_sm(hd, config):
+    """Every head dim the kernel takes has an instance (64 for hd <= 64)
+    whose blocks fit the shared memory of an SM, and a plan."""
+    HD = port_attn.kernel_head_dim(hd)
+    assert HD == (64 if hd <= 64 else hd) and HD in port_attn.KERNEL_HEAD_DIMS
+    smem = port_attn.smem_bytes(config, hd)
+    assert smem <= port_attn.SMEM_PER_BLOCK
+    # blocks an SM: the __launch_bounds__ count, or fewer where the shared
+    # memory runs out (Small at 192: one)
+    per_sm = min(port_attn.CONFIGS[config][2],
+                 port_attn.SMEM_PER_SM // smem)
+    assert per_sm >= 1
+    plan = port_attn.attention_plan(2, 32, 16, 16, hd=hd)
+    assert plan.grid == (32 // plan.heads, -(-32 // plan.positions))
+
+
+@pytest.mark.parametrize("hd", [0, 65, 96, 127, 129, 191, 256, 576])
+def test_other_head_dims_raise(hd):
+    with pytest.raises(ValueError, match="head_dim"):
+        port_attn.kernel_head_dim(hd)
+    with pytest.raises(ValueError, match="head_dim"):
+        port_attn.attention_plan(1, 16, 4, 4, hd=hd)
+
+
+def test_head_dim_instances_match_the_source():
+    """The wrapper's shared-memory formula, rows a thread and head dims are
+    the source's."""
+    assert "return HD * C::kQS + HD * C::kKS + kBKV * HD + " \
+        "2 * kBKV * C::kQS;" in SRC
+    assert tuple(c[1] for c in _configs()) == port_attn.CONFIG_TR
+    assert "(hd > 64 && hd != 128 && hd != 192)" in SRC
+    for HD in port_attn.KERNEL_HEAD_DIMS:
+        assert f"launch_plan<{HD}, T>" in SRC
+    assert port_attn.KERNEL_BKV == BKV
+
+
 # -- parity cases of the plain version ---------------------------------------
 
 def _oracle(q, k, v, causal, q_offset):
@@ -327,6 +365,11 @@ PARITY = {
     "bf16_hd64_gqa4": (1, 16, 16, 8, 2, 64, True, 0, True),
     "causal_q_offset_sq_lt_skv": (1, 8, 40, 4, 2, 32, True, 32, False),
     "wholly_masked_tiles": (1, 160, 160, 2, 1, 32, True, 0, False),
+    # the head dims the kernel once refused (hd > 64 raised on the card,
+    # where the reference's kernel pads hd to its lane): the dense and MoE
+    # configs' 128 and MLA's prefill 192, G = 1 and 4, q_offset > 0
+    "hd128_g1_q_offset": (1, 8, 24, 2, 2, 128, True, 16, False),
+    "hd192_g4_q_offset_bf16": (1, 8, 24, 4, 1, 192, True, 16, True),
 }
 
 

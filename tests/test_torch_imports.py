@@ -48,7 +48,13 @@ new = {"repro_torch.core.ffmatmul", "repro_torch.kernels.ff_matmul",
        "repro_torch.obs.registry", "repro_torch.obs.trace",
        "repro_torch.obs.profiling", "repro_torch.obs.__main__",
        "repro_torch.chaos", "repro_torch.chaos.inject",
-       "repro_torch.chaos.__main__", "repro_torch.chaos.restart"}
+       "repro_torch.chaos.__main__", "repro_torch.chaos.restart",
+       "repro_torch.models.moe", "repro_torch.models.mla",
+       "repro_torch.configs.olmoe_1b_7b",
+       "repro_torch.configs.deepseek_v2_236b",
+       "repro_torch.configs.internvl2_1b", "repro_torch.configs.minitron_4b",
+       "repro_torch.configs.phi3_medium_14b",
+       "repro_torch.configs.llama3_405b"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 """
@@ -264,8 +270,14 @@ def test_training_dispatch_defaults():
 
 
 def test_get_config_names_the_ported_architectures():
-    from repro_torch.configs import get_config
+    from repro_torch.configs import PORTED, get_config
     assert get_config("granite-3-2b") is get_config("granite_3_2b")
-    for name in ("llama3-405b", "no-such-model"):
-        with pytest.raises(NotImplementedError, match="granite_3_2b"):
+    for name in PORTED:
+        arch = name.replace("_", "-")
+        assert get_config(arch).name == arch
+    with pytest.raises(NotImplementedError, match="granite_3_2b"):
+        get_config("no-such-model")
+    # the SSM, hybrid and encoder-decoder families name their ROADMAP item
+    for name in ("mamba2-370m", "jamba-1.5-large-398b", "whisper-medium"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md .* item 7"):
             get_config(name)
