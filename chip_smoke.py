@@ -10,15 +10,22 @@ Phases (any failed check raises, so the script exits non-zero):
      ``build/``, one ``nvcc`` per source, all at once);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the shapes the serving and training paths give it among
-     others (``mean_sq`` also at d_model 3072 and 5120) — ``mean_sq`` to
+     others (``mean_sq`` also at d_model 3072, 5120, 1024 and 256) —
+     ``mean_sq`` to
      <= 1 ulp, FF attention (and its plain
      version) to <= 2^-40 of a float64 oracle on the card on
      ``attention_variants.CASES`` (the main paths' shapes, q tiles that
      skip K/V tiles, ``q_offset > 0`` with Sq < Skv, ragged tiles, G = 1,
      3, 4, 8, f32 and bf16, weights below 2^-100 of the row's largest,
-     the head-dim 128 and 192 instances at the new families' shapes),
-     the kernel under its own plan, each tile configuration and one head
-     a block (its instances' registers and spills logged at the build),
+     the head-dim 128 and 192 instances at the decoder-only families'
+     shapes, non-causal at whisper-medium's encoder (2, 1500 over 1500)
+     and cross (2, 32 over 1500) shapes and on spread f32 scores), the
+     kernel under its own plan, each tile configuration and one head a
+     block (its instances' registers and spills logged at the build);
+     ``math_elementwise``'s exp and log1p bit for bit their plain versions
+     on the SSD's arguments (a 600-token prompt's ``_segsum`` with its
+     -inf triangle and differences below -103, the decay vectors,
+     softplus's, edge arguments; exp(-inf) = (+0, +0)),
      the AdamW
      update, in place as the optimizer runs it on whole leaves (``tok``,
      ``w_gate``) and on lengths off its 4-wide packs through its 16-byte
@@ -108,19 +115,19 @@ Phases (any failed check raises, so the script exits non-zero):
      ``reserve="prompt"`` with a preemption (the same statuses, tokens
      and preemptions); ``launch.serve --reduced --engine --snapshot-dir``
      and its ``--resume``; then granite-3-2b at full width
-     (random weights from a seed) serving 8 requests under
+     (random weights from a seed) serving 4 requests under
      ``policy("ff_reduce", attention="pallas")``, with the kernels' launch
-     counts read around that run and its own ``obs.Observer``: 8 requests
+     counts read around that run and its own ``obs.Observer``: 4 requests
      ``OK`` and the tokens counted, the decode-step histogram's count and
      sum those of ``decode_s``, the ``mean_sq`` resolutions (on
      ``backend="cuda"``) as many as its launches, one ``request`` span a
      request, a Chrome trace that survives a JSON round trip with sorted
-     timestamps; then the first 4 of them through engine
+     timestamps; then the same 4 through engine
      A with ``reserve="prompt"`` on a pool that forces a preemption,
      ``sync_every=4``, a request journal and ``deadline_steps`` on one,
      snapshotted after a few iterations and dropped, and engine B from
      ``resume_engine`` run to the end: the tokens and both scores bit for
-     bit the 8-request run's (the deadline request ``TIMEOUT`` with a
+     bit the 4-request run's (the deadline request ``TIMEOUT`` with a
      prefix of them), a preemption, an empty journal, clean metadata and
      exact launch counts (``serve_durable``); then 4 requests under
      ``ff_math=True``
@@ -138,10 +145,12 @@ Phases (any failed check raises, so the script exits non-zero):
      ``obs.enable()``, for the device-busy share and the step's
      ``serve.decode_step`` range, and one more with its registry and
      trace calls counted and replayed in a timed loop (host µs a step);
-  8. the decoder-only families beyond dense GQA: reduced olmoe-1b-7b
-     (head dim 128; also under ``ff_math``), deepseek-v2-236b and
-     internvl2-1b (f32) through ``greedy_generate`` on the card against
-     the CPU (equal tokens, prefill logits within SMALL_FAMILY_ATOL);
+  8. the families beyond dense GQA: reduced olmoe-1b-7b (head dim 128;
+     also under ``ff_math``), deepseek-v2-236b, internvl2-1b,
+     mamba2-370m (also under ``ff_math``), jamba-1.5-large-398b (one
+     8-layer period) and whisper-medium (f32) through ``greedy_generate``
+     on the card against the CPU (equal tokens, prefill logits within
+     SMALL_FAMILY_ATOL);
      olmoe-1b-7b at full size (6.9 B parameters, bf16, random weights from
      a seed) through ``greedy_generate``, 4 prompts of 32 tokens, 8 new
      under ``policy("ff_reduce", attention="pallas")`` (the attention
@@ -154,7 +163,16 @@ Phases (any failed check raises, so the script exits non-zero):
      through the head-dim 192 instance, the absorbed decode on the ff
      tier); minitron-4b at full size through ``ServeEngine``, 2 requests
      of 32 tokens, 4 new (the head-dim 128 instance at G = 3 in the
-     paged engine's prefills);
+     paged engine's prefills); mamba2-370m at full size (0.42 B
+     parameters), 4 prompts of 32 tokens, 8 new under ``ff_reduce`` +
+     ``pallas`` and under ``ff_math`` (the SSD's exp / log1p through
+     ``math_elementwise``), one prompt of 600 tokens (3 SSD chunks) under
+     ``ff_math``, exact launch counts, each against its plain routes
+     (``ff_math``: equal logits and tokens); whisper-medium at full size
+     (1.01 B parameters), 2 requests of 1500 seeded frames and 32 tokens
+     (the attention kernel non-causal in the encoder and the cross
+     attention, 72 launches a prefill; decode on the ff tier), against
+     ``attention="fast"``;
   9. chaos: ``python -m repro_torch.chaos`` (every fault class on its own
      small model) on the card and with ``--device cpu``, both exit 0 with
      equal statuses and tokens, ``guard_flags`` launches read around the
@@ -181,8 +199,9 @@ Phases (any failed check raises, so the script exits non-zero):
      runs) this slice's;
   11. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound (FF
-     attention at the prefill, training and long-step shapes, and at the
-     new families' prefills at head dims 128 and 192); the
+     attention at the prefill, training and long-step shapes, at the
+     decoder-only families' prefills at head dims 128 and 192, and
+     non-causal at whisper-medium's encoder and cross shapes); the
      elementwise rows at (4096, 4096) and AdamW at ``w_gate`` must have
      taken the 16-byte path (the path each took is logged).
 
@@ -206,7 +225,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 T0 = 0.0                                 # the script's start (perf_counter)
-FULL_REQUESTS, MAX_NEW = 8, 16
+# the full-width serving run: 4 requests, one wave of max_batch 4 (cut
+# from 8 to keep the whole call within its time limit); the lengths of 8
+# are drawn, so the 4 prompts are the first 4 of the 8-request stream
+FULL_REQUESTS, MAX_NEW = 4, 16
 PROMPT_LENS = (16, 64)
 
 # f32 instruction counts of the kernels' device functions (csrc/ff_eft.cuh;
@@ -492,6 +514,60 @@ def attention_checks(torch, g) -> float:
     return worst_abs
 
 
+def bitwise(x, y) -> bool:
+    """Equal bits (signs of zero included) in both limbs."""
+    import torch
+    return all(torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+               for a, b in zip(x, y))
+
+
+def ssd_exp_checks(torch, g):
+    """``math_elementwise``'s exp (and log1p) on the SSD's arguments bit
+    for bit their plain versions: a 600-token prompt's decays at
+    mamba2-370m's 32 heads (dt = softplus of raw draws, A = -1, padded to
+    3 chunks of 256), their ``_segsum`` (-inf above each diagonal,
+    differences below -103), ``decay_end``, ``chunk_decay`` and
+    ``decay_in``; softplus's exp(-|x|) and log1p of it; and edge
+    arguments (-inf, -1e30, around f32 exp's underflow at -103.97 and
+    its subnormal range, signed zeros).  exp(-inf) must be (+0, +0)."""
+    from repro_torch.kernels import ff_math as km
+    from repro_torch.models import mamba2
+    raw = torch.randn((1, 768, 32), generator=g, device="cuda") * 2
+    dt = mamba2._softplus(raw, False)
+    dt[:, 600:] = 0.0                               # the chunk padding
+    a = (-dt).reshape(1, 3, 256, 32).permute(0, 1, 3, 2)
+    a_cum = torch.cumsum(a, dim=-1)
+    edges = torch.tensor([float("-inf"), -1e30, -200.0, -150.0, -104.0,
+                          -103.97, -103.5, -103.0, -100.0, -87.4, -87.3,
+                          -1e-30, -0.0, 0.0], device="cuda")
+    args = {"segsum": mamba2._segsum(a), "decay_end": a_cum[..., -1:] - a_cum,
+            "chunk_decay": a_cum[..., -1], "decay_in": a_cum,
+            "softplus exp": -raw.abs(), "edges": edges}
+    n = 0
+    for what, x in args.items():
+        x = x.contiguous()
+        lo = torch.zeros_like(x)
+        got = km.math_elementwise("exp", x, lo)
+        want = km.math_elementwise_plain("exp", x, lo)
+        neg_inf = torch.isneginf(x)
+        zero = bool((got[0][neg_inf] == 0).all() and (got[1][neg_inf] == 0)
+                    .all() and not torch.signbit(got[0][neg_inf]).any())
+        if not (bitwise(got, want) and zero):
+            raise AssertionError(f"ff_math exp on the SSD's {what}: kernel "
+                                 f"!= plain bits or exp(-inf) != (+0, +0)")
+        if what == "softplus exp":
+            lg = km.math_elementwise("log1p", *got)
+            if not bitwise(lg, km.math_elementwise_plain("log1p", *got)):
+                raise AssertionError("ff_math log1p on softplus's exp: "
+                                     "kernel != plain bits")
+        n += x.numel()
+        log(f"ff_math exp on the SSD's {what} {tuple(x.shape)}: bit for bit "
+            f"the plain version ({int(neg_inf.sum())} -inf -> (+0, +0), "
+            f"{int((x < -103.97).sum())} below -103.97)")
+    return n
+
+
 def phase_kernel_checks(torch):
     from repro_torch.kernels import ff_fused
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -499,9 +575,13 @@ def phase_kernel_checks(torch):
     worst_ulp, worst_abs = 0, 0.0
     # decode rows, prefill rows, training rows (4 x 128, 2 x 1024), odd;
     # minitron-4b's and deepseek-v2's d_model (3072, 5120): decode and
-    # prefill rows
+    # prefill rows; mamba2-370m's and whisper-medium's 1024 (decode, 4 x
+    # 32 prefill, the 600-token prompt, whisper's 2 x 1500 encoder rows)
+    # and the reduced families' 256
     for shape in ((4, 2048), (64, 2048), (512, 2048), (2048, 2048),
-                  (3, 1000), (2, 3072), (32, 3072), (2, 5120), (64, 5120)):
+                  (3, 1000), (2, 3072), (32, 3072), (2, 5120), (64, 5120),
+                  (4, 1024), (128, 1024), (600, 1024), (3000, 1024),
+                  (24, 256)):
         x = torch.randn(shape, generator=g, device="cuda") * 10.0 ** (
             torch.rand(shape, generator=g, device="cuda") * 6 - 3)
         got = ff_fused.mean_sq(x)
@@ -517,6 +597,7 @@ def phase_kernel_checks(torch):
     checks["mean_sq"] = worst_abs
 
     checks["attention"] = attention_checks(torch, g)
+    ssd_exp_checks(torch, g)
 
     worst_abs = 0.0
     scal = [torch.tensor(x, device="cuda") for x in ADAMW_SCALARS]
@@ -2929,16 +3010,19 @@ def serve_requests(rng, vocab: int):
     import numpy as np
     from repro_torch.serve import Request
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1,
-                        size=FULL_REQUESTS)
+                        size=8)[:FULL_REQUESTS]
     return [Request(uid=i, prompt=rng.integers(1, vocab, size=int(n))
                     .astype(np.int32), max_new=MAX_NEW)
             for i, n in enumerate(lens)]
 
 
 def to_device(tree, device):
-    """A copy of a nested dict of tensors on ``device``."""
-    return {k: to_device(v, device) if isinstance(v, dict)
-            else v.to(device, copy=True) for k, v in tree.items()}
+    """A copy of nested dicts and tuples of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, device) for v in tree)
+    return tree.to(device, copy=True)
 
 
 def phase_small_engine(torch):
@@ -3541,19 +3625,25 @@ SMALL_FAMILY_ATOL = 1e-3
 
 
 def small_families(torch):
-    """Reduced olmoe-1b-7b (head dim 128), deepseek-v2-236b and
-    internvl2-1b (f32 compute) through ``greedy_generate`` on the card
-    under ``policy("ff_reduce", attention="pallas")`` (olmoe also under
-    ``ff_math`` with ``ff.use(silu="pallas")``) against the same on the
+    """Reduced olmoe-1b-7b (head dim 128), deepseek-v2-236b,
+    internvl2-1b, mamba2-370m, jamba-1.5-large-398b (one 8-layer period)
+    and whisper-medium (64 frames from a seeded normal), f32 compute,
+    through ``greedy_generate`` on the card under ``policy("ff_reduce",
+    attention="pallas")`` (olmoe and mamba2 also under ``ff_math`` with
+    ``ff.use(silu=, exp=, log1p="pallas")``) against the same on the
     CPU, where every kernel is its plain version: equal tokens, prefill
-    logits within SMALL_FAMILY_ATOL, the kernels launched on the card."""
+    logits within SMALL_FAMILY_ATOL, the kernels launched on the card
+    (mamba2 launches no attention)."""
     import repro_torch.ff as ff
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, init_cache, prefill
     from repro_torch.train.serve_step import greedy_generate
     cases = (("olmoe-1b-7b", dict(head_dim=128), False),
              ("olmoe-1b-7b", dict(head_dim=128), True),
-             ("deepseek-v2-236b", {}, False), ("internvl2-1b", {}, False))
+             ("deepseek-v2-236b", {}, False), ("internvl2-1b", {}, False),
+             ("mamba2-370m", {}, False), ("mamba2-370m", {}, True),
+             ("jamba-1.5-large-398b", dict(num_layers=8), False),
+             ("whisper-medium", {}, False))
     for arch, extra, ff_math in cases:
         cfg = get_config(arch).reduced(compute_dtype="float32", **extra)
         params = init_params(cfg, torch.Generator().manual_seed(SEED))
@@ -3563,6 +3653,9 @@ def small_families(torch):
         if cfg.family == "vlm":
             inputs["patches"] = torch.randn((2, cfg.num_patches,
                                              cfg.d_model), generator=g)
+        if cfg.family == "encdec":
+            inputs["frames"] = torch.randn((2, cfg.encoder_seq,
+                                            cfg.d_model), generator=g)
         cache_len = 12 + 5 + cfg.num_patches
         out = {}
         for dev in ("cuda", "cpu"):
@@ -3570,7 +3663,8 @@ def small_families(torch):
             x = {k: v.to(dev) for k, v in inputs.items()}
             reset_launch_counts()
             with ff.policy("ff_reduce", attention="pallas", ff_math=ff_math), \
-                    ff.use(silu="pallas"), warnings.catch_warnings():
+                    ff.use(silu="pallas", exp="pallas", log1p="pallas"), \
+                    warnings.catch_warnings():
                 warnings.simplefilter("ignore")     # decode: kv_len -> ff
                 toks = greedy_generate(w, cfg, prompt.to(dev), 5, cache_len,
                                        extra_inputs=x or None)
@@ -3584,7 +3678,9 @@ def small_families(torch):
             f"tokens {tc.tolist()} == {tp.tolist()}: "
             f"{torch.equal(tc, tp)}; prefill logits within {gap:.3e}; "
             f"launches { {k: v for k, v in n.items() if v} }")
-        want = {"mean_sq", "attention"} | ({"ff_math"} if ff_math else set())
+        want = {"mean_sq"} | ({"attention"} if cfg.family != "ssm"
+                              else set()) | ({"ff_math"} if ff_math
+                                             else set())
         if not (torch.equal(tc, tp) and gap <= SMALL_FAMILY_ATOL
                 and all(n[k] > 0 for k in want)
                 and all(v == 0 for k, v in n.items() if k not in want)):
@@ -3607,14 +3703,17 @@ def bf16_params(torch, cfg, seed):
     return w, n
 
 
-def greedy_margins(torch, params, cfg, prompt, max_new, cache_len):
+def greedy_margins(torch, params, cfg, prompt, max_new, cache_len,
+                   extra=None):
     """``greedy_generate``'s loop (prefill, then decode steps) under the
     ambient policy, keeping each step's top-2 logit margin; returns
-    (tokens (B, max_new), prefill logits, margins (B, max_new))."""
+    (tokens (B, max_new), prefill logits, margins (B, max_new)).
+    ``extra`` joins the prefill batch (``{"frames": ...}``)."""
     from repro_torch.models import decode_step, init_cache, prefill
     B, S = prompt.shape
     cache = init_cache(cfg, B, cache_len, device=prompt.device)
-    logits, cache = prefill(params, {"tokens": prompt}, cfg, cache)
+    logits, cache = prefill(params, {"tokens": prompt, **(extra or {})},
+                            cfg, cache)
     first = logits.float()
     toks, margins = [], []
     for t in range(max_new):
@@ -3627,25 +3726,51 @@ def greedy_margins(torch, params, cfg, prompt, max_new, cache_len):
     return torch.stack(toks, 1), first, torch.stack(margins, 1)
 
 
-def family_greedy(torch, params, cfg, prompt, max_new, cache_len):
+def family_greedy(torch, params, cfg, prompt, max_new, cache_len,
+                  extra=None):
     """``greedy_generate`` under the ambient policy, the launch counts read
     around it; then one more prefill of the same prompt, timed.  Returns
-    (tokens, prefill logits, launches, wall s, prefill ms)."""
+    (tokens, prefill logits, launches, wall s, prefill ms).  ``extra``
+    joins the prefill batch (``{"frames": ...}``)."""
     from repro_torch.models import init_cache, prefill
     from repro_torch.train.serve_step import greedy_generate
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks = greedy_generate(params, cfg, prompt, max_new, cache_len)
+    toks = greedy_generate(params, cfg, prompt, max_new, cache_len,
+                           extra_inputs=extra)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
     cache = init_cache(cfg, prompt.shape[0], cache_len, device="cuda")
     t0 = time.perf_counter()
-    logits, _ = prefill(params, {"tokens": prompt}, cfg, cache)
+    logits, _ = prefill(params, {"tokens": prompt, **(extra or {})}, cfg,
+                        cache)
     torch.cuda.synchronize()
     return toks, logits.float(), launches, wall, \
         1e3 * (time.perf_counter() - t0)
+
+
+def tokens_agree(name, toks, toks_p, margins_p, gap) -> None:
+    """The kernel route's greedy tokens against the plain route's: equal,
+    or each row equal up to a step where the plain run's top-2 margin is
+    at most twice the prefill logits' gap between the routes (a near-tie,
+    logged; the rows differ after it).  With a gap of 0 the tokens must
+    be equal."""
+    toks, toks_p = toks.cpu(), toks_p.cpu()
+    for row in range(toks.shape[0]):
+        diff = (toks[row] != toks_p[row]).nonzero().flatten()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        margin = float(margins_p[row, t])
+        log(f"  {name} row {row} step {t}: kernel {int(toks[row, t])}, "
+            f"plain {int(toks_p[row, t])}; plain top-2 margin "
+            f"{margin:.4e}, prefill logits gap {gap:.4e}")
+        if not margin <= 2 * gap:
+            raise AssertionError(f"{name}: tokens differ at row {row} step "
+                                 f"{t} beyond a near-tie (margin {margin} "
+                                 f"> 2 x gap {gap})")
 
 
 def family_launches_ok(name, cfg, launches, n_fwd, ff_math_per_layer):
@@ -3852,16 +3977,189 @@ def phase_serve_minitron(torch, card: str):
     return launches
 
 
+# the SSD's FF exponentials through the ff_math kernel
+MATH_USE = dict(exp="pallas", log1p="pallas", silu="pallas")
+# math_elementwise launches a layer: a prefill (softplus's exp and log1p,
+# A, _segsum, decay_end, chunk_decay, decay_in) and a decode step
+# (softplus 2, A, the decay)
+SSD_MATH_PREFILL, SSD_MATH_DECODE = 7, 4
+MAMBA_LONG, MAMBA_LONG_NEW = 600, 4      # 3 chunks of 256, the last padded
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_NEW = 2, 32, 2
+
+
+def serve_stats(toks, wall, pf_ms, n_new, card):
+    return {"tokens_per_s": toks.numel() / wall, "prefill_ms": pf_ms,
+            "decode_step_ms": 1e3 * (wall - pf_ms / 1e3) / max(n_new - 1, 1),
+            "wall_s": wall, "tokens": toks.numel(), "card": card}
+
+
+def phase_serve_mamba2(torch, card: str):
+    """mamba2-370m at full size (48 SSD layers, d_model 1024, 32 heads x
+    64, state 128, random bf16 weights from a seed) through
+    ``greedy_generate``: 4 prompts of FAM_PROMPT tokens, FAM_MAX_NEW new
+    under ``policy("ff_reduce", attention="pallas")`` (``mean_sq`` at
+    every norm; no attention), the same under ``ff_math`` with the SSD's
+    exp / log1p through ``math_elementwise`` (SSD_MATH_PREFILL launches a
+    layer a prefill, SSD_MATH_DECODE a decode step), and one prompt of
+    MAMBA_LONG tokens under ``ff_math`` (3 SSD chunks, the last padded:
+    the inter-chunk recurrence at full width).  Each run's launches are
+    held to the count its code gives; each is run again through the plain
+    routes (``mean_sq="jnp"``; ``exp=, log1p="jnp"`` for ``ff_math``, where
+    the kernel is its plain version's bits: prefill logits equal and
+    tokens equal).  Returns {path: launches}."""
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    params, n_params = bf16_params(torch, cfg, SEED + 13)
+    torch.cuda.synchronize()
+    log(f"mamba2-370m: {n_params:,} params, bf16 "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), set up "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 14)
+    short = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (4, FAM_PROMPT)).astype(np.int64)).cuda()
+    long = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (1, MAMBA_LONG)).astype(np.int64)).cuda()
+    L = cfg.num_layers
+    out = {}
+    for path, prompt, n_new, ff_math in (
+            ("serve_mamba2", short, FAM_MAX_NEW, False),
+            ("serve_mamba2_ff_math", short, FAM_MAX_NEW, True),
+            ("serve_mamba2_long", long, MAMBA_LONG_NEW, True)):
+        cache_len = prompt.shape[1] + n_new + 8
+        pol = dict(attention="pallas", ff_math=ff_math)
+        with ff.policy("ff_reduce", **pol), ff.use(**MATH_USE):
+            toks, logits, launches, wall, pf_ms = family_greedy(
+                torch, params, cfg, prompt, n_new, cache_len)
+        per = (SSD_MATH_PREFILL + SSD_MATH_DECODE * (n_new - 1)) \
+            if ff_math else 0
+        want = {**{k: 0 for k in launches}, "mean_sq": (L + 1) * n_new,
+                "ff_math": L * per}
+        if launches != want:
+            raise AssertionError(f"mamba2 {path}: launches {launches} != "
+                                 f"{want}")
+        if not (toks.shape == (prompt.shape[0], n_new)
+                and bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"mamba2 {path}: tokens {toks.shape}, "
+                                 f"finite logits "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        plain = dict(exp="jnp", log1p="jnp") if ff_math \
+            else dict(mean_sq="jnp")
+        with ff.policy("ff_reduce", **pol), ff.use(**{**MATH_USE, **plain}):
+            reset_launch_counts()
+            toks_p, logits_p, margins = greedy_margins(
+                torch, params, cfg, prompt, n_new, cache_len)
+            fired = {k: v for k, v in launch_counts().items() if v}
+        routed = {"ff_math"} if ff_math else {"mean_sq"}
+        if routed & set(fired):
+            raise AssertionError(f"mamba2 {path}: the plain routes launched "
+                                 f"{fired}")
+        gap = float((logits - logits_p).abs().max())
+        tokens_agree(f"mamba2 {path}", toks, toks_p, margins, gap)
+        if ff_math and (gap != 0 or not torch.equal(toks.cpu(),
+                                                    toks_p.cpu())):
+            raise AssertionError(f"mamba2 {path}: the ff_math kernel's "
+                                 f"run differs from its plain version's "
+                                 f"(logits gap {gap})")
+        log(f"mamba2-370m {path} ({tuple(prompt.shape)}, {n_new} new): "
+            f"{json.dumps(serve_stats(toks, wall, pf_ms, n_new, card))}; "
+            f"launches { {k: v for k, v in launches.items() if v} }; vs "
+            f"the plain routes {plain}: prefill logits gap {gap:.4e} "
+            f"(|logits| <= {float(logits_p.abs().max()):.3f}), tokens "
+            f"equal: {torch.equal(toks.cpu(), toks_p.cpu())}")
+        out[path] = launches
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_whisper(torch, card: str):
+    """whisper-medium at full size (24 encoder + 24 decoder layers,
+    d_model 1024, 16 MHA heads at 64, d_ff 4096, random bf16 weights from
+    a seed) through ``greedy_generate``: WHISPER_REQUESTS requests of
+    1500 frames (a seeded normal draw) and WHISPER_PROMPT prompt tokens,
+    WHISPER_NEW new, under ``policy("ff_reduce", attention="pallas")``:
+    the attention kernel non-causal over the 1500 frames in each encoder
+    layer, causal in each decoder layer's self attention and non-causal
+    from the prompt to the frames in its cross attention (72 launches a
+    prefill), the decode steps' 48 attention calls a step on the ff tier
+    (the dispatch's kv_len route, a warning each).  Then the same through
+    ``attention="fast"`` (no attention kernel): prefill logits' gap,
+    tokens equal but at a near-tie.  Returns the launches."""
+    import numpy as np
+    import repro_torch.ff as ff
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium")
+    t0 = time.perf_counter()
+    params, n_params = bf16_params(torch, cfg, SEED + 15)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    frames = torch.randn((WHISPER_REQUESTS, cfg.encoder_seq, cfg.d_model),
+                         generator=g, device="cuda")
+    torch.cuda.synchronize()
+    log(f"whisper-medium: {n_params:,} params, bf16 "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), set up "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 17)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (WHISPER_REQUESTS, WHISPER_PROMPT)).astype(
+        np.int64)).cuda()
+    cache_len = WHISPER_PROMPT + WHISPER_NEW + 8
+    extra = {"frames": frames}
+    with ff.policy("ff_reduce", attention="pallas"), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        toks, logits, launches, wall, pf_ms = family_greedy(
+            torch, params, cfg, prompt, WHISPER_NEW, cache_len, extra)
+    Le, L = cfg.encoder_layers, cfg.num_layers
+    n_dec = WHISPER_NEW - 1
+    want = {**{k: 0 for k in launches},
+            "mean_sq": 2 * Le + 3 * L + 1 + (3 * L + 1) * n_dec,
+            "attention": Le + 2 * L}
+    fell = sum("kv_len" in str(w.message) for w in caught)
+    if launches != want or fell != 2 * L * n_dec:
+        raise AssertionError(f"whisper: launches {launches} != {want}, or "
+                             f"{fell} kv_len warnings != {2 * L * n_dec}")
+    if not (toks.shape == (WHISPER_REQUESTS, WHISPER_NEW)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"whisper: tokens {toks.shape}, finite logits "
+                             f"{bool(torch.isfinite(logits).all())}")
+    with ff.policy("ff_reduce", attention="fast"):
+        reset_launch_counts()
+        toks_p, logits_p, margins = greedy_margins(
+            torch, params, cfg, prompt, WHISPER_NEW, cache_len, extra)
+        if launch_counts()["attention"]:
+            raise AssertionError("attention='fast' launched the kernel")
+    gap = float((logits - logits_p).abs().max())
+    tokens_agree("whisper", toks, toks_p, margins, gap)
+    log(f"whisper-medium ({WHISPER_REQUESTS} x {cfg.encoder_seq} frames, "
+        f"{WHISPER_PROMPT} tokens, {WHISPER_NEW} new): "
+        f"{json.dumps(serve_stats(toks, wall, pf_ms, WHISPER_NEW, card))}; "
+        f"launches { {k: v for k, v in launches.items() if v} }; {fell} "
+        f"kv_len warnings; vs attention='fast': prefill logits gap "
+        f"{gap:.4e} (|logits| <= {float(logits_p.abs().max()):.3f}), "
+        f"tokens equal: {torch.equal(toks.cpu(), toks_p.cpu())}")
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_families(torch, card: str):
-    """The decoder-only families: the reduced ones card against CPU, then
-    olmoe-1b-7b, deepseek-v2 (2 layers) and minitron-4b at full width.
-    Returns {path: launches}."""
+    """The families beyond dense GQA: the reduced ones card against CPU,
+    then olmoe-1b-7b, deepseek-v2 (2 layers), minitron-4b, mamba2-370m and
+    whisper-medium at full width.  Returns {path: launches}."""
     small_families(torch)
     moe, moe_ff_math = phase_serve_moe(torch, card)
     mla = phase_serve_mla(torch, card)
     minitron = phase_serve_minitron(torch, card)
+    mamba2 = phase_serve_mamba2(torch, card)
+    whisper = phase_serve_whisper(torch, card)
     return {"serve_moe": moe, "serve_moe_ff_math": moe_ff_math,
-            "serve_mla": mla, "serve_minitron": minitron}
+            "serve_mla": mla, "serve_minitron": minitron, **mamba2,
+            "serve_whisper": whisper}
 
 
 def phase_chaos(torch):
@@ -4337,8 +4635,8 @@ def n_leaves(tree) -> int:
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, tuple)):
             yield from _leaves(v)
         else:
             yield v
@@ -4442,8 +4740,10 @@ def attention_timing(torch, g, cfg, counts, err, peak_ops):
     128) and the long step (2, 1024) at granite-3-2b's heads; the
     head-dim 128 and 192 instances at olmoe-1b-7b's prefill (4, 32; 16
     MHA heads), minitron-4b's (1, 32; 24 / 8), phi3-medium's heads (1,
-    32; 40 / 10) and deepseek-v2's MLA prefill (2, 32; 128 heads at 192);
-    bf16, causal.  Kernel ms by CUDA-graph replay, one call's ms, the bound
+    32; 40 / 10) and deepseek-v2's MLA prefill (2, 32; 128 heads at 192),
+    causal; whisper-medium's encoder (2, 1500 over 1500 frames, 16 MHA
+    heads at 64) and cross attention (2, 32 over 1500), non-causal; bf16.
+    Kernel ms by CUDA-graph replay, one call's ms, the bound
     (``attention_ops``), SDPA's ms (bf16 attention: another function, a
     yardstick of speed only); the plain version at the prefill shape only
     (it takes seconds beyond).  The entry's numbers are the prefill
@@ -4452,35 +4752,48 @@ def attention_timing(torch, g, cfg, counts, err, peak_ops):
     from repro_torch.kernels import ff_attention
     g_heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
     rows = []
-    for what, B, S, (H, KV, hd), iters in (
-            ("prefill", 1, PROMPT_LENS[1], g_heads, 50),
-            ("train", TRAIN_BATCH, TRAIN_SEQ, g_heads, 20),
-            ("long step", LONG_BATCH, LONG_SEQ, g_heads, 3),
-            ("olmoe prefill", 4, FAM_PROMPT, (16, 16, 128), 20),
-            ("minitron prefill", 1, FAM_PROMPT, (24, 8, 128), 20),
-            ("phi3 heads", 1, FAM_PROMPT, (40, 10, 128), 20),
-            ("MLA prefill", MLA_BATCH, FAM_PROMPT, (128, 128, 192), 10)):
+    wh = (16, 16, 64)
+    for what, B, S, Skv, (H, KV, hd), causal, iters in (
+            ("prefill", 1, PROMPT_LENS[1], PROMPT_LENS[1], g_heads, True,
+             50),
+            ("train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, g_heads, True, 20),
+            ("long step", LONG_BATCH, LONG_SEQ, LONG_SEQ, g_heads, True, 3),
+            ("olmoe prefill", 4, FAM_PROMPT, FAM_PROMPT, (16, 16, 128), True,
+             20),
+            ("minitron prefill", 1, FAM_PROMPT, FAM_PROMPT, (24, 8, 128),
+             True, 20),
+            ("phi3 heads", 1, FAM_PROMPT, FAM_PROMPT, (40, 10, 128), True,
+             20),
+            ("MLA prefill", MLA_BATCH, FAM_PROMPT, FAM_PROMPT,
+             (128, 128, 192), True, 10),
+            ("whisper encoder", WHISPER_REQUESTS, 1500, 1500, wh, False, 3),
+            ("whisper cross", WHISPER_REQUESTS, WHISPER_PROMPT, 1500, wh,
+             False, 20)):
         sc = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
         q = torch.randn((B, S, H, hd), generator=g,
                         device="cuda").bfloat16()
-        k = torch.randn((B, S, KV, hd), generator=g,
+        k = torch.randn((B, Skv, KV, hd), generator=g,
                         device="cuda").bfloat16()
-        v = torch.randn((B, S, KV, hd), generator=g,
+        v = torch.randn((B, Skv, KV, hd), generator=g,
                         device="cuda").bfloat16()
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def call():
             return ff_attention.flash_attention_pallas(
-                q, k, v, causal=True, return_ff=True)
+                q, k, v, causal=causal, return_ff=True)
 
         plain = cuda_ms(lambda: ff_attention.flash_attention_ff(
             q, k, v, causal=True, return_ff=True), 3) \
             if what == "prefill" else None
-        row = dict(shape=[B, S, H, hd, KV], what=what, **time_kernel(
-            call, call, plain, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-            2 * (q.numel() + k.numel() + v.numel()) + 2 * 4 * q.numel(),
-            attention_ops(B, S, S, H, hd, True, True, sc), peak_ops, iters))
+        row = dict(shape=[B, S, H, hd, KV] + ([] if Skv == S else [Skv]),
+                   what=what, causal=causal, **time_kernel(
+                       call, call, plain,
+                       lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=causal, enable_gqa=True),
+                       2 * (q.numel() + k.numel() + v.numel())
+                       + 2 * 4 * q.numel(),
+                       attention_ops(B, S, Skv, H, hd, causal, True, sc),
+                       peak_ops, iters))
         row["plan"] = list(ff_attention.flash_attention_pallas.last_plan)
         rows.append(row)
         log(f"ff_flash_attention {what} {row['shape']} (plan "

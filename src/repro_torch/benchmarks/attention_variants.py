@@ -24,7 +24,8 @@ largest output) on ``CASES`` (the main paths' shapes, q tiles that skip
 K/V tiles, ``q_offset > 0`` with Sq < Skv, Sq, Skv and heads off the
 tiles, G = 1, 3, 4, 8, f32 and bf16 operands, scores spread so that weights
 fall below 2^-100 of the row's largest; the head-dim 128 and 192
-instances at the new families' shapes), and its largest distance from the
+instances at the decoder-only families' shapes; non-causal at whisper's
+encoder and cross shapes), and its largest distance from the
 plain version is reported.  Then each row is timed by CUDA-graph replay at
 the prefill (1, 64), training (4, 128) and long-step (2, 1024) shapes of
 granite-3-2b (32 heads, 8 KV heads, hd 64, bf16, causal), in the order of
@@ -126,6 +127,15 @@ CASES = (
     Case("hd 192, q_offset 100", 2, 40, 140, 8, 2, 192, True, 100, True,
          1.0),
     Case("hd 192, spread scores, f32", 1, 96, 96, 4, 1, 192, True, 0,
+         False, 40.0),
+    # non-causal at whisper-medium's shapes (16 MHA heads at 64): the
+    # encoder's self attention over 1500 frames, the decoder's cross
+    # attention from a 32-token prompt to them; and spread f32 scores
+    Case("whisper encoder, non-causal", 2, 1500, 1500, 16, 16, 64, False,
+         0, True, 1.0),
+    Case("whisper cross, non-causal", 2, 32, 1500, 16, 16, 64, False, 0,
+         True, 1.0),
+    Case("spread scores, non-causal, f32", 1, 24, 70, 2, 1, 64, False, 0,
          False, 40.0),
 )
 
@@ -383,6 +393,13 @@ def kernel(q, k, v, case: Case):
                                           return_ff=True))
 
 
+# the plain version's rows a block on cases of more than PLAIN_WIDE_PAIRS
+# (q, key) pairs a head: ``block_q`` only tiles the rows, and a row's bits
+# are the same at any block_q (tests/test_torch_attention_variants.py);
+# 256 cut its launches ~8-fold at whisper's 1500 x 1500 frames
+PLAIN_BLOCK_Q, PLAIN_WIDE_PAIRS = 256, 1 << 20
+
+
 def references(cases, g, device="cuda") -> List[tuple]:
     """(case, q, k, v, oracle, plain) for each case; the plain version
     (``flash_attention_ff``) is itself held to the oracle."""
@@ -392,6 +409,9 @@ def references(cases, g, device="cuda") -> List[tuple]:
         want = oracle(q, k, v, case.causal, case.q_offset)
         plain = ff64(fa.flash_attention_ff(q, k, v, causal=case.causal,
                                            q_offset=case.q_offset,
+                                           block_q=PLAIN_BLOCK_Q
+                                           if case.Sq * case.Skv
+                                           > PLAIN_WIDE_PAIRS else 32,
                                            return_ff=True))
         e = rel_err(plain, want)
         if not e <= TOL:

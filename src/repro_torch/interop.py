@@ -21,13 +21,17 @@ from repro_torch.optim.adamw import AdamWState
 
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Nested dicts of numpy arrays -> the same dicts of torch tensors on
-    ``device`` (None = the CUDA card), values bit for bit."""
+    """Nested dicts, tuples and lists of numpy arrays (the hybrid's
+    ``params["layers"]`` is a tuple of per-index dicts) -> the same
+    structure of torch tensors on ``device`` (None = the CUDA card), values
+    bit for bit."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(conv(v) for v in x)
         return torch.from_numpy(np.array(x, order="C", copy=True)).to(dev)
 
     return conv(tree)

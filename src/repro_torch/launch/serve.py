@@ -4,6 +4,8 @@ prefill and greedy decode loop, or the continuous-batching engine::
     python -m repro_torch.launch.serve --arch granite-3-2b [--reduced] \\
         [--batch 4] [--prompt-len 32] [--max-new 16] [--device cpu]
     python -m repro_torch.launch.serve --arch olmoe-1b-7b   # MoE, MHA
+    python -m repro_torch.launch.serve --arch mamba2-370m   # SSM (SSD)
+    python -m repro_torch.launch.serve --arch whisper-medium  # enc-dec
     python -m repro_torch.launch.serve --arch granite-3-2b --engine \\
         [--kv-mode bf16|f32|ff_bf16] [--guard off|check|degrade] \\
         [--snapshot-dir DIR [--snapshot-every N] [--resume]] \\
@@ -19,10 +21,11 @@ FF token scores); with ``--snapshot-dir`` it journals every request to
 restarts from the newest snapshot that verifies and replays the journal
 instead of submitting new requests.
 
-``--arch`` takes every decoder-only architecture of
-``repro_torch.configs.PORTED`` (dense GQA, MoE, MLA and the VLM backbone,
-whose batched loop takes zero patch embeddings, as the reference's).  The
-engine serves the dense GQA family only: with ``--engine`` a MoE or MLA
+``--arch`` takes every architecture of ``repro_torch.configs.PORTED``
+(dense GQA, MoE, MLA, the VLM backbone and the SSM, hybrid and
+encoder-decoder families; the batched loop gives the VLM zero patch
+embeddings and the encoder-decoder zero frames, as the reference's).  The
+engine serves the dense GQA family only: with ``--engine`` any other
 architecture stops with ``UnsupportedModelError``, as in the reference.
 
 ``--metrics-json`` writes the engine's metrics and the process-global
@@ -232,6 +235,9 @@ def main(argv: Optional[Sequence[str]] = None):
         extra = {"patches": torch.zeros(
             (args.batch, cfg.num_patches, cfg.d_model), device=device)}
         max_ctx += cfg.num_patches
+    if cfg.family == "encdec":
+        extra = {"frames": torch.zeros(
+            (args.batch, cfg.encoder_seq, cfg.d_model), device=device)}
     t0 = time.perf_counter()
     toks, lps = greedy_generate(params, cfg, prompt, args.max_new,
                                 cache_len=max_ctx, extra_inputs=extra,

@@ -11,7 +11,8 @@ checkpoints every ``--ckpt-every`` steps (default: a third of ``--steps``)
 and at the end, and first resumes from the latest checkpoint there.
 ``--arch`` names any ported architecture; the port trains the dense GQA
 ones, and stops with ``NotImplementedError`` (before drawing weights) on
-a MoE, MLA or VLM one, whose training is still to be ported.
+any other (MoE, MLA, VLM, SSM, hybrid, enc-dec), whose training is still
+to be ported.
 """
 
 from __future__ import annotations

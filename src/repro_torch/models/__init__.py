@@ -1,5 +1,5 @@
-"""The decoder-only model families (dense, MoE, MLA, VLM) in eager
-PyTorch."""
+"""The model families (dense, MoE, MLA, VLM, the mamba2 SSM, the jamba
+hybrid, the whisper encoder-decoder) in eager PyTorch."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (chunked_cross_entropy, cross_entropy,

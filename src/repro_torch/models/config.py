@@ -3,8 +3,7 @@
 A copy of ``repro.models.config`` (data: the port imports nothing of
 ``repro``).  One dataclass; family-specific fields are ignored by other
 families.  Exact full-size instances live in ``repro_torch.configs.<arch>``;
-smoke tests use ``reduced()`` copies.  The port models the decoder-only
-families; ``NOT_PORTED`` names the ROADMAP item of the others.
+smoke tests use ``reduced()`` copies.
 """
 
 from __future__ import annotations
@@ -13,12 +12,6 @@ import dataclasses
 from typing import Literal, Optional, Tuple
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
-
-# the families the port does not model yet, by the ROADMAP item that ports
-# them (configs.get_config and models.model.check_supported raise with it)
-NOT_PORTED = {"ssm": "ROADMAP.md §1 item 7 (the ssm family: mamba2)",
-              "hybrid": "ROADMAP.md §1 item 7 (the hybrid family)",
-              "encdec": "ROADMAP.md §1 item 7 (the encdec family)"}
 
 
 @dataclasses.dataclass(frozen=True)

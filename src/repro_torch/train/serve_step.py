@@ -79,7 +79,8 @@ def greedy_generate(params, cfg: ModelConfig, prompt: Tensor, max_new: int,
                     eos_id: Optional[int] = None):
     """Greedy decoding, one sequence batch at a time.  prompt: (B, S) int;
     ``extra_inputs`` joins the prefill batch (``{"patches": (B, P, d)}``
-    for ``vlm``, whose decode starts at S + num_patches).
+    for ``vlm``, whose decode starts at S + num_patches; ``{"frames": (B,
+    encoder_seq, d)}`` for ``encdec``).
 
     ``return_logprobs=True`` also returns the (B, n) chosen-token scores
     (:func:`token_logprob`).  With ``eos_id`` set, rows that emitted it are

@@ -241,7 +241,7 @@ def _computed(config, heads, Sq, Skv, causal, q_offset):
 @pytest.mark.parametrize("heads", [1, 2, 4])
 @pytest.mark.parametrize("Sq, Skv, causal, q_offset", [
     (70, 70, True, 0), (5, 130, True, 125), (33, 200, True, 100),
-    (40, 97, False, 0), (130, 130, True, 0)])
+    (40, 97, False, 0), (130, 130, True, 0), (32, 1500, False, 0)])
 def test_every_visible_pair_is_computed(config, heads, Sq, Skv, causal,
                                         q_offset):
     """Under the tile and sub-tile skip every pair a row sees (key <
@@ -276,9 +276,32 @@ def test_every_visible_pair_is_computed(config, heads, Sq, Skv, causal,
     ((2, 300, 8, 8), (1, 1, 16, (16, 19))),
     ((1, 37, 4, 2), (1, 2, 8, (2, 5))),
     ((1, 70, 6, 2), (1, 1, 16, (6, 5))),
+    # whisper-medium (16 MHA heads): the encoder over 1500 frames, the
+    # cross attention from a 32-token prompt
+    ((2, 1500, 16, 16), (0, 1, 64, (32, 24))),
+    ((2, 32, 16, 16), (1, 1, 16, (32, 2))),
 ])
 def test_attention_plan_per_shape(shape, want):
     assert tuple(port_attn.attention_plan(*shape)) == want
+
+
+def test_attention_ops_counts_every_pair_when_non_causal():
+    """chip_smoke's bound: non-causal, every one of B H Sq Skv pairs
+    counts (whisper's cross shape); causal, the pairs on or below the
+    diagonal only."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    def ops(Sq, Skv, causal, B=2, H=16):
+        return cs.attention_ops(B, Sq, Skv, H, 64, causal, True, 0.125)
+    per_pair = (ops(32, 1500, False) - ops(32, 1499, False)) // (2 * 32 * 16)
+    assert per_pair > 0
+    assert ops(32, 1500, False) - ops(32, 0, False) == \
+        per_pair * 2 * 32 * 1500 * 16
+    assert ops(4, 4, True) - ops(4, 0, True) == per_pair * 2 * 16 * 10
+    assert ops(4, 4, False) - ops(4, 4, True) == per_pair * 2 * 16 * 6
 
 
 @pytest.mark.parametrize("B, Sq, H, KV", [

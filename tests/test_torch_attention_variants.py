@@ -150,3 +150,22 @@ def test_plain_version_on_a_case_within_the_contract():
             small, g, device="cpu"):
         assert av.rel_err(plain, want) <= av.TOL
         assert plain.shape == want.shape
+
+
+@pytest.mark.parametrize("causal, q_offset", [(False, 0), (True, 0),
+                                              (True, 37)])
+def test_plain_rows_do_not_depend_on_block_q(causal, q_offset):
+    """``references`` runs the plain version at PLAIN_BLOCK_Q rows a
+    block on its widest cases: each row's bits are those of the default
+    tiling."""
+    assert [c.what for c in av.CASES if c.Sq * c.Skv
+            > av.PLAIN_WIDE_PAIRS] == ["whisper encoder, non-causal"]
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((1, 40, 1, 16), generator=g)
+    k = torch.randn((1, 64, 1, 16), generator=g)
+    v = torch.randn((1, 64, 1, 16), generator=g)
+    want = fa.flash_attention_ff(q, k, v, causal=causal, q_offset=q_offset,
+                                 return_ff=True)
+    got = fa.flash_attention_ff(q, k, v, causal=causal, q_offset=q_offset,
+                                block_q=av.PLAIN_BLOCK_Q, return_ff=True)
+    assert torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)

@@ -15,9 +15,12 @@ tier; the MoE aux's compensated expert means) and the same with
 ``ff_math=True`` (the FF silu gate): olmoe under all three, deepseek-v2
 under the first two, internvl2 and phi3 under ``ff_reduce`` (``CASES``
 says why).  The
-engine's paged path stays dense-only: a MoE or MLA config raises the
-reference's ``UnsupportedModelError``; the SSM, hybrid and enc-dec
-families raise ``NotImplementedError`` naming their ROADMAP item.
+engine's paged path stays dense-only: a MoE, MLA, SSM, hybrid or enc-dec
+config raises the reference's ``UnsupportedModelError``; the SSM, hybrid
+and enc-dec families serve but do not train (``NotImplementedError``
+naming ROADMAP item 7.4).  ``check_serving`` holds those three families'
+serving path to the reference (tests/test_torch_mamba2.py,
+test_torch_hybrid.py, test_torch_encdec.py run it).
 
 Tolerances: tokens identical; logits, losses and aux within atol 1e-4
 (``tests/test_torch_serve.py``'s bound: f32 matrix products in XLA's and
@@ -32,6 +35,7 @@ port with ``silu="jnp"``.  Inputs come from ``np.random.default_rng``.
 """
 
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +48,7 @@ import repro_torch.ff as port_ff
 from repro.configs import get_config as ref_get_config
 from repro.models import model as ref_model
 from repro.train.serve_step import make_decode_step as ref_decode_step
+from repro.train.serve_step import greedy_generate as ref_greedy
 from repro.train.serve_step import make_prefill_step as ref_prefill_step
 from repro_torch.configs import get_config as port_get_config
 from repro_torch.models import model as port_model
@@ -64,6 +69,135 @@ POLICIES = {"baseline": dict(), "ff_reduce": dict(attention="ff"),
 # silu gate (olmoe's experts here; the dense MLP's in test_torch_train.py),
 # and the VLM's patches pass through every policy alike.
 CASES = [("internvl2-1b", "ff_reduce"), ("phi3-medium-14b", "ff_reduce")]
+
+
+# the serve-only families (reduced; jamba cut to one 8-layer period, its
+# attention at index 3 and its MoE FFNs at the odd indices)
+SERVE_ONLY = ("mamba2-370m", "jamba-1.5-large-398b", "whisper-medium")
+SERVE_REF_PINS = dict(REF_PINS, exp="jnp", log1p="jnp")
+SERVE_PORT_PINS = dict(exp="pallas", log1p="pallas", silu="pallas")
+
+
+def serve_configs(arch, **kw):
+    """The reference's and the port's reduced config of ``arch``."""
+    if arch.startswith("jamba"):
+        kw["num_layers"] = 8
+    name = arch.replace("-", "_").replace(".", "_")
+    return ref_get_config(name).reduced(**kw), \
+        port_get_config(arch).reduced(**kw)
+
+
+def _serve_inputs(cfg, rng):
+    """A (B, S) prompt, and for ``encdec`` (B, encoder_seq, d) frames from
+    a seeded normal draw (zero frames would make every encoder row
+    equal): numpy."""
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return toks, extra
+
+
+@functools.lru_cache(maxsize=None)
+def serve_run(arch, pol):
+    """One serving case in both packages, on the port's weights, at f32
+    compute with an f32 cache and at the config's bf16 compute with its
+    default bf16 cache: the reference's greedy path (jitted prefill and
+    decode steps, each step's logits kept), the port's logits along the
+    reference's tokens, and the port's own ``greedy_generate`` tokens.
+    At f32 the reference runs ``attention="ff"`` (the tier the port's
+    ``"pallas"`` takes on a CPU tensor; its own Pallas kernel runs in
+    interpret mode in its tests), the port ``attention="pallas"``; both
+    with ``ff.use(exp=, log1p=, silu=...)``, each kernel's plain version
+    here.  The bf16 runs (the casts, the bf16 conv, the caches) take the
+    ``fast`` attention tier in both packages: the FF tiers' agreement is
+    the f32 runs', and the reference compiles its FF tier in seconds a
+    call site."""
+    level = dict(ff_math=True) if pol == "ff_math" else {}
+    out = {}
+    for dtype, ref_attn, port_attn in (("float32", "ff", "pallas"),
+                                       ("bfloat16", "fast", "fast")):
+        rcfg, pcfg = serve_configs(arch, compute_dtype=dtype)
+        pw = port_model.init_params(pcfg, torch.Generator().manual_seed(5))
+        rw = to_jax(pw)
+        toks, extra = _serve_inputs(rcfg, np.random.default_rng(43))
+        extra_r = {k: jnp.asarray(v) for k, v in extra.items()}
+        extra_p = {k: torch.from_numpy(v) for k, v in extra.items()}
+        prompt_p = torch.from_numpy(toks).long()
+        cache_len = S + MAX_NEW
+        with ref_ff.policy("ff_reduce", attention=ref_attn, **level), \
+                ref_ff.use(**SERVE_REF_PINS):
+            pf = jax.jit(ref_prefill_step(rcfg))
+            dc = jax.jit(ref_decode_step(rcfg))
+            cache = ref_model.init_cache(rcfg, B, cache_len,
+                                         getattr(jnp, dtype))
+            logits, cache = pf(rw, {"tokens": jnp.asarray(toks), **extra_r},
+                               cache)
+            ref_logits = [np.asarray(logits.astype(jnp.float32))]
+            ref_toks = [np.asarray(jnp.argmax(logits, -1))]
+            for t in range(MAX_NEW - 1):
+                logits, cache = dc(rw, jnp.asarray(ref_toks[-1][:, None],
+                                                   jnp.int32),
+                                   jnp.int32(S + t), cache)
+                ref_logits.append(np.asarray(logits.astype(jnp.float32)))
+                ref_toks.append(np.asarray(jnp.argmax(logits, -1)))
+        with port_ff.policy("ff_reduce", attention=port_attn, **level), \
+                port_ff.use(**SERVE_PORT_PINS), warnings.catch_warnings():
+            warnings.simplefilter("ignore")          # decode: kv_len -> ff
+            cache = port_model.init_cache(pcfg, B, cache_len,
+                                          getattr(torch, dtype),
+                                          device="cpu")
+            logits, cache = port_model.prefill(
+                pw, {"tokens": prompt_p, **extra_p}, pcfg, cache)
+            got = [logits.float().numpy()]
+            for t in range(MAX_NEW - 1):
+                tok = torch.from_numpy(ref_toks[t][:, None]).long()
+                logits, cache = port_model.decode_step(pw, tok, S + t,
+                                                       cache, pcfg)
+                got.append(logits.float().numpy())
+            tokens = None if dtype == "float32" else greedy_generate(
+                pw, pcfg, prompt_p, MAX_NEW, cache_len,
+                extra_inputs=extra_p or None).numpy()
+        out[dtype] = dict(ref_logits=ref_logits, logits=got,
+                          ref_tokens=np.stack(ref_toks, 1), tokens=tokens)
+    out["vocab"] = pcfg.vocab_size
+    return out
+
+
+def check_serving(arch, pol, what):
+    """``what``: "logits": the f32 run's prefill and decode logits within
+    ATOL.  "tokens": the bf16 run's ``greedy_generate`` tokens equal the
+    reference's, each row up to a step where the reference's top-2
+    margin lies within the packages' bf16 logit gap along the same prefix
+    (XLA keeps bf16 intermediates at f32 inside a fusion, torch rounds
+    each op: a near-tie may go either way, and the rows differ after it;
+    the gap and margin are the measured ones, the step is reported)."""
+    r = serve_run(arch, pol)
+    if what == "logits":
+        f32 = r["float32"]
+        assert len(f32["logits"]) == len(f32["ref_logits"]) == MAX_NEW
+        for got, want in zip(f32["logits"], f32["ref_logits"]):
+            assert got.shape == (B, r["vocab"])
+            np.testing.assert_allclose(got, want, atol=ATOL)
+        return
+    bf = r["bfloat16"]
+    assert bf["tokens"].shape == bf["ref_tokens"].shape == (B, MAX_NEW)
+    for row in range(B):
+        diff = np.nonzero(bf["tokens"][row] != bf["ref_tokens"][row])[0]
+        if not diff.size:
+            continue
+        t = int(diff[0])
+        want = bf["ref_logits"][t][row]
+        top2 = np.sort(want)[-2:]
+        gap = float(np.abs(bf["logits"][t][row] - want).max())
+        assert top2[1] - top2[0] <= gap, (
+            f"{arch} {pol} row {row} step {t}: tokens differ where the "
+            f"reference's top-2 margin {top2[1] - top2[0]} exceeds the "
+            f"bf16 logit gap {gap}")
+        warnings.warn(f"{arch} {pol} row {row}: greedy tokens part at "
+                      f"step {t}, a near-tie (reference top-2 margin "
+                      f"{top2[1] - top2[0]:.4f} <= bf16 gap {gap:.4f})")
 
 
 def _configs(arch):
@@ -99,10 +233,16 @@ def _weights(arch):
     _, pcfg = _configs(arch)
     port_w = port_model.init_params(pcfg, torch.Generator().manual_seed(5))
 
-    def to_jax(tree):
-        return {k: to_jax(v) if isinstance(v, dict)
-                else jnp.asarray(v.numpy()) for k, v in tree.items()}
     return to_jax(port_w), port_w
+
+
+def to_jax(tree):
+    """Nested dicts and tuples of CPU tensors -> the same of jax arrays."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_jax(v) for v in tree)
+    return jnp.asarray(tree.numpy())
 
 
 def _run(arch, pol):
@@ -219,16 +359,28 @@ def test_engine_refuses_moe_and_mla(arch):
                     max_ctx=32)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba_1_5_large_398b",
-                                  "whisper-medium"])
-def test_other_families_name_their_roadmap_item(arch):
-    cfg = ref_get_config(arch).reduced()
-    port_cfg = port_model.ModelConfig(**{
-        f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .* item 7"):
-        port_model.init_params(port_cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md .* item 7"):
-        port_model.check_supported(port_cfg)
+@pytest.mark.parametrize("arch", SERVE_ONLY)
+def test_serve_only_families_name_their_roadmap_item(arch):
+    """mamba2, jamba and whisper serve but do not train: train_forward and
+    make_train_step raise naming ROADMAP item 7.4 (never running the
+    dense stack on their trees), and the paged engine raises the
+    reference's UnsupportedModelError."""
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.train_step import make_train_step
+    _, pcfg = serve_configs(arch)
+    params = port_model.init_params(pcfg, torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    batch = {"tokens": toks, "targets": toks,
+             "frames": torch.zeros((1, pcfg.encoder_seq, pcfg.d_model))}
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md .* item 7\.4"):
+        port_model.train_forward(params, batch, pcfg)
+    with pytest.raises(NotImplementedError, match=r"item 7\.4"):
+        port_model.check_trainable(pcfg)
+    with pytest.raises(NotImplementedError, match=r"item 7\.4"):
+        make_train_step(pcfg, optimizer=AdamW())
+    with pytest.raises(UnsupportedModelError):
+        ServeEngine(params, pcfg, device="cpu", max_batch=2, page_size=8,
+                    max_ctx=32)
 
 
 def test_interleaved_moe_stack_raises_as_reference():
@@ -259,12 +411,15 @@ def test_configs_are_the_references_data():
             dataclasses.asdict(ref_get_config(name)), name
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "internvl2-1b",
+                                  "mamba2-370m", "whisper-medium"])
 def test_serve_launcher_takes_the_new_architectures(arch):
-    """``launch.serve --arch`` runs a MoE and the VLM config through
-    ``greedy_generate`` (zero patches for the VLM); with ``--engine`` a
-    MoE config stops with ``UnsupportedModelError``; ``launch.train``
-    stops on it with ``NotImplementedError``."""
+    """``launch.serve --arch`` runs a MoE, the VLM, the SSM and the
+    enc-dec config through ``greedy_generate`` (zero patches for the VLM,
+    zero frames for the enc-dec, as the reference's; the hybrid takes the
+    SSM's path, and its reduced 16 layers cost a CPU ~15 s); with
+    ``--engine`` each stops with ``UnsupportedModelError``;
+    ``launch.train`` stops on each with ``NotImplementedError``."""
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     args = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
@@ -272,9 +427,8 @@ def test_serve_launcher_takes_the_new_architectures(arch):
     out = launch_serve.main(args)
     assert out["tokens"].shape == (2, 3)
     assert np.isfinite(out["logprobs"]).all()
-    if arch == "olmoe-1b-7b":
-        with pytest.raises(UnsupportedModelError):
-            launch_serve.main(args + ["--engine"])
+    with pytest.raises(UnsupportedModelError):
+        launch_serve.main(args + ["--engine"])
     with pytest.raises(NotImplementedError, match="item 7"):
         launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
                            "--steps", "1"])

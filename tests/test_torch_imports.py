@@ -273,11 +273,13 @@ def test_get_config_names_the_ported_architectures():
     from repro_torch.configs import PORTED, get_config
     assert get_config("granite-3-2b") is get_config("granite_3_2b")
     for name in PORTED:
-        arch = name.replace("_", "-")
-        assert get_config(arch).name == arch
+        cfg = get_config(name)
+        assert get_config(cfg.name) is cfg
+        assert cfg.name.replace(".", "_").replace("-", "_") == name
     with pytest.raises(NotImplementedError, match="granite_3_2b"):
         get_config("no-such-model")
-    # the SSM, hybrid and encoder-decoder families name their ROADMAP item
-    for name in ("mamba2-370m", "jamba-1.5-large-398b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md .* item 7"):
-            get_config(name)
+    # every family of the reference, the SSM, hybrid and encoder-decoder
+    # ones among them
+    assert {get_config(n).family for n in PORTED} == {
+        "dense", "moe", "vlm", "ssm", "hybrid", "encdec"}
+    assert get_config("jamba-1.5-large-398b").family == "hybrid"
