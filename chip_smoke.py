@@ -10,16 +10,17 @@ Phases (any failed check raises, so the script exits non-zero):
      ``build/``, one ``nvcc`` per source, all at once);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the shapes the serving and training paths give it among
-     others (``mean_sq`` also at d_model 3072, 5120, 1024 and 256) —
-     ``mean_sq`` to
-     <= 1 ulp, FF attention (and its plain
-     version) to <= 2^-40 of a float64 oracle on the card on
-     ``attention_variants.CASES`` (the main paths' shapes, q tiles that
-     skip K/V tiles, ``q_offset > 0`` with Sq < Skv, ragged tiles, G = 1,
-     3, 4, 8, f32 and bf16, weights below 2^-100 of the row's largest,
-     the head-dim 128 and 192 instances at the decoder-only families'
-     shapes, non-causal at whisper-medium's encoder (2, 1500 over 1500)
-     and cross (2, 32 over 1500) shapes and on spread f32 scores), the
+     others (``mean_sq`` also at d_model 3072, 5120, 1024, 896 and 256,
+     the family training steps' rows) — ``mean_sq`` to <= 1 ulp, FF
+     attention (and its plain version) to <= 2^-40 of a float64 oracle on
+     the card on ``attention_variants.CASES`` (the main paths' shapes, q
+     tiles that skip K/V tiles, ``q_offset > 0`` with Sq < Skv, ragged
+     tiles, G = 1, 3, 4, 7, 8, f32 and bf16, weights below 2^-100 of the
+     row's largest, the head-dim 128 and 192 instances at the
+     decoder-only families' shapes, non-causal at whisper-medium's
+     encoder (2, 1500 over 1500) and cross (2, 32 and 2, 128 over 1500)
+     shapes and on spread f32 scores, internvl2-1b's (4, 384, 14 / 2),
+     whisper's decoder and olmoe-1b-7b's training shapes), the
      kernel under its own plan, each tile configuration and one head a
      block (its instances' registers and spills logged at the build);
      ``math_elementwise``'s exp and log1p bit for bit their plain versions
@@ -197,13 +198,35 @@ Phases (any failed check raises, so the script exits non-zero):
      launch counts read around them, and one more under the profiler; the serving and training runs launch
      none of the fused-composite kernels, nor (but for the ``ff_math``
      runs) this slice's;
-  11. timing: each kernel, its plain version and a PyTorch yardstick with
+  11. family training: reduced olmoe-1b-7b, deepseek-v2-236b,
+     internvl2-1b (16 seeded patches), mamba2-370m (also under
+     ``ff_math`` with the SSD's exp / log1p through ``math_elementwise``),
+     jamba-1.5-large-398b (one 8-layer period) and whisper-medium (64
+     seeded frames), f32, remat, 2 steps on the card against the CPU
+     (loss and grad norm within SMALL_TRAIN_RTOL, each card step's
+     launches exactly ``train_launches_want``: ``mean_sq`` at every FF
+     norm and again in remat's recompute, the attention kernel likewise,
+     AdamW once a leaf, the loss's ``ff_softmax`` at the reduced
+     vocabulary); reduced jamba's tuple tree 2 steps, a crash, a restored
+     third step bit for bit; then mamba2-370m (4 x 512 tokens),
+     whisper-medium (2 x 128 tokens, 2 x 1500 frames), internvl2-1b (4 x
+     128 tokens, 256 patches a row) and olmoe-1b-7b cut to 4 of its 16
+     layers at full width, 3 steps each with FF-master AdamW: finite
+     losses, exact launches, step ms, tokens/s and peak memory, and
+     olmoe's MoE aux statistic (the blocked FF sum) timed alone;
+  12. timing: each kernel, its plain version and a PyTorch yardstick with
      CUDA events at the main paths' shapes, beside its bound (FF
      attention at the prefill, training and long-step shapes, at the
      decoder-only families' prefills at head dims 128 and 192, and
      non-causal at whisper-medium's encoder and cross shapes); the
      elementwise rows at (4096, 4096) and AdamW at ``w_gate`` must have
      taken the 16-byte path (the path each took is logged).
+
+The CPU halves of the card-against-CPU checks of phases 8 (the reduced
+families' serving), 9 (the chaos smoke) and 11 (the reduced families'
+training) run in a child process (``python3 chip_smoke.py
+--cpu-references OUT``, which sees no card) started after the build,
+beside the card's phases; each phase waits for its results.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -217,6 +240,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -470,8 +494,9 @@ def phase_build(torch):
 def attention_checks(torch, g) -> float:
     """FF attention on ``attention_variants.CASES`` (the main paths'
     shapes, q tiles that skip K/V tiles, ``q_offset > 0`` with Sq < Skv,
-    Sq, Skv and heads off the tiles, G = 1, 3, 4, 8, f32 and bf16, scores
-    spread so that weights fall below 2^-100 of the row's largest): the
+    Sq, Skv and heads off the tiles, G = 1, 3, 4, 7, 8, f32 and bf16,
+    scores spread so that weights fall below 2^-100 of the row's largest,
+    the family training steps' shapes): the
     kernel under its own plan, under each tile configuration and with one
     head a block, and its plain version, each within 2^-40 of the float64
     oracle.  Returns the largest |kernel - plain| under the kernel's own
@@ -577,11 +602,15 @@ def phase_kernel_checks(torch):
     # minitron-4b's and deepseek-v2's d_model (3072, 5120): decode and
     # prefill rows; mamba2-370m's and whisper-medium's 1024 (decode, 4 x
     # 32 prefill, the 600-token prompt, whisper's 2 x 1500 encoder rows)
-    # and the reduced families' 256
+    # and the reduced families' 256; the family training steps' rows:
+    # mamba2's 4 x 512 and whisper's 2 x 128 at 1024, internvl2's 4 x
+    # (256 patches + 128) at 896, olmoe's 4 x 128 at 2048 (above), the
+    # reduced families' 2 x 16 (and internvl2's 2 x 32) at 256
     for shape in ((4, 2048), (64, 2048), (512, 2048), (2048, 2048),
                   (3, 1000), (2, 3072), (32, 3072), (2, 5120), (64, 5120),
                   (4, 1024), (128, 1024), (600, 1024), (3000, 1024),
-                  (24, 256)):
+                  (24, 256), (2048, 1024), (256, 1024), (1536, 896),
+                  (32, 256), (64, 256)):
         x = torch.randn(shape, generator=g, device="cuda") * 10.0 ** (
             torch.rand(shape, generator=g, device="cuda") * 6 - 3)
         got = ff_fused.mean_sq(x)
@@ -1294,9 +1323,10 @@ def phase_matmul(torch, clock_hz):
 
 # whole-row shapes: the reference table's two, granite-3-2b's d_model rows
 # of a 4 x 128 step, the longest row the kernels take, a ragged one, and
-# the chaos smoke's token scores (1-3 rows over its vocabulary of 256)
+# the chaos smoke's token scores (1-3 rows over its vocabulary of 256),
+# the reduced family training steps' loss (2 x 16 rows over 512)
 ROW_SHAPES = ((4096, 4096), (256, 1024), (512, 2048), (64, 16384),
-              (3, 1000), (1, 256), (2, 256), (3, 256))
+              (3, 1000), (1, 256), (2, 256), (3, 256), (32, 512))
 TABLE_SHAPES = ((256, 1024), (4096, 4096), (512, 2048))
 # per element: the 128-lane cascade of one value, TwoSum, the row max,
 # Div22; the f32 builtins expf/logf counted as one instruction each (a
@@ -3017,12 +3047,9 @@ def serve_requests(rng, vocab: int):
 
 
 def to_device(tree, device):
-    """A copy of nested dicts and tuples of tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(to_device(v, device) for v in tree)
-    return tree.to(device, copy=True)
+    """A copy of a tree of tensors on ``device``."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device, copy=True), tree)
 
 
 def phase_small_engine(torch):
@@ -3223,7 +3250,7 @@ def phase_serve(torch, card: str):
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda")
                          .manual_seed(SEED))
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = param_count(params)
     with ff.policy("ff_reduce", attention="pallas"):
         eng = ServeEngine(params, cfg, max_batch=4, page_size=16,
                           max_ctx=128, obs=obs.Observer())
@@ -3624,63 +3651,75 @@ MINITRON_REQUESTS, MINITRON_NEW = 2, 4
 SMALL_FAMILY_ATOL = 1e-3
 
 
-def small_families(torch):
+SMALL_FAMILY_CASES = (("olmoe-1b-7b", dict(head_dim=128), False),
+                      ("olmoe-1b-7b", dict(head_dim=128), True),
+                      ("deepseek-v2-236b", {}, False),
+                      ("internvl2-1b", {}, False),
+                      ("mamba2-370m", {}, False), ("mamba2-370m", {}, True),
+                      ("jamba-1.5-large-398b", dict(num_layers=8), False),
+                      ("whisper-medium", {}, False))
+
+
+def small_family_generate(torch, case, dev):
+    """SMALL_FAMILY_CASES[``case``] on ``dev``: ``greedy_generate``'s 5
+    tokens and the prefill logits of 2 seeded 12-token prompts (and the
+    VLM's patches, the enc-dec's frames) under ``policy("ff_reduce",
+    attention="pallas")``.  Returns (tokens, logits) on the CPU and the
+    launches of the run."""
+    import repro_torch.ff as ff
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, init_cache, prefill
+    from repro_torch.train.serve_step import greedy_generate
+    arch, extra, ff_math = SMALL_FAMILY_CASES[case]
+    cfg = get_config(arch).reduced(compute_dtype="float32", **extra)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 5)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 12), generator=g)
+    inputs = {}
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.randn((2, cfg.num_patches, cfg.d_model),
+                                        generator=g)
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                       generator=g)
+    cache_len = 12 + 5 + cfg.num_patches
+    w = to_device(params, dev) if dev == "cuda" else params
+    x = {k: v.to(dev) for k, v in inputs.items()}
+    reset_launch_counts()
+    with ff.policy("ff_reduce", attention="pallas", ff_math=ff_math), \
+            ff.use(silu="pallas", exp="pallas", log1p="pallas"), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # decode: kv_len -> ff
+        toks = greedy_generate(w, cfg, prompt.to(dev), 5, cache_len,
+                               extra_inputs=x or None)
+        cache = init_cache(cfg, 2, cache_len, device=dev)
+        logits, _ = prefill(w, {"tokens": prompt.to(dev), **x}, cfg, cache)
+    return (toks.cpu(), logits.cpu()), launch_counts()
+
+
+def small_families(torch, cpu):
     """Reduced olmoe-1b-7b (head dim 128), deepseek-v2-236b,
     internvl2-1b, mamba2-370m, jamba-1.5-large-398b (one 8-layer period)
     and whisper-medium (64 frames from a seeded normal), f32 compute,
     through ``greedy_generate`` on the card under ``policy("ff_reduce",
     attention="pallas")`` (olmoe and mamba2 also under ``ff_math`` with
     ``ff.use(silu=, exp=, log1p="pallas")``) against the same on the
-    CPU, where every kernel is its plain version: equal tokens, prefill
-    logits within SMALL_FAMILY_ATOL, the kernels launched on the card
-    (mamba2 launches no attention)."""
-    import repro_torch.ff as ff
+    CPU (``cpu``: ``small_family_generate``'s results there, where every
+    kernel is its plain version): equal tokens, prefill logits within
+    SMALL_FAMILY_ATOL, the kernels launched on the card (mamba2 launches
+    no attention)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params, init_cache, prefill
-    from repro_torch.train.serve_step import greedy_generate
-    cases = (("olmoe-1b-7b", dict(head_dim=128), False),
-             ("olmoe-1b-7b", dict(head_dim=128), True),
-             ("deepseek-v2-236b", {}, False), ("internvl2-1b", {}, False),
-             ("mamba2-370m", {}, False), ("mamba2-370m", {}, True),
-             ("jamba-1.5-large-398b", dict(num_layers=8), False),
-             ("whisper-medium", {}, False))
-    for arch, extra, ff_math in cases:
-        cfg = get_config(arch).reduced(compute_dtype="float32", **extra)
-        params = init_params(cfg, torch.Generator().manual_seed(SEED))
-        g = torch.Generator().manual_seed(SEED + 5)
-        prompt = torch.randint(1, cfg.vocab_size, (2, 12), generator=g)
-        inputs = {}
-        if cfg.family == "vlm":
-            inputs["patches"] = torch.randn((2, cfg.num_patches,
-                                             cfg.d_model), generator=g)
-        if cfg.family == "encdec":
-            inputs["frames"] = torch.randn((2, cfg.encoder_seq,
-                                            cfg.d_model), generator=g)
-        cache_len = 12 + 5 + cfg.num_patches
-        out = {}
-        for dev in ("cuda", "cpu"):
-            w = to_device(params, dev) if dev == "cuda" else params
-            x = {k: v.to(dev) for k, v in inputs.items()}
-            reset_launch_counts()
-            with ff.policy("ff_reduce", attention="pallas", ff_math=ff_math), \
-                    ff.use(silu="pallas", exp="pallas", log1p="pallas"), \
-                    warnings.catch_warnings():
-                warnings.simplefilter("ignore")     # decode: kv_len -> ff
-                toks = greedy_generate(w, cfg, prompt.to(dev), 5, cache_len,
-                                       extra_inputs=x or None)
-                cache = init_cache(cfg, 2, cache_len, device=dev)
-                logits, _ = prefill(w, {"tokens": prompt.to(dev), **x}, cfg,
-                                    cache)
-            out[dev] = (toks.cpu(), logits.cpu(), launch_counts())
-        (tc, lc, n), (tp, lp, _) = out["cuda"], out["cpu"]
+    for case, (arch, extra, ff_math) in enumerate(SMALL_FAMILY_CASES):
+        (tc, lc), n = small_family_generate(torch, case, "cuda")
+        tp, lp = cpu[case]
         gap = float((lc - lp).abs().max())
         log(f"small {arch}{' ff_math' if ff_math else ''} card vs CPU: "
             f"tokens {tc.tolist()} == {tp.tolist()}: "
             f"{torch.equal(tc, tp)}; prefill logits within {gap:.3e}; "
             f"launches { {k: v for k, v in n.items() if v} }")
-        want = {"mean_sq"} | ({"attention"} if cfg.family != "ssm"
-                              else set()) | ({"ff_math"} if ff_math
-                                             else set())
+        want = {"mean_sq"} | ({"attention"} if get_config(arch).family
+                              != "ssm" else set()) | ({"ff_math"} if ff_math
+                                                      else set())
         if not (torch.equal(tc, tp) and gap <= SMALL_FAMILY_ATOL
                 and all(n[k] > 0 for k in want)
                 and all(v == 0 for k, v in n.items() if k not in want)):
@@ -3695,7 +3734,7 @@ def bf16_params(torch, cfg, seed):
     from repro_torch.models import init_params
     from repro_torch.models.model import cast_params
     f32 = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
-    n = sum(t.numel() for t in _leaves(f32))
+    n = param_count(f32)
     w = cast_params(f32, torch.bfloat16)
     del f32
     gc.collect()
@@ -3931,7 +3970,7 @@ def phase_serve_minitron(torch, card: str):
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda")
                          .manual_seed(SEED + 11))
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = param_count(params)
     with ff.policy("ff_reduce", attention="pallas"):
         eng = ServeEngine(params, cfg, max_batch=MINITRON_REQUESTS,
                           page_size=16, max_ctx=64)
@@ -4147,11 +4186,12 @@ def phase_serve_whisper(torch, card: str):
     return launches
 
 
-def phase_families(torch, card: str):
-    """The families beyond dense GQA: the reduced ones card against CPU,
-    then olmoe-1b-7b, deepseek-v2 (2 layers), minitron-4b, mamba2-370m and
-    whisper-medium at full width.  Returns {path: launches}."""
-    small_families(torch)
+def phase_families(torch, card: str, cpu):
+    """The families beyond dense GQA: the reduced ones card against CPU
+    (``cpu``: the CPU references), then olmoe-1b-7b, deepseek-v2 (2
+    layers), minitron-4b, mamba2-370m and whisper-medium at full width.
+    Returns {path: launches}."""
+    small_families(torch, cpu.get("families"))
     moe, moe_ff_math = phase_serve_moe(torch, card)
     mla = phase_serve_mla(torch, card)
     minitron = phase_serve_minitron(torch, card)
@@ -4162,29 +4202,34 @@ def phase_families(torch, card: str):
             "serve_whisper": whisper}
 
 
-def phase_chaos(torch):
-    """``python -m repro_torch.chaos`` (the guarded-serving smoke over
-    every fault class, on its own small model) on the card and with
-    ``--device cpu``: both exit 0, and every scenario's statuses and
-    tokens are equal on the two devices.  The card run's launches are
-    read around it (the smoke's ``probe_kv`` under
-    ``guard_probe="pallas"`` launches ``guard_flags``).  Returns them."""
+def chaos_run(dev):
+    """``python -m repro_torch.chaos --device dev`` in this process, its
+    output captured.  Returns (exit code, output, report, seconds)."""
     import contextlib
     import io
     from repro_torch.chaos.__main__ import main as chaos_main
+    report, out = {}, io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        code = chaos_main(["--device", dev], report=report)
+    return code, out.getvalue(), report, time.perf_counter() - t0
+
+
+def phase_chaos(torch, cpu):
+    """``python -m repro_torch.chaos`` (the guarded-serving smoke over
+    every fault class, on its own small model) on the card and with
+    ``--device cpu`` (``cpu``: ``chaos_run``'s result there): both exit 0,
+    and every scenario's statuses and tokens are equal on the two
+    devices.  The card run's launches are read around it (the smoke's
+    ``probe_kv`` under ``guard_probe="pallas"`` launches
+    ``guard_flags``).  Returns them."""
     reports, secs, checks = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        if dev == "cuda":
-            reset_launch_counts()
-        reports[dev], out = {}, io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            code = chaos_main(["--device", dev], report=reports[dev])
-        secs[dev] = time.perf_counter() - t0
-        if dev == "cuda":
-            launches = launch_counts()
-        text = out.getvalue()
+    reset_launch_counts()
+    runs = {"cuda": chaos_run("cuda")}
+    launches = launch_counts()
+    runs["cpu"] = cpu
+    for dev, (code, text, reports[dev], secs[dev]) in runs.items():
         checks[dev] = text.count("  [ok] ")
         if code != 0 or "[FAIL]" in text:
             raise AssertionError(f"chaos smoke on {dev} exited {code}:\n"
@@ -4292,10 +4337,11 @@ def phase_small_train(torch):
     small_train_resume(torch)
 
 
-def small_train_resume(torch):
-    """The reduced model on the card: 2 steps with a ``ckpt_dir``, a crash,
-    a new ``Trainer`` that restores and takes step 3, bit for bit 3
-    uninterrupted steps (parameters, optimizer state, the last loss)."""
+def small_train_resume(torch, cfg=None):
+    """A reduced model on the card (``cfg``, granite-3-2b's by default): 2
+    steps with a ``ckpt_dir``, a crash, a new ``Trainer`` that restores
+    and takes step 3, bit for bit 3 uninterrupted steps (parameters,
+    optimizer state, the last loss)."""
     import tempfile
     import repro_torch.ff as ff
     from repro_torch.checkpoint.checkpoint import flatten_with_names
@@ -4304,8 +4350,8 @@ def small_train_resume(torch):
     from repro_torch.optim.adamw import AdamW, cosine_schedule
     from repro_torch.train.train_step import make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = CONFIG.reduced(compute_dtype="float32")
-    batches = train_batches(cfg.vocab_size, 32, 4, 3, "cuda")
+    cfg = cfg or CONFIG.reduced(compute_dtype="float32")
+    batches = family_batches(torch, cfg, 4, 32, 3, "cuda", SEED + 22)
 
     class Crash(RuntimeError):
         pass
@@ -4354,9 +4400,9 @@ def small_train_resume(torch):
     if not same:
         raise AssertionError(f"resumed training: {got} vs {want}, or the "
                              f"weights differ")
-    log(f"reduced training resumed from a step-2 checkpoint on the card: "
-        f"step 3 bit for bit 3 uninterrupted steps (last loss "
-        f"{got['last_loss']!r})")
+    log(f"reduced {cfg.name} training resumed from a step-2 checkpoint "
+        f"on the card: step 3 bit for bit 3 uninterrupted steps (last "
+        f"loss {got['last_loss']!r})")
 
 
 def phase_train(torch, card: str):
@@ -4366,7 +4412,7 @@ def phase_train(torch, card: str):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.granite_3_2b import CONFIG as cfg
     from repro_torch.models import init_params
-    from repro_torch.optim.adamw import AdamW, cosine_schedule, tree_leaves
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
     from repro_torch.train.train_step import make_train_step
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda")
@@ -4381,8 +4427,8 @@ def phase_train(torch, card: str):
     long_batch = train_batches(cfg.vocab_size, LONG_SEQ, LONG_BATCH, 1,
                                "cuda")[0]
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"granite-3-2b training: {n_params} params, {len(tree_leaves(params))}"
+    n_params = param_count(params)
+    log(f"granite-3-2b training: {n_params} params, {n_leaves(params)}"
         f" leaves, set up in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     torch.cuda.reset_peak_memory_stats()
@@ -4497,6 +4543,235 @@ def phase_train(torch, card: str):
         torch, cfg, opt, params, state, batches[:FF_MATH_TRAIN_STEPS + 1],
         training["steady_step_ms"], peak_gb, card)
     return launches, ff_math_launches
+
+
+# training of the families beyond dense GQA: the reduced configs card
+# against CPU (2 steps of 2 x 16 tokens, f32, remat on; mamba2 also under
+# ff_math), then FULL_TRAIN at full width (olmoe-1b-7b cut to 4 layers:
+# its 16 need ~146 GB with FF-master AdamW)
+SMALL_FAMILY_TRAIN = (("olmoe-1b-7b", {}, False),
+                      ("deepseek-v2-236b", {}, False),
+                      ("internvl2-1b", {}, False), ("mamba2-370m", {}, False),
+                      ("mamba2-370m", {}, True),
+                      ("jamba-1.5-large-398b", dict(num_layers=8), False),
+                      ("whisper-medium", {}, False))
+FULL_TRAIN_STEPS = 3
+# (arch, config cut, batch, sequence): mamba2 over two SSD chunks
+FULL_TRAIN = (("mamba2-370m", {}, 4, 512), ("whisper-medium", {}, 2, 128),
+              ("internvl2-1b", {}, 4, 128),
+              ("olmoe-1b-7b", dict(num_layers=4), 4, 128))
+
+
+def family_batches(torch, cfg, batch, seq, n, device, seed):
+    """``n`` batches of ``cfg``: SyntheticLM's tokens and targets, and the
+    VLM's patches or the enc-dec's frames from a seeded normal draw on
+    the CPU (the same on every device)."""
+    out = train_batches(cfg.vocab_size, seq, batch, n, device)
+    g = torch.Generator().manual_seed(seed)
+    extra = {"vlm": ("patches", cfg.num_patches),
+             "encdec": ("frames", cfg.encoder_seq)}.get(cfg.family)
+    for b in out:
+        if extra:
+            b[extra[0]] = torch.randn((batch, extra[1], cfg.d_model),
+                                      generator=g).to(device)
+    return out
+
+
+def train_launches_want(cfg, leaves, ff_math=False):
+    """One training step's launches by the port's path: ``mean_sq`` at
+    every norm with FF statistics (two a decoder-only or hybrid layer,
+    one an ssm layer, two an encoder and three an enc-dec decoder layer,
+    the final norm; the SSD's gated norm and the encoder's final norm are
+    plain), the attention kernel at every attention call (a decoder-only
+    layer's, the hybrid's one a period, the enc-dec's encoder, decoder and
+    cross attention), each again in remat's recompute and neither in the
+    backward (the attention's is the fast recurrence in plain torch);
+    ``adamw_update`` once a leaf; ``ff_softmax`` once, the loss's
+    log-sum-exp, where the vocabulary fits one fused row (the reduced
+    configs' 512; the full ones' take the jnp formulation; the loss in
+    one chunk here); under ``ff_math`` (the ssm family here)
+    ``math_elementwise`` 7 times an SSD mixer a forward (softplus's exp
+    and log1p, A's exp, the four decays; the backward of exp and log1p
+    runs no FF function)."""
+    from repro_torch.kernels.ff_fused import MAX_FUSED_COLS
+    L, fam = cfg.num_layers, cfg.family
+    if fam == "ssm":
+        norms, attn, ssd = L, 0, L
+    elif fam == "hybrid":
+        periods = L // cfg.attn_every
+        norms, attn, ssd = 2 * L, periods, L - periods
+    elif fam == "encdec":
+        norms, attn, ssd = 2 * cfg.encoder_layers + 3 * L, \
+            cfg.encoder_layers + 2 * L, 0
+    else:
+        norms, attn, ssd = 2 * L, L, 0
+    fwd = 2 if cfg.remat else 1
+    return {"mean_sq": norms * fwd + 1, "attention": attn * fwd,
+            "adamw_update": leaves,
+            "ff_softmax": int(cfg.vocab_size <= MAX_FUSED_COLS),
+            "ff_math": SSD_MATH_PREFILL * ssd * fwd if ff_math else 0}
+
+
+def family_steps(torch, cfg, params, batches, ff_math=False):
+    """``make_train_step`` (FF-master AdamW, ``policy("ff_reduce",
+    attention="pallas")``, under ``ff_math`` with ``ff.use(**MATH_USE)``)
+    over ``batches`` from ``params`` (updated in place).  Returns a record
+    a step: loss, grad norm, wall ms and the kernels' launches."""
+    import repro_torch.ff as ff
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.train_step import make_train_step
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 10, len(batches)))
+    state = opt.init(params)
+    with ff.policy("ff_reduce", attention="pallas", ff_math=ff_math):
+        step = make_train_step(cfg, None, opt)
+    recs, prev = [], launch_counts()
+    with ff.use(**MATH_USE):
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            dt = time.perf_counter() - t0
+            now = launch_counts()
+            recs.append({"loss": loss, "grad_norm": gnorm,
+                         "step_ms": dt * 1e3,
+                         "launches": {k: now[k] - prev[k] for k in now}})
+            prev = now
+    return recs
+
+
+def small_family_run(torch, case, dev):
+    """SMALL_FAMILY_TRAIN[``case``] (f32 compute, remat on) trained 2
+    steps of 2 x 16 tokens on ``dev`` from seeded weights
+    (``family_steps``).  Returns the config, its leaf count and the
+    steps' records."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    arch, extra, ff_math = SMALL_FAMILY_TRAIN[case]
+    cfg = get_config(arch).reduced(compute_dtype="float32", remat=True,
+                                   **extra)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED))
+    batches = family_batches(torch, cfg, 2, 16, 2, dev, SEED + 21)
+    return cfg, n_leaves(params), family_steps(
+        torch, cfg, to_device(params, dev), batches, ff_math)
+
+
+def small_family_training(torch, cpu):
+    """SMALL_FAMILY_TRAIN: each reduced config trained on the card
+    (``small_family_run``) against the same on the CPU (``cpu``: the
+    runs' records there, where every kernel is its plain version): loss
+    and grad norm within SMALL_TRAIN_RTOL a step, each card step's
+    launches exactly ``train_launches_want``.  Returns the card runs'
+    launches."""
+    total = {}
+    for case, (arch, _, ff_math) in enumerate(SMALL_FAMILY_TRAIN):
+        cfg, leaves, card_recs = small_family_run(torch, case, "cuda")
+        runs = {"cuda": card_recs, "cpu": cpu[case]}
+        if len(runs["cpu"]) != len(card_recs):
+            raise AssertionError(f"reduced {arch}: {len(runs['cpu'])} CPU "
+                                 f"steps")
+        want = {**{k: 0 for k in launch_counts()},
+                **train_launches_want(cfg, leaves, ff_math)}
+        name = f"{arch}{' ff_math' if ff_math else ''}"
+        for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+            if a["launches"] != want:
+                raise AssertionError(f"reduced {name} training step {i}: "
+                                     f"launches {a['launches']} != {want}")
+            for key in ("loss", "grad_norm"):
+                x, y = a[key], b[key]
+                if not abs(x - y) <= SMALL_TRAIN_RTOL * abs(y):
+                    raise AssertionError(
+                        f"reduced {name} training step {i}: {key} card "
+                        f"{x!r} vs CPU {y!r}")
+            for k, v in a["launches"].items():
+                total[k] = total.get(k, 0) + v
+        log(f"reduced {name} training (f32, remat, 2 x 16 tokens): card vs "
+            f"CPU (loss, grad norm) per step "
+            f"{[(a['loss'], a['grad_norm']) for a in runs['cuda']]} vs "
+            f"{[(b['loss'], b['grad_norm']) for b in runs['cpu']]}; "
+            f"launches a step { {k: v for k, v in want.items() if v} }")
+    return total
+
+
+def full_family_training(torch, card, arch, cut, batch, seq, seed):
+    """``arch`` at full width (``cut``: the depth it is cut to), f32
+    master weights from a seed, FULL_TRAIN_STEPS steps of ``batch`` x
+    ``seq`` tokens (and the VLM's patches, the enc-dec's frames): finite
+    losses and grad norms, each step's launches exactly
+    ``train_launches_want``; logs step ms, tokens/s and the peak device
+    memory.  Returns the launches of the run."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    n_params = param_count(params)
+    batches = family_batches(torch, cfg, batch, seq, FULL_TRAIN_STEPS,
+                             "cuda", seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    recs = family_steps(torch, cfg, params, batches)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {**{k: 0 for k in launches},
+            **train_launches_want(cfg, n_leaves(params))}
+    for i, r in enumerate(recs):
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["launches"] == want):
+            raise AssertionError(f"{arch} training step {i + 1}: loss "
+                                 f"{r['loss']}, grad norm {r['grad_norm']}, "
+                                 f"launches {r['launches']} != {want}")
+    steady = [r["step_ms"] for r in recs[1:]]
+    tokens = batch * seq
+    rec = {"arch": arch, "cut": cut or "full size", "params": n_params,
+           "batch": [batch, seq], "steps": FULL_TRAIN_STEPS,
+           "loss": [r["loss"] for r in recs],
+           "grad_norm": [r["grad_norm"] for r in recs],
+           "step_ms": [r["step_ms"] for r in recs],
+           "steady_step_ms": sum(steady) / len(steady),
+           "steady_tokens_per_s": tokens / (sum(steady) / len(steady) / 1e3),
+           "peak_allocated_gb": peak_gb, "setup_s": setup_s,
+           "launches_per_step": {k: v for k, v in want.items() if v},
+           "card": card}
+    if cfg.family in ("vlm", "encdec"):
+        rec["inputs_per_row"] = cfg.num_patches or cfg.encoder_seq
+    if cfg.moe_num_experts:
+        # the aux loss's compensated expert means at the step's shape (the
+        # blocked FF sum, eager torch: a cascade of its 4096 lanes), once
+        # a MoE layer a forward (olmoe: every layer) and again in remat's
+        # recompute
+        import repro_torch.ff as ff
+        probs = torch.rand((batch * seq, cfg.moe_num_experts),
+                           device="cuda")
+        rec["moe_aux_sum_ms"] = host_ms(lambda: float(ff.sum(
+            probs, axis=0, block=4096).hi[0]), 1)
+        rec["moe_aux_sum_calls_per_step"] = \
+            cfg.num_layers * (2 if cfg.remat else 1)
+    log(f"family training: {json.dumps(rec)}")
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_families(torch, card: str, cpu):
+    """Training of the MoE, MLA, VLM, SSM, hybrid and enc-dec families:
+    ``small_family_training`` (``cpu``: the CPU references); the hybrid's
+    tuple tree through a checkpoint and a resumed step
+    (``small_train_resume`` on reduced jamba); then FULL_TRAIN at full
+    width (``full_family_training``).  Returns {path: launches}."""
+    from repro_torch.configs import get_config
+    reset_launch_counts()
+    out = {"train_families_reduced": small_family_training(
+        torch, cpu.get("family_training"))}
+    small_train_resume(torch, get_config("jamba-1.5-large-398b").reduced(
+        num_layers=8, compute_dtype="float32"))
+    for i, (arch, cut, batch, seq) in enumerate(FULL_TRAIN):
+        out[f"train_{arch.split('-')[0]}"] = full_family_training(
+            torch, card, arch, cut, batch, seq, SEED + 31 + i)
+    return out
 
 
 def train_telemetry(torch, step, params, state, batches, pairs=3):
@@ -4631,15 +4906,13 @@ def host_ms(fn, iters: int) -> float:
 
 
 def n_leaves(tree) -> int:
-    return sum(1 for _ in _leaves(tree))
+    from repro_torch.tree import tree_leaves
+    return len(tree_leaves(tree))
 
 
-def _leaves(tree):
-    for v in (tree.values() if isinstance(tree, dict) else tree):
-        if isinstance(v, (dict, tuple)):
-            yield from _leaves(v)
-        else:
-            yield v
+def param_count(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def phase_timing(torch, cfg, launches, errs, clock_hz):
@@ -4856,6 +5129,77 @@ def adamw_timing(torch, cfg, g, counts, err, peak_ops):
         path=path)
 
 
+# ---------------------------------------------------------------------------
+# the CPU halves of the card-against-CPU checks, in a child process
+# ---------------------------------------------------------------------------
+
+CPU_REF_ARG = "--cpu-references"
+CPU_REF_THREADS = 4                     # of the host's cores
+CPU_REF_TIMEOUT = 900                   # seconds the script waits for them
+
+
+def cpu_references(out: str) -> int:
+    """``python3 chip_smoke.py --cpu-references OUT``: the CPU halves of
+    ``small_families``, ``phase_chaos`` and ``small_family_training``
+    (every kernel its plain version), saved to ``OUT`` with
+    ``torch.save``, with the seconds they took."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(SRC))
+    os.nice(5)                          # the card's phases come first
+    import torch
+    torch.set_num_threads(CPU_REF_THREADS)
+    res = {"families": [small_family_generate(torch, i, "cpu")[0]
+                        for i in range(len(SMALL_FAMILY_CASES))],
+           "chaos": chaos_run("cpu"),
+           "family_training": [
+               [{k: r[k] for k in ("loss", "grad_norm")}
+                for r in small_family_run(torch, i, "cpu")[2]]
+               for i in range(len(SMALL_FAMILY_TRAIN))]}
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, out)
+    return 0
+
+
+class CpuReferences:
+    """``cpu_references`` in a child process that sees no card, started
+    after the build so that it runs beside the card's phases; ``get``
+    waits for it (at most CPU_REF_TIMEOUT s) and returns one part of its
+    results, ``stop`` kills it if it still runs."""
+
+    def __init__(self, directory: str):
+        self.path = os.path.join(directory, "cpu_references.pt")
+        self.log_path = os.path.join(directory, "cpu_references.log")
+        self.proc, self.results = None, None
+
+    def start(self):
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), CPU_REF_ARG,
+                 self.path], cwd=str(ROOT), stdout=out,
+                stderr=subprocess.STDOUT,
+                env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+    def get(self, part: str):
+        if self.results is None:
+            import torch
+            t0 = time.perf_counter()
+            code = self.proc.wait(timeout=CPU_REF_TIMEOUT)
+            if code != 0:
+                raise AssertionError(
+                    f"the CPU references exited {code}:\n"
+                    + Path(self.log_path).read_text()[-4000:])
+            self.results = torch.load(self.path, weights_only=False)
+            log(f"CPU references: {self.results['seconds']:.1f} s in a "
+                f"child process beside the card's phases; waited "
+                f"{time.perf_counter() - t0:.1f} s for them")
+        return self.results[part]
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
@@ -4867,7 +5211,15 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = CpuReferences(tmp)
+        try:
+            return run_phases(torch, cpu)
+        finally:
+            cpu.stop()
 
+
+def run_phases(torch, cpu: CpuReferences) -> int:
     global T0
     T0 = time.perf_counter()
     marks = [("start", T0)]
@@ -4880,6 +5232,7 @@ def main() -> int:
     log(f"card: {card}; max SM clock {clock_mhz:.0f} MHz")
     phase_build(torch)
     mark("build")
+    cpu.start()
     errs = phase_kernel_checks(torch)
     mark("kernel checks")
     matmul_launches, matmul_worst, matmul_rows = phase_matmul(
@@ -4915,9 +5268,9 @@ def main() -> int:
     log(f"serving engine freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
         f"GB still allocated")
     mark("serving")
-    family_launches = phase_families(torch, card)
+    family_launches = phase_families(torch, card, cpu)
     mark("families")
-    chaos_launches = phase_chaos(torch)
+    chaos_launches = phase_chaos(torch, cpu.get("chaos"))
     phase_restart_chaos(torch)
     mark("chaos")
     phase_small_train(torch)
@@ -4925,6 +5278,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("training")
+    train_family_launches = phase_train_families(torch, card, cpu)
+    mark("family training")
     launches = {"serve": serve_launches, "train": train_launches,
                 "matmul": matmul_launches, "table": table_launches,
                 "tune": tune_launches, "default_calls": default_launches,
@@ -4932,7 +5287,7 @@ def main() -> int:
                 "serve_guard": guard_launches,
                 "train_ff_math": train_ff_math_launches,
                 "serve_durable": durable_launches, "chaos": chaos_launches,
-                **family_launches}
+                **family_launches, **train_family_launches}
     kernels = (phase_timing(torch, cfg, launches, errs, clock_mhz * 1e6)
                + matmul_kernel_entries(launches, matmul_worst, matmul_rows)
                + fused_kernel_entries(launches, fused_worst, fused_rows)
@@ -4956,4 +5311,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cpu_references(sys.argv[2]) if sys.argv[1:2] == [CPU_REF_ARG]
+             else main())

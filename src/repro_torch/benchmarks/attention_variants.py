@@ -22,10 +22,11 @@ parent commit's) as the row ``baseline``, with its own entry point.
 Every row is held to the float64 oracle (<= 2^-40 of each (batch, head)'s
 largest output) on ``CASES`` (the main paths' shapes, q tiles that skip
 K/V tiles, ``q_offset > 0`` with Sq < Skv, Sq, Skv and heads off the
-tiles, G = 1, 3, 4, 8, f32 and bf16 operands, scores spread so that weights
-fall below 2^-100 of the row's largest; the head-dim 128 and 192
+tiles, G = 1, 3, 4, 7, 8, f32 and bf16 operands, scores spread so that
+weights fall below 2^-100 of the row's largest; the head-dim 128 and 192
 instances at the decoder-only families' shapes; non-causal at whisper's
-encoder and cross shapes), and its largest distance from the
+encoder and cross shapes; the family training steps' shapes), and its
+largest distance from the
 plain version is reported.  Then each row is timed by CUDA-graph replay at
 the prefill (1, 64), training (4, 128) and long-step (2, 1024) shapes of
 granite-3-2b (32 heads, 8 KV heads, hd 64, bf16, causal), in the order of
@@ -137,6 +138,20 @@ CASES = (
          True, 1.0),
     Case("spread scores, non-causal, f32", 1, 24, 70, 2, 1, 64, False, 0,
          False, 40.0),
+    # the family training steps' shapes: internvl2-1b's 14 / 2 heads (G =
+    # 7) over 256 patches + 128 tokens, whisper-medium's decoder self
+    # attention and cross attention from 128 tokens, olmoe-1b-7b's
+    # head-dim 128 at 4 x 128
+    Case("internvl2 train, G = 7", 4, 384, 384, 14, 2, 64, True, 0, True,
+         1.0),
+    Case("internvl2 train, G = 7, f32", 4, 384, 384, 14, 2, 64, True, 0,
+         False, 1.0),
+    Case("whisper decoder train", 2, 128, 128, 16, 16, 64, True, 0, True,
+         1.0),
+    Case("whisper cross train, non-causal", 2, 128, 1500, 16, 16, 64,
+         False, 0, True, 1.0),
+    Case("hd 128, olmoe train", 4, 128, 128, 16, 16, 128, True, 0, True,
+         1.0),
 )
 
 

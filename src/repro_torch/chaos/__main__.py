@@ -55,7 +55,7 @@ def smoke_params(device):
     """The smoke's weights on ``device``: ``init_params`` from seed 0 on
     the CPU, so every device holds the same values."""
     from repro_torch.models import init_params
-    from repro_torch.optim.adamw import tree_map
+    from repro_torch.tree import tree_map
     return tree_map(lambda t: t.to(device),
                     init_params(CFG, torch.Generator().manual_seed(0)))
 

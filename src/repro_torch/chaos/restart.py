@@ -54,7 +54,7 @@ def _params(cfg, device):
     """Weights from seed 0, made on the CPU (the same on every device)."""
     import torch
     from repro_torch.models import init_params
-    from repro_torch.optim.adamw import tree_map
+    from repro_torch.tree import tree_map
     return tree_map(lambda t: t.to(device),
                     init_params(cfg, torch.Generator().manual_seed(0)))
 

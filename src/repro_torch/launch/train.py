@@ -9,10 +9,11 @@ Runs on the CUDA card unless ``--device cpu`` is given.  Weights come from
 seed 0, batches from ``SyntheticLM``.  With ``--ckpt-dir`` the run
 checkpoints every ``--ckpt-every`` steps (default: a third of ``--steps``)
 and at the end, and first resumes from the latest checkpoint there.
-``--arch`` names any ported architecture; the port trains the dense GQA
-ones, and stops with ``NotImplementedError`` (before drawing weights) on
-any other (MoE, MLA, VLM, SSM, hybrid, enc-dec), whose training is still
-to be ported.
+``--arch`` names any architecture.  As the reference's launcher, its
+batches hold tokens and targets only, so a VLM config (internvl2-1b)
+stops at its first step with ``KeyError: 'patches'`` and an enc-dec one
+(whisper-medium) with ``KeyError: 'frames'``; ``Trainer`` and
+``make_train_step`` train both given those inputs in the batch.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.selfcheck import require_eft_safe
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models import init_params
-from repro_torch.models.model import check_trainable
 from repro_torch.optim.adamw import AdamW, cosine_schedule, tree_leaves
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -59,7 +59,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)
     policy = PrecisionPolicy.make(args.policy,
                                   compute_dtype=cfg.compute_dtype)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0))

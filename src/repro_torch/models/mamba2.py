@@ -47,11 +47,21 @@ def _exp(x: Tensor, ff_math: bool) -> Tensor:
 def _softplus(x: Tensor, ff_math: bool) -> Tensor:
     """dt = softplus(raw) in jax's form ``max(x, 0) + log1p(exp(-|x|))``
     (``F.softplus`` has a threshold branch and another formula), with the
-    FF ``exp`` / ``log1p`` under ``ff_math``."""
+    FF ``exp`` / ``log1p`` under ``ff_math``.
+
+    The reference's two forms part at x = 0 exactly in their gradient:
+    its builtin ``jax.nn.softplus`` has the derivative sigmoid(0) = 1/2
+    there, its FF form 1/2 - 1/2 = 0 (jax's ``max`` splits a tie in
+    halves, its ``abs`` has the derivative +1 at 0).  The port keeps both:
+    ``torch.maximum`` splits a tie as jax's ``max`` (``clamp_min`` would
+    pass it whole); the FF form takes -|x| as ``where(x >= 0, -x, x)``
+    (jax's ``abs`` rule), the builtin form as ``-x.abs()`` (torch's rule:
+    0 at 0)."""
+    relu = torch.maximum(x, x.new_zeros(()))
     if ff_math:
-        t = ff.log1p(ff.exp(-x.abs()))
-        return torch.clamp_min(x, 0.0) + ff.to_f32(t)
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+        neg_abs = torch.where(x >= 0, -x, x)
+        return relu + ff.to_f32(ff.log1p(ff.exp(neg_abs)))
+    return relu + torch.log1p(torch.exp(-x.abs()))
 
 
 def ssd_params(cfg: ModelConfig, dense, normal, full) -> Params:
@@ -219,6 +229,12 @@ def ssd_decode_step(p: Params, x: Tensor, cfg: ModelConfig, state: Params,
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"ssd_decode_step takes one position, got {S}")
+    W = cfg.ssm_conv_width
+    if state["conv"].shape[1] != W - 1:
+        raise ValueError(
+            f"ssd_decode_step takes a conv state of W - 1 = {W - 1} rows, "
+            f"got {state['conv'].shape[1]} (a prompt shorter than the conv "
+            f"window; the reference's decode step fails there too)")
     di, H, P, N = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_head_dim, \
         cfg.ssm_state
     dt_x = x.dtype

@@ -18,10 +18,9 @@ stacked on a leading axis (``params["layers"]["attn"]["wq"]`` is
 (L, d, H*hd)); the hybrid's ``params["layers"]`` is a tuple of
 ``attn_every`` per-index dicts, each leaf stacked over the periods.  A
 Python loop over layers takes the place of ``lax.scan``, and
-``torch.utils.checkpoint`` of ``jax.checkpoint`` (``cfg.remat``).  The
-caches are updated in place.  ``train_forward`` covers the decoder-only
-families (``make_train_step`` the dense GQA one); the ssm, hybrid and
-encdec families serve only.
+``torch.utils.checkpoint`` of ``jax.checkpoint`` (``cfg.remat``: per
+layer, per hybrid period, per encoder and decoder layer).  The caches
+are updated in place.  Every family trains and serves.
 """
 
 from __future__ import annotations
@@ -45,13 +44,10 @@ from repro_torch.models.layers import (attn_apply, attn_cache_init,
                                        decode_attention, embed_apply,
                                        flash_attention, mlp_apply, rms_norm,
                                        unembed_apply)
+from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-
-
-SERVE_ONLY = ("ssm", "hybrid", "encdec")
-TRAINING_ITEM = "ROADMAP.md §1 item 7.4"
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -63,50 +59,28 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError("interleaved dense/MoE stacks use the hybrid path")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training (gradients, the Trainer) covers the dense GQA family; the
-    other families run forward only so far."""
-    check_supported(cfg)
-    if cfg.family != "dense" or cfg.use_mla or cfg.moe_num_experts:
-        raise NotImplementedError(
-            f"repro_torch trains the dense GQA family only (family="
-            f"{cfg.family!r}, use_mla={cfg.use_mla}, moe_num_experts="
-            f"{cfg.moe_num_experts}): training of the MoE, MLA, VLM, SSM, "
-            f"hybrid and enc-dec families is {TRAINING_ITEM}")
-
-
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
 def layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a layer-stacked dict (views, no copy)."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+    """Layer ``i`` of a layer-stacked tree (views, no copy)."""
+    return tree_map(lambda t: t[i], tree)
 
 
 def unstack_layers(tree: Params, n: int) -> List[Params]:
-    """The ``n`` per-layer dicts of a layer-stacked dict, from one
-    ``torch.unbind`` per leaf.  Its backward is one stack per leaf;
-    indexing ``t[i]`` per layer instead would make each layer's backward
-    fill a zero tensor the size of the whole stack."""
-    out: List[Params] = [{} for _ in range(n)]
-    for k, v in tree.items():
-        parts = (unstack_layers(v, n) if isinstance(v, dict)
-                 else torch.unbind(v, 0))
-        for d, part in zip(out, parts):
-            d[k] = part
-    return out
-
-
-def tree_map(fn, tree):
-    """``fn`` over every tensor of nested dicts, tuples and lists, the
-    structure kept."""
+    """The ``n`` per-layer trees of a layer-stacked tree (dicts, and the
+    hybrid's tuple), from one ``torch.unbind`` per leaf.  Its backward is
+    one stack per leaf; indexing ``t[i]`` per layer instead would make
+    each layer's backward fill a zero tensor the size of the whole
+    stack."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        parts = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        parts = [unstack_layers(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
@@ -227,8 +201,25 @@ def _hybrid_params(cfg: ModelConfig, generator: torch.Generator
 
 
 # ===========================================================================
-# training forward + loss
+# forward blocks (shared by training and serving)
 # ===========================================================================
+
+def _remat(on: bool, body, *args):
+    """``body(*args)``; with ``on`` inside a checkpoint: only the inputs
+    are kept and the rest is recomputed in the backward pass, under the
+    ff scopes of this call (autograd may run the backward on a thread of
+    its own)."""
+    if not on:
+        return body(*args)
+    scoped = ff_scope.captured()
+
+    def run(*a):
+        with scoped():
+            return body(*a)
+    # the layers draw no random numbers: no RNG state to restore
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
 
 def _ffn(p: Params, z: Tensor, cfg: ModelConfig, policy: PrecisionPolicy,
          ff_stats: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
@@ -240,41 +231,167 @@ def _ffn(p: Params, z: Tensor, cfg: ModelConfig, policy: PrecisionPolicy,
     return mlp_apply(p, z, ff_math=policy.ff_math), None
 
 
+def _norm(x: Tensor, w: Tensor, cfg: ModelConfig,
+          policy: PrecisionPolicy) -> Tensor:
+    return rms_norm(x, w, cfg.norm_eps, ff_stats=policy.ff_reductions)
+
+
 def _decoder_layer(x: Tensor, lp: Params, cfg: ModelConfig,
-                   policy: PrecisionPolicy, positions: Tensor
+                   policy: PrecisionPolicy, attn, ff_stats: bool
                    ) -> Tuple[Tensor, Optional[Tensor]]:
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps, ff_stats=policy.ff_reductions)
-    attn = mla.mla_apply if cfg.use_mla else attn_apply
-    x = x + attn(lp["attn"], h, cfg, positions=positions,
-                 attn_impl=policy.attention)
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps, ff_stats=policy.ff_reductions)
-    f, aux = _ffn(lp["ffn"], h, cfg, policy, policy.ff_reductions)
+    """One decoder-only layer; ``attn(p, z)`` runs its attention.  Returns
+    (x, the MoE aux or None)."""
+    x = x + attn(lp["attn"], _norm(x, lp["ln1"], cfg, policy))
+    f, aux = _ffn(lp["ffn"], _norm(x, lp["ln2"], cfg, policy), cfg, policy,
+                  ff_stats)
     return x + f, aux
 
+
+def _ssm_layer(x: Tensor, lp: Params, cfg: ModelConfig,
+               policy: PrecisionPolicy, mixer) -> Tensor:
+    """One ssm layer; ``mixer(p, z)`` runs its SSD mixer."""
+    return x + mixer(lp["mixer"], _norm(x, lp["ln"], cfg, policy))
+
+
+def _hybrid_period(x: Tensor, pp: Tuple[Params, ...], cfg: ModelConfig,
+                   policy: PrecisionPolicy, attn, mixer, ff_stats: bool
+                   ) -> Tuple[Tensor, Tensor]:
+    """One hybrid period (``pp``: its ``attn_every`` per-index layers):
+    ``attn(p, z, i)`` at ``attn_index``, ``mixer(p, z, i)`` elsewhere, the
+    MoE FFN where the layer has one.  Returns (x, the period's summed MoE
+    aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(pp):
+        z = _norm(x, lp["ln1"], cfg, policy)
+        if "mixer_attn" in lp:
+            x = x + attn(lp["mixer_attn"], z, i)
+        else:
+            x = x + mixer(lp["mixer_ssd"], z, i)
+        ffn = lp["ffn_moe"] if "ffn_moe" in lp else lp["ffn_mlp"]
+        f, a = _ffn(ffn, _norm(x, lp["ln2"], cfg, policy), cfg, policy,
+                    ff_stats)
+        x = x + f
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _encdec_layer(x: Tensor, lp: Params, cfg: ModelConfig,
+                  policy: PrecisionPolicy, attn, cross) -> Tensor:
+    """One decoder layer of the enc-dec family: self attention
+    (``attn(p, z)``), cross attention to the encoder (``cross(p, z)``),
+    the MLP."""
+    x = x + attn(lp["attn"], _norm(x, lp["ln1"], cfg, policy))
+    x = x + cross(lp["xattn"], _norm(x, lp["ln2"], cfg, policy))
+    return x + mlp_apply(lp["ffn"], _norm(x, lp["ln3"], cfg, policy),
+                         ff_math=policy.ff_math)
+
+
+def _encoder_stack(params: Params, frames: Tensor, cfg: ModelConfig,
+                   policy: PrecisionPolicy, remat: bool = False) -> Tensor:
+    """The encoder over (B, Se, d) frame embeddings: non-causal self
+    attention and the MLP a layer (each layer under ``_remat(remat)``);
+    the final norm's statistics plain, as the reference's."""
+    B, Se, _ = frames.shape
+    positions = torch.arange(Se, dtype=torch.int32,
+                             device=frames.device).expand(B, Se)
+
+    def body(h, lp):
+        h = h + attn_apply(lp["attn"], _norm(h, lp["ln1"], cfg, policy),
+                           cfg, positions=positions, causal=False,
+                           attn_impl=policy.attention)
+        return h + mlp_apply(lp["ffn"], _norm(h, lp["ln2"], cfg, policy),
+                             ff_math=policy.ff_math)
+
+    h = frames
+    for lp in unstack_layers(params["encoder"], cfg.encoder_layers):
+        h = _remat(remat, body, h, lp)
+    return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_kv(p: Params, enc: Tensor, cfg: ModelConfig) -> Params:
+    """The cross attention's K and V of the encoder output: (B, Se, KV,
+    hd) each, in ``enc``'s dtype."""
+    B, Se, _ = enc.shape
+    shape = (B, Se, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {n: (enc @ p[w].to(enc.dtype)).reshape(shape)
+            for n, w in (("k", "wk"), ("v", "wv"))}
+
+
+def _cross_attn_cached(p: Params, x: Tensor, xkv: Params, cfg: ModelConfig,
+                       attn_impl: str = "fast") -> Tensor:
+    """Non-causal attention from the decoder's positions to the encoder's
+    K/V, through ``ff.attention`` (the CUDA kernel under
+    ``attention="pallas"``)."""
+    B, S, _ = x.shape
+    hd, dt = cfg.resolved_head_dim, x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.num_heads, hd)
+    o = flash_attention(q, xkv["k"].to(dt), xkv["v"].to(dt), causal=False,
+                        block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
+                        impl=attn_impl)
+    return o.reshape(B, S, cfg.num_heads * hd) @ p["wo"].to(dt)
+
+
+# ===========================================================================
+# training forward + loss
+# ===========================================================================
 
 def _run_stack(params: Params, x: Tensor, cfg: ModelConfig,
                policy: PrecisionPolicy, positions: Tensor
                ) -> Tuple[Tensor, Tensor]:
-    """The layer loop of training; returns (hidden, the layers' summed
-    aux loss).  With ``cfg.remat`` each layer keeps only its input and
-    recomputes the rest in the backward pass."""
-    scoped = ff_scope.captured()
+    """The layer loop of training (a layer, or a hybrid period, a step);
+    returns (hidden, the layers' summed MoE aux).  With ``cfg.remat``
+    each step keeps only its input and recomputes the rest in the
+    backward pass."""
 
-    def body(h, lp):
-        with scoped():
-            return _decoder_layer(h, lp, cfg, policy, positions)
+    def attn(p, z, *_):
+        fn = mla.mla_apply if cfg.use_mla else attn_apply
+        return fn(p, z, cfg, positions=positions, attn_impl=policy.attention)
+
+    def mixer(p, z, *_):
+        return mamba2.ssd_block_apply(p, z, cfg, ff_math=policy.ff_math)
+
+    stats = policy.ff_reductions
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        def body(h, lp):
+            return _ssm_layer(h, lp, cfg, policy, mixer), None
+    elif cfg.family == "hybrid":
+        n //= cfg.attn_every
+
+        def body(h, pp):
+            return _hybrid_period(h, pp, cfg, policy, attn, mixer, stats)
+    else:
+        def body(h, lp):
+            return _decoder_layer(h, lp, cfg, policy, attn, stats)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in unstack_layers(params["layers"], cfg.num_layers):
-        if cfg.remat:
-            # the layer draws no random numbers: no RNG state to restore
-            x, a = checkpoint(body, x, lp, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            x, a = body(x, lp)
+    for lp in unstack_layers(params["layers"], n):
+        x, a = _remat(cfg.remat, body, x, lp)
         if a is not None:
             aux = aux + a
     return x, aux
+
+
+def _encdec_decoder(params: Params, x: Tensor, enc: Tensor,
+                    cfg: ModelConfig, policy: PrecisionPolicy,
+                    positions: Tensor) -> Tensor:
+    """The enc-dec decoder of training: causal self attention, cross
+    attention to ``enc`` (its K/V computed in each layer, so the
+    gradient reaches the encoder through them), the MLP; a layer a
+    ``_remat`` step."""
+
+    def body(h, lp, e):
+        return _encdec_layer(
+            h, lp, cfg, policy,
+            lambda p, z: attn_apply(p, z, cfg, positions=positions,
+                                    attn_impl=policy.attention),
+            lambda p, z: _cross_attn_cached(p, z, _cross_kv(p, e, cfg), cfg,
+                                            policy.attention))
+
+    for lp in unstack_layers(params["layers"], cfg.num_layers):
+        x = _remat(cfg.remat, body, x, lp, enc)
+    return x
 
 
 def _gold(logits: Tensor, targets: Tensor) -> Tensor:
@@ -371,28 +488,29 @@ def _embed_inputs(params: Params, batch: Dict[str, Tensor],
 def train_forward(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
                   policy: Optional[PrecisionPolicy] = None
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """The training loss of a batch ``{"tokens", "targets"}`` (B, S) (and
-    ``"patches"`` for ``vlm``; the loss over the text positions only).
-    Returns ``(loss + 0.01 aux, {"loss", "aux"})``: ``aux`` sums the MoE
-    layers' load-balance losses (0 without experts, where the total is the
-    loss)."""
+    """The training loss of a batch ``{"tokens", "targets"}`` (B, S), with
+    ``"patches"`` (B, P, d) for ``vlm`` (the loss over the text positions
+    only) and ``"frames"`` (B, Se, d) for ``encdec``.  Returns ``(loss +
+    0.01 aux, {"loss", "aux"})``: ``aux`` sums the MoE layers'
+    load-balance losses (0 without experts)."""
     policy = ff.resolve_policy(policy)
     check_supported(cfg)
-    if cfg.family in SERVE_ONLY:
-        raise NotImplementedError(
-            f"repro_torch serves the {cfg.family!r} family but does not "
-            f"train it yet: {TRAINING_ITEM}")
     targets = batch["targets"]
     S = targets.shape[1]
     x, positions = _embed_inputs(params, batch, cfg)
-    x, aux = _run_stack(params, x, cfg, policy, positions)
+    if cfg.family == "encdec":
+        enc = _encoder_stack(params, batch["frames"].to(x.dtype), cfg,
+                             policy, remat=cfg.remat)
+        x = _encdec_decoder(params, x, enc, cfg, policy, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = _run_stack(params, x, cfg, policy, positions)
     if cfg.family == "vlm":
         x = x[:, -S:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  ff_stats=policy.ff_reductions)
     loss = chunked_cross_entropy(x, params, targets, cfg, policy)
-    total = loss + 0.01 * aux if cfg.moe_num_experts else loss
-    return total, {"loss": loss, "aux": aux}
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 # ===========================================================================
@@ -437,99 +555,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def _stack(params: Params, x: Tensor, cfg: ModelConfig,
-           policy: PrecisionPolicy, cache: Params, attn) -> Tensor:
-    """The decoder-only layer loop shared by prefill and decode;
-    ``attn(lp, z, lcache)`` runs one layer's attention and writes its
-    cache.  The MoE FFN takes the plain load-balance statistic here (its
-    aux is dropped), as the reference's serving path."""
+def _serve_stack(params: Params, x: Tensor, cfg: ModelConfig,
+                 policy: PrecisionPolicy, cache: Params, attn, mixer,
+                 cross) -> Tensor:
+    """The layer loop shared by prefill and decode: ``attn(p, z, kv)``
+    runs an attention layer and writes its KV cache, ``mixer(p, z,
+    state)`` an SSD mixer and writes its state, ``cross(p, z, xkv)`` the
+    enc-dec's cross attention to the cached encoder K/V.  The MoE FFN
+    takes the plain load-balance statistic here (its aux is dropped), as
+    the reference's serving path."""
+    caches = cache["layers"]
+    if cfg.family == "hybrid":
+        for per in range(cfg.num_layers // cfg.attn_every):
+            pc = layer(caches, per)
+            x, _ = _hybrid_period(
+                x, layer(params["layers"], per), cfg, policy,
+                lambda p, z, i: attn(p, z, pc[f"attn_{i}"]),
+                lambda p, z, i: mixer(p, z, pc[f"ssm_{i}"]), False)
+        return x
     for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        lcache = layer(cache["layers"], i)
-        z = rms_norm(x, lp["ln1"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        x = x + attn(lp["attn"], z, lcache)
-        z = rms_norm(x, lp["ln2"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        x = x + _ffn(lp["ffn"], z, cfg, policy)[0]
+        lp, lc = layer(params["layers"], i), layer(caches, i)
+        if cfg.family == "ssm":
+            x = _ssm_layer(x, lp, cfg, policy, lambda p, z: mixer(p, z, lc))
+        elif cfg.family == "encdec":
+            xkv = layer(cache["cross"], i)
+            x = _encdec_layer(x, lp, cfg, policy,
+                              lambda p, z: attn(p, z, lc),
+                              lambda p, z: cross(p, z, xkv))
+        else:
+            x, _ = _decoder_layer(x, lp, cfg, policy,
+                                  lambda p, z: attn(p, z, lc), False)
     return x
-
-
-def _ssm_stack(params: Params, x: Tensor, cfg: ModelConfig,
-               policy: PrecisionPolicy, cache: Params, mixer) -> Tensor:
-    """The ssm family's layer loop; ``mixer(p, z, state)`` runs one SSD
-    mixer and writes its state."""
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        z = rms_norm(x, lp["ln"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        x = x + mixer(lp["mixer"], z, layer(cache["layers"], i))
-    return x
-
-
-def _hybrid_stack(params: Params, x: Tensor, cfg: ModelConfig,
-                  policy: PrecisionPolicy, cache: Params, attn,
-                  mixer) -> Tensor:
-    """The hybrid's period loop: ``attn_every`` layers a period, the
-    attention mixer (``attn(p, z, kv_cache)``) at ``attn_index``, SSD
-    mixers (``mixer(p, z, state)``) elsewhere; the MoE FFN's aux dropped,
-    as the reference's serving path."""
-    for per in range(cfg.num_layers // cfg.attn_every):
-        pcache = layer(cache["layers"], per)
-        for i, stacked in enumerate(params["layers"]):
-            lp = layer(stacked, per)
-            z = rms_norm(x, lp["ln1"], cfg.norm_eps,
-                         ff_stats=policy.ff_reductions)
-            if "mixer_attn" in lp:
-                x = x + attn(lp["mixer_attn"], z, pcache[f"attn_{i}"])
-            else:
-                x = x + mixer(lp["mixer_ssd"], z, pcache[f"ssm_{i}"])
-            z = rms_norm(x, lp["ln2"], cfg.norm_eps,
-                         ff_stats=policy.ff_reductions)
-            ffn = lp["ffn_moe"] if "ffn_moe" in lp else lp["ffn_mlp"]
-            x = x + _ffn(ffn, z, cfg, policy)[0]
-    return x
-
-
-def _encdec_stack(params: Params, x: Tensor, cfg: ModelConfig,
-                  policy: PrecisionPolicy, cache: Params, attn,
-                  cross) -> Tensor:
-    """The decoder's layer loop: self attention (``attn(p, z, lcache)``),
-    cross attention to the cached encoder K/V (``cross(p, z, xkv)``), the
-    MLP."""
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        z = rms_norm(x, lp["ln1"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        x = x + attn(lp["attn"], z, layer(cache["layers"], i))
-        z = rms_norm(x, lp["ln2"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        x = x + cross(lp["xattn"], z, layer(cache["cross"], i))
-        z = rms_norm(x, lp["ln3"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        x = x + mlp_apply(lp["ffn"], z, ff_math=policy.ff_math)
-    return x
-
-
-def _encoder_stack(params: Params, frames: Tensor, cfg: ModelConfig,
-                   policy: PrecisionPolicy) -> Tensor:
-    """The encoder over (B, Se, d) frame embeddings: non-causal self
-    attention and the MLP a layer; the final norm's statistics plain, as
-    the reference's."""
-    B, Se, _ = frames.shape
-    positions = torch.arange(Se, dtype=torch.int32,
-                             device=frames.device).expand(B, Se)
-    h = frames
-    for i in range(cfg.encoder_layers):
-        lp = layer(params["encoder"], i)
-        z = rms_norm(h, lp["ln1"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        h = h + attn_apply(lp["attn"], z, cfg, positions=positions,
-                           causal=False, attn_impl=policy.attention)
-        z = rms_norm(h, lp["ln2"], cfg.norm_eps,
-                     ff_stats=policy.ff_reductions)
-        h = h + mlp_apply(lp["ffn"], z, ff_math=policy.ff_math)
-    return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
 def _fill_cross(params: Params, enc: Tensor, cfg: ModelConfig,
@@ -537,28 +593,25 @@ def _fill_cross(params: Params, enc: Tensor, cfg: ModelConfig,
     """The cross-attention K/V of every decoder layer from the encoder
     output, into ``cache["cross"]`` (its length the encoder's, as the
     reference's)."""
-    B, Se, _ = enc.shape
     dt = cache["cross"]["k"].dtype
-    kv = {n: torch.stack([
-        (enc @ params["layers"]["xattn"][w][i].to(enc.dtype)).reshape(
-            B, Se, cfg.num_kv_heads, cfg.resolved_head_dim).to(dt)
-        for i in range(cfg.num_layers)]) for n, w in (("k", "wk"),
-                                                      ("v", "wv"))}
-    cache["cross"].update(kv)
+    kv = [_cross_kv(layer(params["layers"]["xattn"], i), enc, cfg)
+          for i in range(cfg.num_layers)]
+    cache["cross"].update({n: torch.stack([t[n].to(dt) for t in kv])
+                           for n in ("k", "v")})
 
 
-def _cross_attn_cached(p: Params, x: Tensor, xkv: Params, cfg: ModelConfig,
-                       attn_impl: str = "fast") -> Tensor:
-    """Non-causal attention from the decoder's positions to the cached
-    encoder K/V, through ``ff.attention`` (the CUDA kernel under
-    ``attention="pallas"``)."""
-    B, S, _ = x.shape
-    hd, dt = cfg.resolved_head_dim, x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.num_heads, hd)
-    o = flash_attention(q, xkv["k"].to(dt), xkv["v"].to(dt), causal=False,
-                        block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
-                        impl=attn_impl)
-    return o.reshape(B, S, cfg.num_heads * hd) @ p["wo"].to(dt)
+def _short_conv(cache: Params, S: int) -> None:
+    """A prompt of S < W - 1 positions leaves a conv state of S rows, as
+    the reference's prefill: each ``conv`` leaf of the cache becomes one
+    of S rows, which the mixer then writes (a decode step after it
+    raises, where the reference's fails)."""
+    def walk(d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k == "conv":
+                d[k] = v.new_zeros(v.shape[:2] + (S,) + v.shape[3:])
+    walk(cache["layers"])
 
 
 def _cross_attn_decode(p: Params, x: Tensor, xkv: Params, cfg: ModelConfig,
@@ -588,18 +641,15 @@ def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
             ) -> Tuple[Tensor, Params]:
     """Run the prompt (after the patches, for ``vlm``; with the encoder
     over ``batch["frames"]`` first, for ``encdec``) through the model,
-    filling the cache.  Returns (last-position logits (B, V), cache).
-    The ssm and hybrid families take prompts of at least W - 1 tokens:
-    the reference's conv state of a shorter prompt has fewer rows than
-    its decode step takes."""
+    filling the cache.  Returns (last-position logits (B, V), cache).  An
+    ssm or hybrid prompt shorter than the conv window leaves a short conv
+    state (``_short_conv``), as the reference's."""
     policy = ff.resolve_policy(policy)
     check_supported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
-    W = cfg.ssm_conv_width
-    if cfg.family in ("ssm", "hybrid") and x.shape[1] < W - 1:
-        raise ValueError(f"{cfg.family} prefill takes at least W - 1 = "
-                         f"{W - 1} tokens (the conv window), got "
-                         f"{x.shape[1]}")
+    if cfg.family in ("ssm", "hybrid") and \
+            x.shape[1] < cfg.ssm_conv_width - 1:
+        _short_conv(cache, x.shape[1])
 
     def attn(p, z, lcache):
         fill = mla.mla_prefill if cfg.use_mla else attn_prefill
@@ -613,19 +663,14 @@ def prefill(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
             state[k].copy_(t)
         return out
 
-    if cfg.family == "ssm":
-        x = _ssm_stack(params, x, cfg, policy, cache, mixer)
-    elif cfg.family == "hybrid":
-        x = _hybrid_stack(params, x, cfg, policy, cache, attn, mixer)
-    elif cfg.family == "encdec":
+    def cross(p, z, xkv):
+        return _cross_attn_cached(p, z, xkv, cfg, policy.attention)
+
+    if cfg.family == "encdec":
         enc = _encoder_stack(params, batch["frames"].to(x.dtype), cfg,
                              policy)
         _fill_cross(params, enc, cfg, cache)
-        x = _encdec_stack(params, x, cfg, policy, cache, attn,
-                          lambda p, z, xkv: _cross_attn_cached(
-                              p, z, xkv, cfg, policy.attention))
-    else:
-        x = _stack(params, x, cfg, policy, cache, attn)
+    x = _serve_stack(params, x, cfg, policy, cache, attn, mixer, cross)
     return _head(params, x[:, -1:], cfg, policy), cache
 
 
@@ -647,14 +692,8 @@ def decode_step(params: Params, token: Tensor, pos: int, cache: Params,
         return mamba2.ssd_decode_step(p, z, cfg, state,
                                       ff_math=policy.ff_math)[0]
 
-    if cfg.family == "ssm":
-        x = _ssm_stack(params, x, cfg, policy, cache, mixer)
-    elif cfg.family == "hybrid":
-        x = _hybrid_stack(params, x, cfg, policy, cache, attn, mixer)
-    elif cfg.family == "encdec":
-        x = _encdec_stack(params, x, cfg, policy, cache, attn,
-                          lambda p, z, xkv: _cross_attn_decode(
-                              p, z, xkv, cfg, policy.attention))
-    else:
-        x = _stack(params, x, cfg, policy, cache, attn)
+    def cross(p, z, xkv):
+        return _cross_attn_decode(p, z, xkv, cfg, policy.attention)
+
+    x = _serve_stack(params, x, cfg, policy, cache, attn, mixer, cross)
     return _head(params, x, cfg, policy), cache

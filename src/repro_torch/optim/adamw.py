@@ -21,31 +21,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Union
+from typing import Any, Callable, Dict, Union
 
 import torch
 
 import repro_torch.ff as ff_ns
 from repro_torch.core.ff import FF
 from repro_torch.kernels.ff_fused import adamw_chain
+from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
-
-
-def tree_leaves(tree: Params) -> List[Tensor]:
-    """The tensors of a nested dict in the reference's pytree order
-    (sorted keys, depth first)."""
-    out: List[Tensor] = []
-    for k in sorted(tree):
-        v = tree[k]
-        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
-    return out
-
-
-def tree_map(fn: Callable, tree: Params) -> Params:
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
 
 
 @dataclasses.dataclass

@@ -19,9 +19,9 @@ from repro_torch.core.ff import FF
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.ff.scope import resolve_policy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import check_trainable, train_forward
-from repro_torch.optim.adamw import (AdamW, AdamWState, clip_by_global_norm,
-                                     tree_leaves)
+from repro_torch.models.model import train_forward
+from repro_torch.optim.adamw import AdamW, AdamWState, clip_by_global_norm
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -61,7 +61,6 @@ def make_train_step(cfg: ModelConfig,
                         "optional — it falls back to the ambient ff.policy "
                         "scope — but the optimizer is not)")
     _no_mesh(mesh, mesh_axis)
-    check_trainable(cfg)
     policy = resolve_policy(policy)
     loss_fn = make_loss_fn(cfg, policy)
 
@@ -98,7 +97,7 @@ def make_train_step(cfg: ModelConfig,
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grads = _like(params, iter(grads))
+        grads = tree_unflatten(params, iter(grads))
         if clip_norm is not None:
             grads, gnorm = clip_by_global_norm(grads, clip_norm,
                                                ff=policy.ff_reductions)
@@ -131,10 +130,3 @@ def _microbatch(x: Tensor, i: int, n: int) -> Tensor:
         raise ValueError(f"batch of {b} does not split into {n} "
                          f"microbatches")
     return x[i * (b // n):(i + 1) * (b // n)]
-
-
-def _like(tree, it):
-    """``tree``'s structure filled from ``it`` in :func:`tree_leaves`
-    order."""
-    return {k: _like(tree[k], it) if isinstance(tree[k], dict) else next(it)
-            for k in sorted(tree)}

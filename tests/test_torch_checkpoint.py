@@ -246,8 +246,9 @@ def test_checkpoint_files_cross_packages(tmp_path, writer):
 # trainer resume
 # --------------------------------------------------------------------------
 
-def _trainer(tmp, steps=3, every=2, seed=0, fault=None):
-    cfg = port_get_config("granite-3-2b").reduced(compute_dtype="float32")
+def _trainer(tmp, steps=3, every=2, seed=0, fault=None, cfg=None):
+    cfg = cfg or port_get_config("granite-3-2b").reduced(
+        compute_dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(seed))
     opt = port_adamw.AdamW(learning_rate=port_adamw.cosine_schedule(
         3e-4, 10, steps))
@@ -277,11 +278,17 @@ def deterministic():
 
 
 def test_trainer_resume_bitwise(tmp_path, deterministic):
+    check_trainer_resume(tmp_path, ref_get_config("granite-3-2b").reduced(
+        compute_dtype="float32"))
+
+
+def check_trainer_resume(tmp_path, ref_cfg, cfg=None):
     """Crash at step 2 (after the checkpoint there), a new Trainer
     restores and takes step 3: parameters, optimizer state and the last
     loss bit for bit 3 uninterrupted steps.  The checkpoint's leaf names
-    are the reference's for the same tree."""
-    want = _trainer(None)
+    are the reference's for the same tree (``ref_cfg``'s; ``cfg`` is the
+    port's, granite-3-2b reduced by default)."""
+    want = _trainer(None, cfg=cfg)
     want_out = want.run()
 
     class Boom(RuntimeError):
@@ -291,12 +298,12 @@ def test_trainer_resume_bitwise(tmp_path, deterministic):
         if step == 2:
             raise Boom()
 
-    t1 = _trainer(tmp_path, fault=fault)
+    t1 = _trainer(tmp_path, fault=fault, cfg=cfg)
     with pytest.raises(Boom):
         t1.run()
     t1.ckpt.wait()
     assert latest_step(str(tmp_path)) == 2
-    t2 = _trainer(tmp_path, seed=1)         # other weights: all overwritten
+    t2 = _trainer(tmp_path, seed=1, cfg=cfg)   # other weights: overwritten
     assert t2.restore() and t2.step == 2
     out = t2.run()
     assert out["step"] == 3 and out["last_loss"] == want_out["last_loss"]
@@ -307,15 +314,15 @@ def test_trainer_resume_bitwise(tmp_path, deterministic):
             assert torch.equal(x, y), n
     assert latest_step(str(tmp_path)) == 3
     # the reference's leaf names for {"params", "opt"}
-    ref_cfg = ref_get_config("granite-3-2b").reduced(
-        compute_dtype="float32")
-    ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
-    ref_tree = {"params": ref_params,
-                "opt": ref_adamw.AdamW().init(ref_params)}
-    ref_names = [n for n, _ in ref_ckpt._flatten_with_paths(ref_tree)]
+
+    def ref_tree(key):
+        params = ref_init_params(ref_cfg, key)
+        return {"params": params, "opt": ref_adamw.AdamW().init(params)}
+    ref_names = [n for n, _ in ref_ckpt._flatten_with_paths(
+        jax.eval_shape(ref_tree, jax.random.PRNGKey(0)))]
     names = [leaf["name"] for leaf in _manifest(str(tmp_path), 3)["leaves"]]
     assert names == ref_names
-    assert not _trainer(None).restore()
+    assert not _trainer(None, cfg=cfg).restore()
 
 
 def test_launch_train_ckpt_dir_resumes(tmp_path, capsys):

@@ -17,6 +17,8 @@ import repro_torch.ff as port_ff
 import test_torch_families as families
 from repro_torch.models import model as port_model
 
+one_thread = families.one_thread
+
 
 def test_prefill_and_decode_logits_match_reference():
     families.check_serving("whisper-medium", "ff_reduce", "logits")

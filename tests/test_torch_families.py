@@ -16,11 +16,12 @@ tier; the MoE aux's compensated expert means) and the same with
 under the first two, internvl2 and phi3 under ``ff_reduce`` (``CASES``
 says why).  The
 engine's paged path stays dense-only: a MoE, MLA, SSM, hybrid or enc-dec
-config raises the reference's ``UnsupportedModelError``; the SSM, hybrid
-and enc-dec families serve but do not train (``NotImplementedError``
-naming ROADMAP item 7.4).  ``check_serving`` holds those three families'
-serving path to the reference (tests/test_torch_mamba2.py,
-test_torch_hybrid.py, test_torch_encdec.py run it).
+config raises the reference's ``UnsupportedModelError``.
+``check_serving`` holds the SSM, hybrid and enc-dec families' serving
+path to the reference, ``check_short_prompt`` their prompts shorter than
+the conv window (tests/test_torch_mamba2.py, test_torch_hybrid.py,
+test_torch_encdec.py run them); the training of every family is held in
+tests/test_torch_train_*.py.
 
 Tolerances: tokens identical; logits, losses and aux within atol 1e-4
 (``tests/test_torch_serve.py``'s bound: f32 matrix products in XLA's and
@@ -50,6 +51,7 @@ from repro.models import model as ref_model
 from repro.train.serve_step import make_decode_step as ref_decode_step
 from repro.train.serve_step import greedy_generate as ref_greedy
 from repro.train.serve_step import make_prefill_step as ref_prefill_step
+from repro_torch.checkpoint.checkpoint import flatten_with_names
 from repro_torch.configs import get_config as port_get_config
 from repro_torch.models import model as port_model
 from repro_torch.serve import ServeEngine, UnsupportedModelError
@@ -71,11 +73,23 @@ POLICIES = {"baseline": dict(), "ff_reduce": dict(attention="ff"),
 CASES = [("internvl2-1b", "ff_reduce"), ("phi3-medium-14b", "ff_reduce")]
 
 
-# the serve-only families (reduced; jamba cut to one 8-layer period, its
-# attention at index 3 and its MoE FFNs at the odd indices)
-SERVE_ONLY = ("mamba2-370m", "jamba-1.5-large-398b", "whisper-medium")
+# the SSM, hybrid and enc-dec families (reduced; jamba cut to one 8-layer
+# period, its attention at index 3 and its MoE FFNs at the odd indices)
+SSM_HYBRID_ENCDEC = ("mamba2-370m", "jamba-1.5-large-398b", "whisper-medium")
 SERVE_REF_PINS = dict(REF_PINS, exp="jnp", log1p="jnp")
 SERVE_PORT_PINS = dict(exp="pallas", log1p="pallas", silu="pallas")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """torch on one thread in the modules that take this fixture (this
+    one and those that import it): their tensors are small, and under the
+    suite's six workers torch's thread pools oversubscribe the cores (a
+    case ran 10-20x slower there than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def serve_configs(arch, **kw):
@@ -198,6 +212,41 @@ def check_serving(arch, pol, what):
         warnings.warn(f"{arch} {pol} row {row}: greedy tokens part at "
                       f"step {t}, a near-tie (reference top-2 margin "
                       f"{top2[1] - top2[0]:.4f} <= bf16 gap {gap:.4f})")
+
+
+def check_short_prompt(arch):
+    """A 2-token prompt, shorter than the conv window (W - 1 = 3), in the
+    ssm or hybrid family, f32 compute under ``ff_reduce`` on the config's
+    default bf16 cache: the prefill's logits within ATOL of the
+    reference's, and ``greedy_generate(max_new=1)``'s tokens the
+    reference's (its greedy loop with one token is that jitted prefill
+    and an argmax, ``repro/train/serve_step.py``: the argmax of the same
+    logits, one compile); each mixer's conv state of 2 rows; a decode
+    step after it raises, where the reference's fails
+    (tests/test_torch_mamba2.py)."""
+    rcfg, pcfg = serve_configs(arch, compute_dtype="float32")
+    pw = port_model.init_params(pcfg, torch.Generator().manual_seed(5))
+    toks = np.random.default_rng(44).integers(
+        0, rcfg.vocab_size, (B, 2)).astype(np.int32)
+    with ref_ff.policy("ff_reduce", attention="ff"), \
+            ref_ff.use(**SERVE_REF_PINS):
+        want, _ = jax.jit(ref_prefill_step(rcfg))(
+            to_jax(pw), {"tokens": jnp.asarray(toks)},
+            ref_model.init_cache(rcfg, B, 8))
+    prompt = torch.from_numpy(toks).long()
+    with port_ff.policy("ff_reduce", attention="pallas"), \
+            port_ff.use(**SERVE_PORT_PINS):
+        cache = port_model.init_cache(pcfg, B, 8, device="cpu")
+        got, cache = port_model.prefill(pw, {"tokens": prompt}, pcfg, cache)
+        tokens = greedy_generate(pw, pcfg, prompt, 1, 8)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+        assert np.array_equal(tokens.numpy()[:, 0],
+                              np.asarray(jnp.argmax(want, -1)))
+        convs = [t for n, t in flatten_with_names(cache) if
+                 n.endswith("conv")]
+        assert convs and all(t.shape[2] == 2 for t in convs)
+        with pytest.raises(ValueError, match="conv state"):
+            port_model.decode_step(pw, tokens, 2, cache, pcfg)
 
 
 def _configs(arch):
@@ -359,25 +408,12 @@ def test_engine_refuses_moe_and_mla(arch):
                     max_ctx=32)
 
 
-@pytest.mark.parametrize("arch", SERVE_ONLY)
-def test_serve_only_families_name_their_roadmap_item(arch):
-    """mamba2, jamba and whisper serve but do not train: train_forward and
-    make_train_step raise naming ROADMAP item 7.4 (never running the
-    dense stack on their trees), and the paged engine raises the
-    reference's UnsupportedModelError."""
-    from repro_torch.optim.adamw import AdamW
-    from repro_torch.train.train_step import make_train_step
+@pytest.mark.parametrize("arch", SSM_HYBRID_ENCDEC)
+def test_engine_refuses_the_ssm_hybrid_and_encdec_families(arch):
+    """The paged engine raises the reference's UnsupportedModelError for
+    mamba2, jamba and whisper (their training: tests/test_torch_train_*.py)."""
     _, pcfg = serve_configs(arch)
     params = port_model.init_params(pcfg, torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    batch = {"tokens": toks, "targets": toks,
-             "frames": torch.zeros((1, pcfg.encoder_seq, pcfg.d_model))}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md .* item 7\.4"):
-        port_model.train_forward(params, batch, pcfg)
-    with pytest.raises(NotImplementedError, match=r"item 7\.4"):
-        port_model.check_trainable(pcfg)
-    with pytest.raises(NotImplementedError, match=r"item 7\.4"):
-        make_train_step(pcfg, optimizer=AdamW())
     with pytest.raises(UnsupportedModelError):
         ServeEngine(params, pcfg, device="cpu", max_batch=2, page_size=8,
                     max_ctx=32)
@@ -389,16 +425,6 @@ def test_interleaved_moe_stack_raises_as_reference():
     bad = dataclasses.replace(pcfg, moe_every=2)
     with pytest.raises(ValueError, match="interleaved"):
         port_model.init_params(bad, torch.Generator().manual_seed(0))
-
-
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b",
-                                  "internvl2-1b"])
-def test_training_of_the_new_families_waits(arch):
-    from repro_torch.optim.adamw import AdamW
-    from repro_torch.train.train_step import make_train_step
-    _, pcfg = _configs(arch)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_train_step(pcfg, optimizer=AdamW())
 
 
 def test_configs_are_the_references_data():
@@ -419,7 +445,10 @@ def test_serve_launcher_takes_the_new_architectures(arch):
     zero frames for the enc-dec, as the reference's; the hybrid takes the
     SSM's path, and its reduced 16 layers cost a CPU ~15 s); with
     ``--engine`` each stops with ``UnsupportedModelError``;
-    ``launch.train`` stops on each with ``NotImplementedError``."""
+    ``launch.train`` trains the MoE and the SSM a step and stops, as the
+    reference's launcher, with ``KeyError`` on the VLM's patches and the
+    enc-dec's frames (its batches hold tokens and targets only;
+    tests/test_torch_train_families.py runs the reference's)."""
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     args = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
@@ -429,6 +458,13 @@ def test_serve_launcher_takes_the_new_architectures(arch):
     assert np.isfinite(out["logprobs"]).all()
     with pytest.raises(UnsupportedModelError):
         launch_serve.main(args + ["--engine"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                           "--steps", "1"])
+    train = ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1",
+             "--seq", "8", "--batch", "2"]
+    missing = {"vlm": "patches", "encdec": "frames"}.get(
+        port_get_config(arch).family)
+    if missing:
+        with pytest.raises(KeyError, match=missing):
+            launch_train.main(train)
+    else:
+        out = launch_train.main(train)
+        assert out["step"] == 1 and np.isfinite(out["last_loss"])

@@ -2,10 +2,11 @@
 tree (a tuple of ``attn_every`` per-index dicts, each leaf stacked over
 the periods) handed across by ``interop.params_from_numpy`` bit for bit,
 the port's ``init_params`` building the reference's layout for the
-three serve-only families, and reduced jamba-1.5-large-398b (one 8-layer
-period: attention at index 3, MoE FFNs at the odd indices, SSD mixers
-elsewhere) served whole under ``ff_reduce`` (``test_torch_families.
-check_serving``; tolerances there).  ``ff_math`` in the hybrid runs
+SSM, hybrid and enc-dec families, and reduced jamba-1.5-large-398b (one
+8-layer period: attention at index 3, MoE FFNs at the odd indices, SSD
+mixers elsewhere) served whole under ``ff_reduce`` (``test_torch_families.
+check_serving``; tolerances there), also from a prompt shorter than the
+conv window (``check_short_prompt``).  ``ff_math`` in the hybrid runs
 only code whose ``ff_math`` cases live elsewhere: the SSD mixer's
 (tests/test_torch_mamba2.py) and the experts' silu gate
 (tests/test_torch_moe.py), so its case is left out (each case costs the
@@ -21,6 +22,8 @@ import test_torch_families as families
 from repro.models import model as ref_model
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import model as port_model
+
+one_thread = families.one_thread
 
 
 def _bits(t):
@@ -50,7 +53,7 @@ def test_params_from_numpy_carries_the_hybrid_tuple():
         assert a.dtype == b.dtype and np.array_equal(_bits(a), _bits(b))
 
 
-@pytest.mark.parametrize("arch", families.SERVE_ONLY)
+@pytest.mark.parametrize("arch", families.SSM_HYBRID_ENCDEC)
 def test_init_params_builds_the_reference_layout(arch):
     """The same tree (dicts, the hybrid's tuple), leaf shapes and dtypes
     as ``jax.eval_shape`` of the reference's ``init_params``."""
@@ -77,6 +80,10 @@ def test_prefill_and_decode_logits_match_reference():
 
 def test_greedy_generate_matches_reference():
     families.check_serving("jamba-1.5-large-398b", "ff_reduce", "tokens")
+
+
+def test_short_prompt_prefill_matches_reference():
+    families.check_short_prompt("jamba-1.5-large-398b")
 
 
 def test_full_jamba_fits_no_card():

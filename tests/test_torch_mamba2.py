@@ -34,6 +34,8 @@ RTOL_MAX = 1e-4
 REF_USE = dict(exp="jnp", log1p="jnp", mean_sq="jnp")
 PORT_USE = dict(exp="pallas", log1p="pallas")
 
+one_thread = families.one_thread
+
 
 def _rel(got, want):
     got, want = np.asarray(got), np.asarray(want)
@@ -176,8 +178,9 @@ def test_ssd_decode_step_continues_a_prefill(ff_math):
 def test_short_prompt_state_as_reference_and_prefill_raises():
     """A prompt shorter than W - 1 = 3: the reference's mixer returns a
     conv state of S rows and its decode step then fails on it; the port's
-    mixer returns the same short state, and its prefill raises
-    ``ValueError`` naming the conv window."""
+    mixer returns the same short state, its prefill runs (the cache's
+    conv state takes S rows, as the reference's) and a decode step after
+    it raises ``ValueError`` naming the conv state."""
     pcfg, p, pj = _mixer()
     x = np.random.default_rng(8).standard_normal(
         (2, 2, pcfg.d_model)).astype(np.float32)
@@ -192,10 +195,16 @@ def test_short_prompt_state_as_reference_and_prefill_raises():
     assert _rel(st["conv"], rst["conv"]) <= RTOL_MAX
     w = port_model.init_params(pcfg, torch.Generator().manual_seed(0))
     cache = port_model.init_cache(pcfg, 2, 8, torch.float32, device="cpu")
-    with pytest.raises(ValueError, match="conv window"):
-        port_model.prefill(w, {"tokens": torch.zeros((2, 2),
-                                                     dtype=torch.long)},
-                           pcfg, cache)
+    tokens = torch.zeros((2, 2), dtype=torch.long)
+    logits, cache = port_model.prefill(w, {"tokens": tokens}, pcfg, cache)
+    assert logits.shape == (2, pcfg.vocab_size)
+    assert cache["layers"]["conv"].shape[2] == 2
+    with pytest.raises(ValueError, match="conv state"):
+        port_model.decode_step(w, tokens[:, :1], 2, cache, pcfg)
+
+
+def test_short_prompt_prefill_matches_reference():
+    families.check_short_prompt("mamba2-370m")
 
 
 @pytest.mark.parametrize("pol", ["ff_reduce", "ff_math"])

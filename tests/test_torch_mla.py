@@ -50,6 +50,8 @@ REF_CFG = ref_get_config("deepseek-v2-236b").reduced(compute_dtype="float32")
 PORT_CFG = port_get_config("deepseek-v2-236b").reduced(
     compute_dtype="float32")
 
+one_thread = families.one_thread
+
 
 @pytest.fixture(scope="module")
 def weights():

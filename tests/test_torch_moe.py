@@ -45,6 +45,8 @@ from repro_torch.models import moe as port_moe
 
 REF_PINS = dict(sum="blocked", silu="jnp")
 
+one_thread = families.one_thread
+
 
 def _cfgs(arch="olmoe-1b-7b", **kw):
     kw = dict(compute_dtype="float32", **kw)

@@ -56,6 +56,7 @@ from repro_torch.kernels import ff_fused
 from repro_torch.optim import adamw as port_adamw
 from repro_torch.train.train_step import make_eval_step, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from test_torch_families import one_thread  # noqa: F401 (module fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_PINS = dict(logsumexp="jnp", mean_sq="jnp", sum="blocked", add="jnp",
@@ -336,16 +337,24 @@ STEP_CASES = {
 STEPS, LR, WARMUP = 3, 3e-4, 10
 
 
-def _reduced(get_config, dtype, chunk):
+def _reduced(get_config, dtype, chunk, arch="granite-3-2b"):
     extra = dict(compute_dtype=dtype)
     if chunk is not None:
         extra.update(loss_chunk=chunk, remat=True)
-    return get_config("granite-3-2b").reduced(**extra)
+    return get_config(arch).reduced(**extra)
 
 
 @pytest.mark.parametrize("case", sorted(STEP_CASES))
 def test_train_steps_match_reference(case):
-    """Loss and grad norm at every step within ``tol``; the Adam moments
+    steps_match_reference("granite-3-2b", case)
+
+
+def steps_match_reference(arch, case, seq=None, port_init=False):
+    """``STEP_CASES[case]`` on reduced ``arch`` (``seq`` overrides the
+    case's sequence length; ``port_init`` draws the weights with the
+    port's init, else the reference's).
+
+    Loss, aux and grad norm at every step within ``tol``; the Adam moments
     within ``mv_tol`` of each leaf's largest element (they carry the
     gradients elementwise).  The FF master weights ``w + master_lo``
     (float64 sums of the limbs) within 2 * sum(lr) everywhere: an Adam
@@ -356,16 +365,23 @@ def test_train_steps_match_reference(case):
     median element by ~sum(lr) / 2, so an update that is skipped or wrong
     fails.  Under ``ff_math`` the reference pins ``silu="jnp"`` and the
     port runs its steps inside ``ff.use(silu="jnp")``."""
-    (dtype, mb, chunk, seq, tol, mv_tol, w_tol, w_frac,
+    (dtype, mb, chunk, case_seq, tol, mv_tol, w_tol, w_frac,
      ff_math) = STEP_CASES[case]
-    rcfg = _reduced(ref_get_config, dtype, chunk)
-    pcfg = _reduced(port_get_config, dtype, chunk)
-    rparams = ref_init_params(rcfg, jax.random.PRNGKey(0))
+    seq = seq or case_seq
+    rcfg = _reduced(ref_get_config, dtype, chunk,
+                    arch.replace("-", "_").replace(".", "_"))
+    pcfg = _reduced(port_get_config, dtype, chunk, arch)
+    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    if port_init:
+        pparams = _port_init(pcfg)
+        rparams = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),
+                                         pparams)
+    else:
+        rparams = ref_init_params(rcfg, jax.random.PRNGKey(0))
+        pparams = params_from_numpy(as_np(rparams), device="cpu")
     ropt = ref_adamw.AdamW(
         learning_rate=ref_adamw.cosine_schedule(LR, WARMUP, STEPS))
     rstate = ropt.init(rparams)
-    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    pparams = params_from_numpy(as_np(rparams), device="cpu")
     pstate = opt_state_from_numpy(as_np(rstate), device="cpu")
     popt = port_adamw.AdamW(
         learning_rate=port_adamw.cosine_schedule(LR, WARMUP, STEPS))
@@ -395,9 +411,9 @@ def test_train_steps_match_reference(case):
 
     for i, (a, b) in enumerate(zip(ref_m, port_m)):
         assert np.isfinite(b["loss"]) and np.isfinite(b["grad_norm"])
-        for key in ("loss", "grad_norm"):
+        for key in ("loss", "aux", "grad_norm"):
             assert abs(a[key] - b[key]) <= tol * abs(a[key]), (i, key)
-        assert a["lr"] == b["lr"] and b["aux"] == 0.0
+        assert a["lr"] == b["lr"]
     assert int(pstate.count) == STEPS
     sched = port_adamw.cosine_schedule(LR, WARMUP, STEPS)
     bound = 2 * sum(float(sched(torch.tensor(c))) for c in
