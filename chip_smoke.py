@@ -61,7 +61,10 @@ Phases (any failed check raises, so the script exits non-zero):
      against their plain versions on the card (bit for bit; the fast
      softmax within 1 ulp) and ``ff_softmax`` within its float64 bound,
      at the reference table's shapes, granite-3-2b's d_model rows, the
-     longest row and a ragged one; the Program kernel against the AdamW
+     longest row, ragged and short ones, rows offset 1-3 floats from a
+     16-byte boundary and ``row_variants.row_edges`` (the +-0 max tie,
+     NaN, +inf, all -inf: a NaN for a NaN), each case logging the path
+     ``row_plan`` gave it; the Program kernel against the AdamW
      (0 ulp) and mean_sq (<= 1 ulp) kernels on their Programs; the
      routing by shape at granite-3-2b's vocabulary (the jnp formulation,
      one warning, no launch); ``table_elementwise`` at its three shapes
@@ -433,10 +436,15 @@ def adamw_check(torch, g, shape, scal, off=0) -> float:
 
 
 def ulp_diff(a, b) -> int:
+    """The largest distance in f32 steps between a and b; a NaN matches a
+    NaN, and a NaN against a number (or two shapes) is 2^32."""
     import torch
-    ia = a.contiguous().view(torch.int32).long()
-    ib = b.contiguous().view(torch.int32).long()
-    return int((ia - ib).abs().max())
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if a.shape != b.shape or not torch.equal(na, nb):
+        return 1 << 32
+    ia = a[~na].contiguous().view(torch.int32).long()
+    ib = b[~nb].contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max()) if ia.numel() else 0
 
 
 # ---------------------------------------------------------------------------
@@ -1322,11 +1330,13 @@ def phase_matmul(torch, clock_hz):
 # ---------------------------------------------------------------------------
 
 # whole-row shapes: the reference table's two, granite-3-2b's d_model rows
-# of a 4 x 128 step, the longest row the kernels take, a ragged one, and
-# the chaos smoke's token scores (1-3 rows over its vocabulary of 256),
-# the reduced family training steps' loss (2 x 16 rows over 512)
+# of a 4 x 128 step, the longest row the kernels take, ragged ones (cols
+# % 4 != 0: streamed or re-read, or 4-byte copies), rows shorter than
+# 128, the chaos smoke's token scores (1-3 rows over its vocabulary
+# of 256), the reduced family training steps' loss (2 x 16 rows over 512)
 ROW_SHAPES = ((4096, 4096), (256, 1024), (512, 2048), (64, 16384),
-              (3, 1000), (1, 256), (2, 256), (3, 256), (32, 512))
+              (3, 1000), (5, 1001), (7, 3), (6, 100), (301, 4097),
+              (1, 256), (2, 256), (3, 256), (32, 512))
 TABLE_SHAPES = ((256, 1024), (4096, 4096), (512, 2048))
 # per element: the 128-lane cascade of one value, TwoSum, the row max,
 # Div22; the f32 builtins expf/logf counted as one instruction each (a
@@ -1432,59 +1442,86 @@ def flat_limbs(outs):
             yield o
 
 
+def check_row_kernels(torch, name, x, worst):
+    """ff_softmax (both modes, both classes) and ff_norm_stats on the
+    rows x against their plain versions: bit for bit, the fast softmax
+    within 1 ulp, a NaN for a NaN; rows of finite x also within their
+    float64 bounds.  Logs the path each kernel took."""
+    from repro_torch.kernels import ff_fused
+    fin = torch.isfinite(x).all(-1)
+    line, paths = [], set()
+    for mode in ("softmax", "logsumexp"):
+        want64 = softmax_oracle(x[fin], mode)
+        for accurate in (False, True):
+            got = ff_fused.ff_softmax(x, mode, accurate)
+            paths.add(f"ff_softmax {ff_fused.ff_softmax.last_path}")
+            want = ff_fused.ff_softmax_plain(x, mode, accurate)
+            u = ulp_diff(got, want)
+            if u > (0 if accurate else 1):
+                raise AssertionError(
+                    f"ff_softmax {mode} accurate={accurate} {name}: "
+                    f"kernel {u} ulp from plain")
+            worst["ff_softmax"] = max(worst["ff_softmax"], float(
+                torch.nan_to_num((got - want).abs(), nan=0.0).max()))
+            e = (softmax_bound_ok(got[fin], want64, x[fin], mode, accurate)
+                 if bool(fin.any()) else float("nan"))
+            line.append(f"{mode}{' acc' if accurate else ''} {u} ulp "
+                        f"({e:.1f} u vs float64)")
+    mu, var = ff_fused.ff_norm_stats(x)
+    paths.add(f"ff_norm_stats {ff_fused.ff_norm_stats.last_path}")
+    pmu, pvar = ff_fused.ff_norm_stats_plain(x)
+    if ulp_diff(mu, pmu) or ulp_diff(var, pvar):
+        raise AssertionError(f"ff_norm_stats {name}: kernel != plain "
+                             f"({ulp_diff(mu, pmu)}, {ulp_diff(var, pvar)} "
+                             f"ulp)")
+    v64, m64 = torch.var_mean(x[fin].double(), -1, correction=0)
+    if not (bool(((mu[fin].double() - m64).abs() <= 2.0 ** -20
+                  * x[fin].abs().amax(-1)).all())
+            and bool(((var[fin].double() - v64).abs() <= 2.0 ** -20
+                      * v64).all())):
+        raise AssertionError(f"ff_norm_stats {name} vs float64")
+    log(f"fused {name}: ff_softmax kernel vs plain: {'; '.join(line)}"
+        f"; ff_norm_stats bitwise; {int((~fin).sum())} non-finite rows "
+        f"(a NaN for a NaN); paths {', '.join(sorted(paths))}")
+
+
 def phase_fused_checks(torch):
     """Each new kernel against its plain version on the card: ff_softmax
     (both modes, both classes) bit for bit when accurate and within 1 ulp
     with expf, each within its float64 bound; ff_norm_stats bit for bit;
+    at ``ROW_SHAPES``, on rows offset 1-3 floats from a 16-byte boundary
+    and on ``row_variants.row_edges`` (+-0 max tie, NaN, +inf, all -inf;
+    ``check_row_kernels``);
     the Program kernel bit for bit on every case of ``program_cases``,
     and against the two dedicated kernels on their Programs: the AdamW
     kernel at 0 ulp, mean_sq at <= 1 ulp.  Returns the largest
     kernel-vs-plain differences and the plain versions' times."""
     import repro_torch.ff as ff
+    from repro_torch.benchmarks.row_variants import row_edges
+    from repro_torch.benchmarks.stream_variants import offset_view
     from repro_torch.kernels import ff_fused
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     worst = {"ff_softmax": 0.0, "ff_norm_stats": 0.0, "ff_program": 0.0}
     plain_ms = {}
-    for shape in ROW_SHAPES:
-        x = torch.randn(shape, generator=g, device="cuda") * 3.0
-        line = []
-        for mode in ("softmax", "logsumexp"):
-            want64 = softmax_oracle(x, mode)
-            for accurate in (False, True):
-                got = ff_fused.ff_softmax(x, mode, accurate)
-                want = ff_fused.ff_softmax_plain(x, mode, accurate)
-                u = ulp_diff(got, want)
-                worst["ff_softmax"] = max(worst["ff_softmax"], float(
-                    (got - want).abs().max()))
-                if u > (0 if accurate else 1):
-                    raise AssertionError(
-                        f"ff_softmax {mode} accurate={accurate} {shape}: "
-                        f"kernel {u} ulp from plain")
-                e = softmax_bound_ok(got, want64, x, mode, accurate)
-                line.append(f"{mode}{' acc' if accurate else ''} {u} ulp "
-                            f"({e:.1f} u vs float64)")
-                if shape == ROW_SHAPES[0]:
+    cases = [(f"{shape}", torch.randn(shape, generator=g, device="cuda")
+              * 3.0) for shape in ROW_SHAPES]
+    cases += [(f"{shape} offset {o}", offset_view(torch.randn(
+        shape, generator=g, device="cuda") * 3.0, o))
+        for shape, o in (((271, 2048), 1), ((271, 4096), 2),
+                         ((3, 16384), 3))]
+    cases += [(f"edge: {k}", v) for k, v in row_edges("cuda").items()]
+    for name, x in cases:
+        check_row_kernels(torch, name, x, worst)
+        if name == f"{ROW_SHAPES[0]}":
+            for mode in ("softmax", "logsumexp"):
+                for accurate in (False, True):
                     plain_ms[(mode, accurate)] = cuda_ms(
                         lambda: ff_fused.ff_softmax_plain(x, mode,
                                                           accurate), 1)
-        mu, var = ff_fused.ff_norm_stats(x)
-        pmu, pvar = ff_fused.ff_norm_stats_plain(x)
-        if not (torch.equal(mu, pmu) and torch.equal(var, pvar)):
-            raise AssertionError(f"ff_norm_stats {shape}: kernel != plain "
-                                 f"({ulp_diff(mu, pmu)}, "
-                                 f"{ulp_diff(var, pvar)} ulp)")
-        v64, m64 = torch.var_mean(x.double(), -1, correction=0)
-        if not (bool(((mu.double() - m64).abs() <= 2.0 ** -20
-                      * x.abs().amax(-1)).all())
-                and bool(((var.double() - v64).abs() <= 2.0 ** -20
-                          * v64).all())):
-            raise AssertionError(f"ff_norm_stats {shape} vs float64")
-        if shape == ROW_SHAPES[0]:
             plain_ms["norm_stats"] = cuda_ms(
                 lambda: ff_fused.ff_norm_stats_plain(x), 1)
-        log(f"fused {shape}: ff_softmax kernel vs plain: {'; '.join(line)}"
-            f"; ff_norm_stats bitwise")
         del x
+    del cases
     torch.cuda.synchronize()
 
     for name, fn, ops in program_cases(torch, g):
@@ -1637,14 +1674,16 @@ def phase_fused_timing(torch, plain_ms, clock_hz):
                     lambda m=mode, a=acc: ff_fused.ff_softmax(x, m, a),
                     plain_ms.get((mode, acc)) if R == 4096 else None, lib,
                     byts, ops, peak_ops, 20)
-                rows["ff_softmax"].append(dict(shape=[R, C], mode=mode,
-                                               accurate=acc, **rec))
+                rows["ff_softmax"].append(dict(
+                    shape=[R, C], mode=mode, accurate=acc,
+                    path=ff_fused.ff_softmax.last_path, **rec))
         rows["ff_norm_stats"].append(dict(shape=[R, C], **time_kernel(
             lambda: ff_fused.ff_norm_stats(x),
             lambda: ff_fused.ff_norm_stats(x),
             plain_ms["norm_stats"] if R == 4096 else None,
             lambda: torch.var_mean(x, -1, correction=0), 4 * n + 8 * R,
-            n * NORM_STATS_OPS + 2 * R * LANE_FOLD, peak_ops, 20)))
+            n * NORM_STATS_OPS + 2 * R * LANE_FOLD, peak_ops, 20),
+            path=ff_fused.ff_norm_stats.last_path))
         a = torch.tensor(1.618, device="cuda")
         xf = FF(x, x * 1e-8)
         yf = FF(x * 0.5, x * 1e-9)
@@ -1664,7 +1703,8 @@ def phase_fused_timing(torch, plain_ms, clock_hz):
             log(f"{name}{what} {r['shape']}: kernel {r['ms']:.4f} ms (call "
                 f"{r['call_ms']:.4f}), plain {r['plain_ms']}, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-                f"{r['library_ms']}")
+                f"{r['library_ms']}"
+                + (f", path {r['path']}" if "path" in r else ""))
     return rows
 
 

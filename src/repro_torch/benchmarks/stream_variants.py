@@ -180,26 +180,32 @@ def edits_of(name: str) -> Tuple[Edit, ...]:
     return VARIANTS[name] or ()
 
 
-def variant_dir(name: str) -> Path:
-    return build.ROOT / "build" / "variants" / ("stream_" + re.sub(
+def variant_dir(name: str, prefix: str = "stream_") -> Path:
+    return build.ROOT / "build" / "variants" / (prefix + re.sub(
         r"\W+", "_", name))
 
 
-def build_variants(names, baseline: Optional[str] = None
+def build_variants(names, baseline: Optional[str] = None, *,
+                   libs: Tuple[str, ...] = LIBS,
+                   edits_fn: Callable[[str], Tuple[Edit, ...]] = None,
+                   prefix: str = "stream_"
                    ) -> Dict[str, Tuple[Path, Dict[str, str]]]:
-    """Build each source variant's two libraries (and ``baseline``'s, from
-    that csrc/ directory as it is); returns name -> (directory, {library:
-    nvcc log}).  ``shipped`` and ``strided path`` use the port's build."""
+    """Build each source variant's libraries (``libs``; and
+    ``baseline``'s, from that csrc/ directory as it is) into
+    ``build/variants/<prefix><name>``; returns name -> (directory,
+    {library: nvcc log}).  A variant without edits (``edits_fn``, by
+    default this module's ``edits_of``) uses the port's build."""
+    edits_of_ = edits_fn or edits_of
     out = build.build_all()
     shipped = (out, {lib: (out / f"lib{lib}.log").read_text()
-                     for lib in LIBS})
-    sources = {n: (build.CSRC, edits_of(n)) for n in names if edits_of(n)}
+                     for lib in libs})
+    sources = {n: (build.CSRC, edits_of_(n)) for n in names if edits_of_(n)}
     if baseline:
         sources["baseline"] = (Path(baseline), ())
-    res = {n: shipped for n in names if not edits_of(n)}
+    res = {n: shipped for n in names if not edits_of_(n)}
     procs = {}
     for name, (src, edits) in sources.items():
-        d = variant_dir(name)
+        d = variant_dir(name, prefix)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src, d)
         for fname, old, new in edits:
@@ -208,7 +214,7 @@ def build_variants(names, baseline: Optional[str] = None
                 raise RuntimeError(f"variant {name!r}: {old!r} not found "
                                    f"once in {fname}")
             (d / fname).write_text(text.replace(old, new))
-        for lib in LIBS:
+        for lib in libs:
             cmd = [build._nvcc(), *build.FLAGS, "-I", str(d), "-o",
                    str(d / f"lib{lib}.so"), str(d / f"{lib}.cu")]
             procs[(name, lib)] = subprocess.Popen(
@@ -222,7 +228,7 @@ def build_variants(names, baseline: Optional[str] = None
                                f"build:\n{log[-4000:]}")
         logs.setdefault(name, {})[lib] = log
     for name in sources:
-        res[name] = (variant_dir(name), logs[name])
+        res[name] = (variant_dir(name, prefix), logs[name])
     return res
 
 
@@ -246,12 +252,14 @@ def instance_label(mangled: str) -> Optional[str]:
     return None
 
 
-def ptxas_info(log: str) -> Dict[str, dict]:
+def ptxas_info(log: str, label_of: Callable[[str], Optional[str]] = None
+               ) -> Dict[str, dict]:
     """Registers, spill and stack bytes of each kernel instance
-    (``-Xptxas -v``), by ``instance_label``."""
+    (``-Xptxas -v``), by ``label_of`` (this module's ``instance_label``
+    unless given)."""
     out = {}
     for block in log.split("Compiling entry function")[1:]:
-        label = instance_label(block.split("\n", 1)[0])
+        label = (label_of or instance_label)(block.split("\n", 1)[0])
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)

@@ -14,6 +14,11 @@ The general Program executor and two dedicated programs of
     (``csrc/ff_softmax.cu``); ``ff_norm_stats``, the compensated mean and
     centred variance (``csrc/ff_norm_stats.cu``).  Rows up to
     ``MAX_FUSED_COLS``; the plain versions fold in the same lane order.
+    Both launch on ``row_plan``'s path: four warps a row; each row
+    copied into shared memory by 16-byte ``cp.async`` where the rows
+    allow it, else 4-byte, or, where the card holds every row at once,
+    read there by the first pass (``ff_norm_stats``: read by each
+    pass).
   * ``mean_sq``, the FF RMSNorm statistic ``(x*x).sum() / C``
     (``csrc/ff_mean_sq.cu``).  The kernel keeps the TPU kernel's 128
     lanes and their fold order; the plain version is the reference's CPU
@@ -31,7 +36,8 @@ The general Program executor and two dedicated programs of
 from __future__ import annotations
 
 import ctypes
-from typing import Any, List, Sequence, Tuple
+import functools
+from typing import Any, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -227,9 +233,84 @@ def _rows(x: Tensor, what: str) -> Tuple[Tensor, Tuple[int, ...]]:
     return x2, x.shape
 
 
+# -- the whole-row kernels' plan (csrc/ff_rows.cuh) ---------------------------
+
+STREAM_COLS = 2048           # rows of up to this many columns may stream
+REREAD_COLS = 8192           # ff_norm_stats' rows up to this may be re-read
+# rows a block: two where one warp's fold for both saves a fold's issue
+# (two folds a row, or long accurate passes), one in the fast modes,
+# whose single fold's barrier would hold back the other row; the launch
+# takes fewer where they do not fit in shared memory
+ROWS_PER_BLOCK = {"norm_stats": 2, "softmax": 1, "logsumexp": 1,
+                  "softmax accurate": 2, "logsumexp accurate": 2}
+# enum Path of csrc/ff_rows.cuh
+_PATH_CODES = {"staged scalar": 0, "staged": 1, "streamed": 2, "reread": 3}
+
+
+class RowPlan(NamedTuple):
+    """A whole-row launch: four warps a row, thread l TPU lane l.
+    ``path``: how the row gets on chip: "staged" / "staged scalar"
+    (copied into shared memory by cp.async, 16 / 4 bytes a copy: 4 where
+    the row is ragged or starts off 16 bytes), "streamed" (read into it
+    by the first pass) or "reread" (``norm_stats``: one block a row, read
+    by each pass, the second from L1); ``rows_per_block``: rows a block
+    asked for."""
+    path: str
+    rows_per_block: int
+
+
+@functools.lru_cache(maxsize=1024)
+def row_plan(rows: int, cols: int, offset: int, kind: str = "norm_stats",
+             sms: int = 132, sm_threads: int = 2048) -> RowPlan:
+    """The plan of a whole-row launch of ``kind`` (a key of
+    ``ROWS_PER_BLOCK``) over (rows, cols) f32 rows whose first starts
+    ``offset`` bytes past a 16-byte boundary, on a card of ``sms`` SMs of
+    ``sm_threads`` threads.  Where the card's threads hold all the rows
+    at once (one wave), ``norm_stats`` re-reads rows of up to
+    ``REREAD_COLS`` columns if there are at least as many as SMs, and
+    the other kernels stream rows of up to ``STREAM_COLS``: the first
+    pass starts as its data arrives.  Other rows are staged, all of a
+    row in flight at once (the most bytes in flight where an SM has one
+    row or none), by 16-byte copies where ``cols % 4 == 0`` and
+    ``offset == 0``, else 4-byte ones.  ``ROWS_PER_BLOCK[kind]`` rows a
+    block, but no more than leave a block for each SM."""
+    w = max(1, min(ROWS_PER_BLOCK[kind], rows // sms))
+    one_wave = rows <= sms * (sm_threads // LANE)
+    if kind == "norm_stats":
+        if one_wave and sms <= rows and cols <= REREAD_COLS:
+            return RowPlan("reread", 1)
+    elif one_wave and cols <= STREAM_COLS:
+        return RowPlan("streamed", w)
+    if cols % 4 or offset % VECTOR_ALIGN:
+        path = "staged scalar"
+    else:
+        path = "staged"
+    return RowPlan(path, w)
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> Tuple[int, int]:
+    """(SMs, threads an SM) of CUDA device ``index``."""
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count, getattr(
+        p, "max_threads_per_multi_processor", 2048)
+
+
+def _row_plan_of(x2: Tensor, kind: str) -> RowPlan:
+    return row_plan(*x2.shape, x2.data_ptr() % VECTOR_ALIGN, kind,
+                    *_card(x2.get_device()))
+
+
+def row_walk(cols: int) -> List[List[Tuple[int, int]]]:
+    """The kernels' walk of one row: for each of its 128 threads, the
+    (lane, column) pairs of its lane cascade in the order it adds them
+    (``each_col`` of ff_rows.cuh; every path)."""
+    return [[(t, j) for j in range(t, cols, LANE)] for t in range(LANE)]
+
+
 def _row_entry(name: str, fn: str, argtypes, x2: Tensor, outs, *extra):
-    """Launch a one-block-per-row kernel of lib``name`` on (R, C) f32
-    rows; raises on a launch error."""
+    """Launch a whole-row kernel of lib``name`` on (R, C) f32 rows; raises
+    on a launch error."""
     R, C = x2.shape
     if R >= 2 ** 31:
         raise ValueError(f"{name} kernel takes < 2^31 rows, got {R}")
@@ -255,10 +336,10 @@ def _kernel_rows(x: Tensor, what: str
 # -- ff_softmax: softmax / log-sum-exp over the last axis ---------------------
 
 _SOFTMAX_MODES = {"softmax": 0, "logsumexp": 1}
-# ff_softmax_f32(x, out, rows, cols, mode, accurate, stream)
-_SOFTMAX_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p]
+# ff_softmax_f32(x, out, rows, cols, mode, accurate, path, rows_per_block,
+#                stream)
+_SOFTMAX_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
 
 
 def _check_mode(mode: str) -> None:
@@ -302,9 +383,9 @@ def ff_softmax(x: Tensor, mode: str = "softmax",
     an f32 tensor, as :func:`ff_softmax_plain` (bit for bit with
     ``accurate``; with the f32 builtin exp, to the card's ``expf``).
 
-    On a CUDA tensor: one launch (raises if it cannot launch); on a CPU
-    tensor: the plain version.  Rows longer than ``MAX_FUSED_COLS``
-    raise ``ValueError``."""
+    On a CUDA tensor: one launch on ``row_plan``'s path (raises if it
+    cannot launch); on a CPU tensor: the plain version.  Rows longer than
+    ``MAX_FUSED_COLS`` raise ``ValueError``."""
     if x.device.type == "cpu":
         return ff_softmax_plain(x, mode, accurate)
     _check_mode(mode)
@@ -315,19 +396,23 @@ def ff_softmax(x: Tensor, mode: str = "softmax",
     else:
         out = torch.empty((R,), dtype=torch.float32, device=x.device)
     if R and C:
+        plan = _row_plan_of(x2, mode + (" accurate" if accurate else ""))
         _row_entry("ff_softmax", "ff_softmax_f32", _SOFTMAX_ARGTYPES, x2,
-                   (out,), _SOFTMAX_MODES[mode], int(bool(accurate)))
+                   (out,), _SOFTMAX_MODES[mode], int(bool(accurate)),
+                   _PATH_CODES[plan.path], plan.rows_per_block)
         ff_softmax.launches += 1
+        ff_softmax.last_path = plan.path
     return out.reshape(shape if mode == "softmax" else shape[:-1])
 
 
 ff_softmax.launches = 0   # kernel launches since the last reset
+ff_softmax.last_path = None   # the last launch's path (row_plan)
 
 
 # -- ff_norm_stats: LayerNorm statistics --------------------------------------
 
-# ff_norm_stats_f32(x, mu, var, rows, cols, stream)
-_NORM_STATS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+# ff_norm_stats_f32(x, mu, var, rows, cols, path, rows_per_block, stream)
+_NORM_STATS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
 
 
@@ -347,9 +432,9 @@ def ff_norm_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
     """One-kernel compensated mean and centred variance over the last axis
     of an f32 tensor, bit for bit :func:`ff_norm_stats_plain`.
 
-    On a CUDA tensor: one launch (raises if it cannot launch); on a CPU
-    tensor: the plain version.  Rows longer than ``MAX_FUSED_COLS``
-    raise ``ValueError``."""
+    On a CUDA tensor: one launch on ``row_plan``'s path (raises if it
+    cannot launch); on a CPU tensor: the plain version.  Rows longer than
+    ``MAX_FUSED_COLS`` raise ``ValueError``."""
     if x.device.type == "cpu":
         return ff_norm_stats_plain(x)
     x2, shape = _kernel_rows(x, "ff_norm_stats")
@@ -357,13 +442,17 @@ def ff_norm_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
     mu = torch.empty((R,), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mu)
     if R and C:
+        plan = _row_plan_of(x2, "norm_stats")
         _row_entry("ff_norm_stats", "ff_norm_stats_f32",
-                   _NORM_STATS_ARGTYPES, x2, (mu, var))
+                   _NORM_STATS_ARGTYPES, x2, (mu, var),
+                   _PATH_CODES[plan.path], plan.rows_per_block)
         ff_norm_stats.launches += 1
+        ff_norm_stats.last_path = plan.path
     return mu.reshape(shape[:-1]), var.reshape(shape[:-1])
 
 
 ff_norm_stats.launches = 0   # kernel launches since the last reset
+ff_norm_stats.last_path = None   # the last launch's path (row_plan)
 
 
 # -- run_program: the general ff.fusion Program executor ----------------------
